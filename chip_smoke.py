@@ -19,7 +19,19 @@ order, it
      the actions, swaps and quarantines, that both kernels ran on that
      path, and that the same frames through the port on the CPU give the
      identical JSONL event stream;
-  5. prints one JSON line of per-kernel numbers, then
+  5. holds the flash-attention kernel against its plain version on the
+     card at qwen3-4b's prefill shape (bfloat16 and float32) and at a
+     ragged non-causal shape, and times it beside PyTorch's
+     ``scaled_dot_product_attention``;
+  6. holds the WKV6 kernel against its plain version at rwkv6-7b's
+     prefill shape and at a reduced one, and times it;
+  7. serves full-width, full-depth qwen3-4b (weights from a seeded
+     generator on the card): ``Model.prefill`` of 4,096 tokens on the
+     kernel path, which must launch flash attention once per layer and
+     agree with the same model run through the plain attention, then a
+     ``BatchedServer`` of 12 requests on 4 slots to completion;
+  8. the same for full rwkv6-7b, with WKV6 once per layer at 2,048 tokens;
+  9. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -27,6 +39,7 @@ a CUDA device, or without the repository next to it, it fails at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -38,6 +51,7 @@ ROOT = Path(__file__).resolve().parent
 # one NVIDIA H100 SXM (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_SIMT_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
 
 N_MAIN = 16_384            # nodes on the main path
 N_SPARES = 64
@@ -327,6 +341,307 @@ def phase_main(torch, np):
     return k1, k2
 
 
+# ------------------------------------------------------------ phase 5: K3
+
+def close_err(got, want, atol: float, rtol: float, what: str) -> float:
+    """Largest |got - want|; fails unless every element of ``got`` is
+    finite and within atol + rtol |want|."""
+    import torch
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    ok = bool(torch.isfinite(g).all()) and bool(
+        (d <= atol + rtol * w.abs()).all())
+    err = float(d.max())
+    check(ok, f"{what}: max abs err {err} beyond atol {atol}, rtol {rtol}")
+    return err
+
+
+def bound(flops: float, peak: float, nbytes: float):
+    """(bound ms, what bounds it): the larger of operations over the peak
+    rate of their type and bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_k3(torch, np):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_flops,
+                                                     attention_ref,
+                                                     flash_attention)
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version: fp32
+    torch.backends.cudnn.allow_tf32 = False
+    main = None
+    # B, Hq, Hkv, S, T, hd, causal, dtype, tolerance (atol = rtol; the
+    # reference's own: float32 2e-5, bfloat16 3e-2). The first is
+    # qwen3-4b's prefill at 4,096 tokens, the main path's shape.
+    for i, (b, hq, hkv, s, t, hd, causal, dt, tol) in enumerate([
+            (1, 32, 8, 4096, 4096, 128, True, torch.bfloat16, 3e-2),
+            (1, 32, 8, 4096, 4096, 128, True, torch.float32, 2e-5),
+            (2, 8, 2, 300, 450, 64, False, torch.bfloat16, 3e-2)]):
+        rng = np.random.default_rng(100 + i)
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to("cuda", dt) for shape in (
+                (b, hq, s, hd), (b, hkv, t, hd), (b, hkv, t, hd)))
+        got = flash_attention(q, k, v, causal=causal)
+        want = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tag = (f"K3 flash_attention B,Hq,Hkv,S,T,hd={b},{hq},{hkv},{s},{t},"
+               f"{hd} {'causal' if causal else 'full'} "
+               f"{str(dt).split('.')[-1]}")
+        err = close_err(got, want, tol, tol, tag)
+        del got, want
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                     reps=10, warm=2)
+        plain = time_ms(lambda: attention_ref(q, k, v, causal=causal),
+                        reps=5, warm=1)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), reps=10, warm=2)
+        flops = attention_flops(b, hq, s, t, hd, causal=causal)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else FP32_SIMT_FLOPS
+        bnd, by = bound(flops, peak, nbytes)
+        print(f"{tag}: max abs err {err:.3e} (tol {tol}); kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
+              f"sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+        if main is None:
+            main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                        bound_ms=bnd, bound_by=by, library_ms=lib,
+                        shape=[b, hq, hkv, s, t, hd])
+        del q, k, v
+    torch.cuda.empty_cache()
+    return main
+
+
+# ------------------------------------------------------------ phase 6: K4
+
+def phase_k4(torch, np):
+    from repro_torch.kernels.wkv6 import (wkv6_bytes, wkv6_chunked,
+                                          wkv6_flops, wkv6_ref)
+    main = None
+    # B, S, H, hd, chunk, r/k/v dtype. The first is rwkv6-7b's prefill at
+    # 2,048 tokens with the model's chunk of 32, the main path's shape.
+    for i, (b, s, h, hd, c, dt) in enumerate([
+            (1, 2048, 64, 64, 32, torch.bfloat16),
+            (2, 128, 4, 32, 32, torch.float32),
+            (1, 256, 2, 128, 64, torch.float32)]):
+        rng = np.random.default_rng(200 + i)
+
+        def mk(*shape, scale=0.5):
+            x = rng.standard_normal(shape, dtype=np.float32) * scale
+            return torch.from_numpy(x).cuda()
+        # model layout, seen through transposes as the model passes them
+        r, k, v = (mk(b, s, h, hd).to(dt).transpose(1, 2) for _ in range(3))
+        logw = (-torch.exp(mk(b, s, h, hd) - 2.0)).transpose(1, 2)
+        u, s0 = mk(h, hd, scale=0.15), mk(b, h, hd, hd, scale=0.05)
+        y, st = wkv6_chunked(r, k, v, logw, u, s0, chunk=c)
+        wy, ws = wkv6_ref(r, k, v, logw, u, s0, chunk=c)
+        torch.cuda.synchronize()
+        tag = (f"K4 wkv6 B,S,H,hd={b},{s},{h},{hd} chunk {c} "
+               f"{str(dt).split('.')[-1]}")
+        err = max(close_err(y, wy, 2e-3, 1e-3, tag + " y"),
+                  close_err(st, ws, 2e-3, 1e-3, tag + " state"))
+        ms = time_ms(lambda: wkv6_chunked(r, k, v, logw, u, s0, chunk=c))
+        plain = time_ms(lambda: wkv6_ref(r, k, v, logw, u, s0, chunk=c),
+                        reps=5, warm=1)
+        flops = wkv6_flops(b, h, s, hd, c)
+        nbytes = wkv6_bytes(b, h, s, hd, r.element_size())
+        bnd, by = bound(flops, FP32_SIMT_FLOPS, nbytes)
+        print(f"{tag}: max abs err {err:.3e} (atol 2e-3, rtol 1e-3); kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, library none, bound "
+              f"{bnd:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP fp32, "
+              f"{nbytes / 1e6:.2f} MB)", flush=True)
+        if main is None:
+            main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                        bound_ms=bnd, bound_by=by, library_ms=None,
+                        shape=[b, s, h, hd, c])
+    return main
+
+
+# ---------------------------------------------- phases 7 and 8: serving
+
+# The kernel path and the plain path of one bfloat16 model differ only in
+# the order of float32 sums inside attention / WKV. That flips single
+# bfloat16 roundings, which then travel through every later layer of the
+# random-weight model and grow (measured on an H100: 2.1e-2 for qwen3-4b
+# at 36 layers, 5.4e-2 for rwkv6-7b at 32). Logits and caches must agree
+# within PATH_REL_TOL of their largest magnitude, and the first cache the
+# kernel feeds, before any growth, within FIRST_REL_TOL: qwen3-4b's layer
+# 1 K/V (one bfloat16 rounding of layer 0's attention away) and rwkv6-7b's
+# layer 0 WKV state (the kernel's own float32 output).
+PATH_REL_TOL = 1e-1
+FIRST_REL_TOL = {"dense": 2e-2, "ssm": 1e-3}
+
+
+@contextlib.contextmanager
+def plain_paths():
+    """Send the models' attention and WKV calls to the plain versions on
+    the card, for the comparison run; nothing of the port changes."""
+    from unittest import mock
+    import repro_torch.models.attention as attention_mod
+    import repro_torch.models.rwkv6 as rwkv6_mod
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.wkv6 import wkv6_ref
+
+    def attn(q, k, v, *, causal, q_offset=0, kv_len=0):
+        return attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                             causal=causal, q_offset=q_offset,
+                             kv_len=kv_len).transpose(1, 2)
+
+    def wkv(r, k, v, logw, u, s0, *, chunk):
+        y, st = wkv6_ref(*(t.transpose(1, 2) for t in (r, k, v, logw)), u,
+                         s0, chunk=chunk)
+        return y.transpose(1, 2), st
+
+    with mock.patch.object(attention_mod, "flash", attn), \
+            mock.patch.object(rwkv6_mod, "wkv6", wkv):
+        yield
+
+
+def device_profile(torch, fn, reps: int):
+    """Host-clock ms per call of ``fn`` (ending in a synchronize), and, from
+    ``torch.profiler`` over the same number of calls, the device's busy ms
+    per call (the sum of its kernels' times: the CPU-side operator rows,
+    which repeat their kernels' time, are left out) and the five kernels
+    with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(t for _, t in rows) / reps / 1e3
+    top = sorted(rows, key=lambda r: -r[1])[:5]
+    return wall, busy, [(k[:60], round(t / reps / 1e3, 4)) for k, t in top]
+
+
+def rel_err(got, want) -> float:
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def phase_serve(torch, np, arch: str, seq: int, counters: dict):
+    """Prefill at full width and depth on the kernel path, checked against
+    the plain path, then a BatchedServer to completion. Returns the
+    launches of each kernel during the prefill and the numbers."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchedServer, synthetic_requests
+    from repro_torch.models.model import Model
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, seq))).cuda()
+
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    check(bool(torch.isfinite(logits).all()),
+          f"{arch}: non-finite prefill logits")
+    with plain_paths():
+        plain_logits, plain_cache = model.prefill(tokens)
+    torch.cuda.synchronize()
+    check(all(c.launches == launches[n] for n, c in counters.items()),
+          f"{arch}: the plain path launched a kernel")
+    errs = {"logits": rel_err(logits, plain_logits)}
+    if cfg.family == "ssm":
+        for name in ("wkv", "x_tm", "x_cm"):
+            errs[name] = rel_err(cache[name], plain_cache[name])
+        first = ("layer 0 wkv", rel_err(cache["wkv"][0],
+                                        plain_cache["wkv"][0]))
+    else:
+        for name, got, want in zip("kv", cache["layers"],
+                                   plain_cache["layers"]):
+            errs[f"{name} cache"] = rel_err(got, want)
+        first = ("layer 1 k/v", max(
+            rel_err(got[1], want[1]) for got, want in
+            zip(cache["layers"], plain_cache["layers"])))
+    print(f"{arch} prefill kernel vs plain path, max abs err / max abs: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; {first[0]} {first[1]:.3e}", flush=True)
+    for name, e in errs.items():
+        check(e <= PATH_REL_TOL, f"{arch}: prefill {name} differs from the "
+                                 f"plain path by {e:.3e} of its largest "
+                                 f"magnitude (> {PATH_REL_TOL})")
+    check(first[1] <= FIRST_REL_TOL[cfg.family],
+          f"{arch}: {first[0]} differs from the plain path by "
+          f"{first[1]:.3e} (> {FIRST_REL_TOL[cfg.family]})")
+    del cache, plain_cache, plain_logits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+
+    p_wall, p_busy, p_top = device_profile(
+        torch, lambda: model.prefill(tokens), reps=2)
+    print(f"{arch} prefill profile: {p_wall:.1f} ms wall, device busy "
+          f"{p_busy:.1f} ms ({p_busy / p_wall:.0%}); top kernels (ms per "
+          f"prefill): {p_top}", flush=True)
+    dcache = model.init_cache(4, 512)
+    dtoks = torch.zeros(4, dtype=torch.long, device=model.device)
+    d_wall, d_busy, d_top = device_profile(
+        torch, lambda: model.decode_step(dtoks, dcache), reps=8)
+    print(f"{arch} decode step profile (batch 4): {d_wall:.2f} ms wall, "
+          f"device busy {d_busy:.2f} ms ({d_busy / d_wall:.0%}); top kernels"
+          f" (ms per step): {d_top}", flush=True)
+    del dcache
+
+    server = BatchedServer(model, 4, 512)
+    decode = model.decode_step
+    finite = []
+
+    def checked_step(toks, c):
+        out, c = decode(toks, c)
+        finite.append(torch.isfinite(out).all())
+        return out, c
+    model.decode_step = checked_step
+    queue = synthetic_requests(12, cfg.vocab_size, 0)
+    reqs = list(queue)
+    out = server.run(queue)
+    check(out["requests_done"] == 12 and all(r.done for r in reqs),
+          f"{arch}: server finished {out['requests_done']} of 12 requests")
+    check(bool(torch.stack(finite).all()),
+          f"{arch}: non-finite logits in a decode step")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
+          f"{arch}: a token outside the vocabulary")
+    nums = dict(init_s=init_s, first_prefill_s=first_s, prefill_s=prefill_s,
+                seq=seq, params=n_params, prefill_busy_ms=p_busy,
+                decode_step_ms=d_wall, decode_busy_ms=d_busy, **out)
+    print(f"{arch} ({n_params / 1e9:.2f} B params, {cfg.num_layers} layers):"
+          f" init {init_s:.2f} s; prefill of {seq} tokens {prefill_s * 1e3:.1f}"
+          f" ms ({seq / prefill_s:.0f} tok/s; first call {first_s * 1e3:.1f}"
+          f" ms); launches {launches}; server: {out['requests_done']} "
+          f"requests in {out['decode_steps']} decode steps, "
+          f"{out['tokens_out']} tokens, {out['wall_s']:.2f} s, "
+          f"{out['tok_per_s']:.1f} tok/s "
+          f"({out['decode_steps'] / out['wall_s']:.1f} steps/s at batch 4)",
+          flush=True)
+    del model, server, logits, decode
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, nums
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> None:
@@ -362,6 +677,25 @@ def main() -> None:
     k1 = phase_k1(torch, np, dirs)
     k2 = phase_k2(torch, np)
     n1, n2 = phase_main(torch, np)
+    k3 = phase_k3(torch, np)
+    k4 = phase_k4(torch, np)
+
+    from repro_torch.kernels.fleet_score import COUNTER as C1
+    from repro_torch.kernels.flash_attention import COUNTER as C3
+    from repro_torch.kernels.sweep_burn import COUNTER as C2
+    from repro_torch.kernels.wkv6 import COUNTER as C4
+    counters = {"fleet_score": C1, "sweep_burn": C2, "flash_attention": C3,
+                "wkv6": C4}
+    dense, _ = phase_serve(torch, np, "qwen3-4b", 4096, counters)
+    check(dense == {"fleet_score": 0, "sweep_burn": 0, "flash_attention": 36,
+                    "wkv6": 0},
+          f"qwen3-4b prefill launched {dense} (flash_attention once per "
+          f"layer, 36)")
+    ssm, _ = phase_serve(torch, np, "rwkv6-7b", 2048, counters)
+    check(ssm == {"fleet_score": 0, "sweep_burn": 0, "flash_attention": 0,
+                  "wkv6": 32},
+          f"rwkv6-7b prefill launched {ssm} (wkv6 once per layer, 32)")
+    n3, n4 = dense["flash_attention"], ssm["wkv6"]
 
     kernels = [
         {"name": "fleet_score", "route": "cuda",
@@ -377,6 +711,20 @@ def main() -> None:
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": "operations", "library_ms": k2["library_ms"],
          "shape": k2["shape"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:81",
+         "launches": n3, "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+         "shape": k3["shape"]},
+        {"name": "wkv6", "route": "cuda",
+         "source": "src/repro_torch/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/wkv6/wkv6.py:76",
+         "launches": n4, "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": k4["bound_by"], "library_ms": None,
+         "shape": k4["shape"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

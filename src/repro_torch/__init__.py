@@ -9,6 +9,11 @@ each TPU kernel on the ported path has a hand-written Hopper kernel in
   device    device resolution (no silent CPU fall back)
   core      telemetry, detector, policy, monitor, sweep, triage, manager
   guard     GuardSession facade, events, scheduler, local substrates
-  kernels   fleet_score and sweep_burn (CUDA kernels + plain versions)
-  convert   reference configs and detector state into the port
+  kernels   fleet_score, sweep_burn, flash_attention and wkv6 (CUDA
+            kernels + plain versions)
+  configs   the architecture configs (the port's own copy)
+  models    dense and ssm serving models: prefill and decode
+  launch    serve: the batched decode server
+  convert   reference configs, detector state and model parameters
+            into the port
 """

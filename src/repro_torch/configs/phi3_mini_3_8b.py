@@ -1,0 +1,20 @@
+"""phi3-mini-3.8b — dense, RoPE + SwiGLU + full MHA (kv == heads).
+
+[arXiv:2404.14219; unverified]
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="phi3-mini-3.8b",
+    family="dense",
+    num_layers=32,
+    d_model=3072,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=8192,
+    vocab_size=32064,
+    head_dim=96,
+    rope_theta=10_000.0,
+    act="swiglu",
+    source="arXiv:2404.14219",
+)

@@ -13,11 +13,16 @@ moves both across without importing ``repro``:
       continues where another detector (of either package) stopped.
   detector_state_to_numpy(detector)
       the inverse: that dict, from a port detector or a reference one.
+  model_params(jax_params, cfg, policy=..., device=...)
+      a port ``Model`` holding the JAX package's parameter tree (nested
+      dicts of numpy arrays): the stacked ``layers`` axis unstacked, every
+      (in, out) matrix kept as it is, each leaf cast to the compute dtype
+      once.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Mapping, Optional, Set
 
 import numpy as np
 import torch
@@ -27,6 +32,8 @@ from repro_torch.core.policy import PolicyConfig
 from repro_torch.core.sweep import SweepConfig
 from repro_torch.core.triage import Stage, TriageConfig
 from repro_torch.device import DeviceLike
+from repro_torch.models.common import Policy
+from repro_torch.models.model import Model
 
 
 def _fields_of(cls, obj, **override) -> dict:
@@ -133,6 +140,60 @@ def load_detector_state(detector: StragglerDetector,
                      for k, v in state["off"].items()}
 
 
+def _copy_tree(module: torch.nn.Module, tree: Mapping, prefix: str,
+               loaded: Set[str]) -> None:
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            _copy_tree(getattr(module, key), val, f"{name}.", loaded)
+            continue
+        param = getattr(module, key, None)
+        if not isinstance(param, torch.nn.Parameter):
+            raise KeyError(f"the port's model has no parameter {name}")
+        arr = np.array(val, np.float32)        # a writable copy
+        if arr.shape != tuple(param.shape):
+            raise ValueError(f"{name}: reference shape {arr.shape}, port "
+                             f"shape {tuple(param.shape)}")
+        param.data.copy_(torch.from_numpy(arr))
+        loaded.add(name)
+
+
+def _layer(tree: Mapping, i: int, depth: int) -> dict:
+    """Layer ``i`` of a tree whose every leaf is stacked ``depth`` deep."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            out[key] = _layer(val, i, depth)
+            continue
+        if np.shape(val)[0] != depth:
+            raise ValueError(f"{key}: reference layer axis "
+                             f"{np.shape(val)[0]}, port has {depth} layers")
+        out[key] = np.asarray(val)[i]
+    return out
+
+
+def model_params(jax_params: Mapping, cfg, *,
+                 policy: Optional[Policy] = None,
+                 device: DeviceLike = "cuda") -> Model:
+    """The port's ``Model`` of ``cfg`` carrying ``jax_params``, the values
+    of ``repro.models.model.Model.init_params`` as nested dicts of numpy
+    arrays. Raises unless every leaf of the tree finds its parameter, with
+    its shape, and every parameter of the port is set."""
+    model = Model(cfg, policy, device=device, seed=None)
+    loaded: Set[str] = set()
+    _copy_tree(model, {k: v for k, v in jax_params.items()
+                       if k != "layers"}, "", loaded)
+    depth = len(model.layers)
+    for i, lp in enumerate(model.layers):
+        _copy_tree(lp, _layer(jax_params["layers"], i, depth),
+                   f"layers.{i}.", loaded)
+    missing = sorted(set(dict(model.named_parameters())) - loaded)
+    if missing:
+        raise KeyError(f"reference tree leaves port parameters unset: "
+                       f"{missing[:8]}")
+    return model
+
+
 __all__ = ["detector_config", "detector_state_to_numpy",
-           "load_detector_state", "policy_config", "sweep_config",
-           "triage_config"]
+           "load_detector_state", "model_params", "policy_config",
+           "sweep_config", "triage_config"]

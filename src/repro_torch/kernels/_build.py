@@ -22,7 +22,7 @@ from typing import Dict, List, Sequence, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-# nvcc flags per source. Both keep IEEE division and square root (no
+# nvcc flags per source. All keep IEEE division, square root and expf (no
 # --use_fast_math); fleet_score also forbids fused multiply-adds so that
 # every product and sum is rounded on its own, as numpy rounds them.
 _COMMON = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -30,6 +30,8 @@ _COMMON = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 FLAGS: Dict[str, Tuple[str, ...]] = {
     "fleet_score": _COMMON + ("-fmad=false",),
     "sweep_burn": _COMMON,
+    "flash_attention": _COMMON,
+    "wkv6": _COMMON,
 }
 
 

@@ -1,0 +1,141 @@
+"""Shared layers: norms, RoPE, the dense MLPs, embeddings and the logits
+head, with the JAX package's dtype handling (statistics in float32, the
+result in the input's dtype)."""
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.common import Init
+
+# ---------------------------------------------------------------- norms
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """RMSNorm with the ``1 + scale`` convention (scale starts at zero)."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the last dim (RWKV's ln_x)."""
+    *lead, d = x.shape
+    xg = x.float().reshape(*lead, num_groups, d // num_groups)
+    mu = xg.mean(dim=-1, keepdim=True)
+    var = (xg - mu).square().mean(dim=-1, keepdim=True)
+    y = ((xg - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------- RoPE
+
+
+@functools.lru_cache(maxsize=16)
+def _inv_freq(head_dim: int, theta: float, device: str) -> torch.Tensor:
+    """1 / theta^(i / half) in float32, computed once on the host (so every
+    device rotates by the same numbers) and kept on ``device``."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32) / half
+    freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
+    return freq.to(device)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (B, S) -> cos/sin (B, S, 1, head_dim // 2), float32: the
+    JAX package's ``_rope_angles``, made once per forward or decode step
+    and shared by every layer's q and k."""
+    ang = positions.float()[..., None] * _inv_freq(
+        head_dim, float(theta), str(positions.device))
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def apply_rope(x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]
+               ) -> torch.Tensor:
+    """x (B, S, H, hd) rotated by ``rope_tables``; GPT-NeoX half-split."""
+    cos, sin = rope
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- MLPs
+
+
+class MLP(nn.Module):
+    """Gated swiglu (``wg``, ``wu``) or squared-relu (``wi``) MLP, with
+    ``wo``; every matrix is stored (in, out) as in the JAX package. The
+    geglu and gelu activations come with the families that use them."""
+
+    def __init__(self, init: Init, d_model: int, d_ff: int, act: str):
+        super().__init__()
+        if act not in ("swiglu", "relu_sq"):
+            raise NotImplementedError(f"activation {act!r} is not ported")
+        self.act = act
+        if act == "swiglu":
+            self.wg = init.dense(d_model, d_ff)
+            self.wu = init.dense(d_model, d_ff)
+        else:
+            self.wi = init.dense(d_model, d_ff)
+        self.wo = init.dense(d_ff, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (..., D) -> (..., D): ``apply_mlp`` and, for one token per
+        sequence, ``_mlp_step`` of the JAX package."""
+        if self.act == "swiglu":
+            h = F.silu(x @ self.wg) * (x @ self.wu)
+        else:
+            h = F.relu(x @ self.wi).square()
+        return h @ self.wo
+
+
+# ---------------------------------------------------------------- embeddings
+
+
+class Embed(nn.Module):
+    """Token table ``tok`` (Vp, D) and, unless tied, the head (D, Vp)."""
+
+    def __init__(self, init: Init, vocab_padded: int, d_model: int,
+                 tie: bool):
+        super().__init__()
+        self.tok = init.normal((vocab_padded, d_model), 0.02)
+        if not tie:
+            self.head = init.dense(d_model, vocab_padded)
+
+
+def embed_tokens(embed: Embed, tokens: torch.Tensor) -> torch.Tensor:
+    return embed.tok[tokens]
+
+
+def logits_from_hidden(embed: Embed, x: torch.Tensor, vocab_size: int,
+                       tie: bool) -> torch.Tensor:
+    """x (..., D) -> logits (..., Vp); padded vocab slots get -1e9 in x's
+    dtype."""
+    w = embed.tok.t() if tie else embed.head
+    logits = x @ w.to(x.dtype)
+    vp = logits.shape[-1]
+    if vp != vocab_size:
+        pad = torch.arange(vp, device=x.device) >= vocab_size
+        logits = logits + pad.to(x.dtype) * -1e9
+    return logits
+
+
+__all__ = ["Embed", "MLP", "apply_rope", "embed_tokens", "group_norm",
+           "layer_norm", "logits_from_hidden", "rms_norm", "rope_tables"]

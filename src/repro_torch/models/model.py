@@ -1,0 +1,170 @@
+"""The serving model of the dense and ssm families: prefill and KV-cache
+(or state) decode, the port of ``repro.models.model.Model``.
+
+  Model(cfg, policy, device=..., seed=...)   parameters drawn on the device
+  prefill(tokens)            -> (last-token logits (B, Vp), cache)
+  init_cache(batch, length)  -> zero cache
+  decode_step(tokens, cache) -> (logits (B, Vp), cache)
+
+The cache has the JAX package's layout: dense ``{"layers": (K, V), "pos"}``
+with K/V (L, B, Hkv, Sc, hd) in the compute dtype; ssm ``{"wkv", "x_tm",
+"x_cm", "pos"}`` in float32. ``pos`` is a Python int here (a 0-d int32
+array there). ``decode_step`` updates the cache's tensors in place and
+returns the same dict with ``pos`` advanced; the JAX package returns a new
+cache. Training (``train_loss``) comes with the training slice; the moe,
+hybrid, audio and vlm families with theirs.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve
+from repro_torch.models import rwkv6
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import Init, Policy, pad_vocab
+from repro_torch.models.layers import (Embed, embed_tokens, layer_norm,
+                                       logits_from_hidden, rms_norm,
+                                       rope_tables)
+
+FAMILIES = ("dense", "ssm")
+
+Cache = Dict[str, Any]
+
+
+class Model(nn.Module):
+    def __init__(self, cfg, policy: Optional[Policy] = None, *,
+                 device: DeviceLike = "cuda", seed: Optional[int] = 0):
+        """Build the model with its parameters on ``device``, drawn from a
+        ``torch.Generator`` seeded with ``seed`` (``None``: allocated, not
+        drawn, for ``repro_torch.convert.model_params`` to fill)."""
+        super().__init__()
+        if cfg.family not in FAMILIES or cfg.moe or cfg.is_encoder_decoder \
+                or cfg.mrope_sections:
+            raise NotImplementedError(
+                f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
+                f"this slice serves {FAMILIES}")
+        self.cfg = cfg
+        self.policy = policy or Policy()
+        self.device = resolve(device)
+        self.vocab_padded = pad_vocab(cfg.vocab_size)
+        init = Init(self.policy, self.device, seed)
+        self.embed = Embed(init, self.vocab_padded, cfg.d_model,
+                           cfg.tie_embeddings)
+        self.ln_f = init.zeros((cfg.d_model,))
+        if cfg.family == "ssm":
+            self.ln0 = init.zeros((cfg.d_model,))
+            self.layers = nn.ModuleList(rwkv6.Block(init, cfg)
+                                        for _ in range(cfg.num_layers))
+        else:
+            self.layers = nn.ModuleList(tfm.DecoderLayer(init, cfg)
+                                        for _ in range(cfg.num_layers))
+
+    # ------------------------------------------------------------ forward
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device).long()
+
+    def _forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+        """Prefill body -> (hidden (B, S, D), cache)."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return self._forward_rwkv(tokens)
+        B, S = tokens.shape
+        x = embed_tokens(self.embed, tokens)
+        L, hd = cfg.num_layers, cfg.resolved_head_dim
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=self.device)[None].expand(B, S)
+        rope = rope_tables(positions, hd, cfg.rope_theta)
+        shape = (L, B, cfg.num_kv_heads, S, hd)
+        kc = torch.empty(shape, dtype=x.dtype, device=self.device)
+        vc = torch.empty(shape, dtype=x.dtype, device=self.device)
+        for i, lp in enumerate(self.layers):
+            x, (k, v) = tfm.decoder_layer(lp, cfg, x, rope)
+            kc[i] = k.transpose(1, 2)           # (B, Hkv, S, hd) cache layout
+            vc[i] = v.transpose(1, 2)
+        return x, {"layers": (kc, vc)}
+
+    def _forward_rwkv(self, tokens: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Cache]:
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = embed_tokens(self.embed, tokens)
+        x = layer_norm(x, 1.0 + self.ln0, torch.zeros_like(self.ln0),
+                       cfg.norm_eps)
+        H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        states, x_tm, x_cm = [], [], []
+        for lp in self.layers:
+            s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                             device=self.device)
+            x, st, (ltm, lcm) = rwkv6.block(lp, cfg, x, s0,
+                                            collect_last=True)
+            states.append(st)
+            x_tm.append(ltm)
+            x_cm.append(lcm)
+        return x, {"wkv": torch.stack(states), "x_tm": torch.stack(x_tm),
+                   "x_cm": torch.stack(x_cm)}
+
+    def _final_logits(self, x_last: torch.Tensor) -> torch.Tensor:
+        x_last = rms_norm(x_last, self.ln_f.to(x_last.dtype),
+                          self.cfg.norm_eps)
+        return logits_from_hidden(self.embed, x_last, self.cfg.vocab_size,
+                                  self.cfg.tie_embeddings)
+
+    @torch.no_grad()
+    def prefill(self, tokens) -> Tuple[torch.Tensor, Cache]:
+        """tokens (B, S) -> (last-token logits (B, Vp), cache)."""
+        tokens = self._tokens(tokens)
+        x, cache = self._forward(tokens)
+        cache["pos"] = int(tokens.shape[1])
+        return self._final_logits(x[:, -1]), cache
+
+    # ------------------------------------------------------------ decode
+
+    def init_cache(self, batch_size: int, cache_len: int) -> Cache:
+        """Zero-filled decode cache."""
+        cfg = self.cfg
+        B, L, d = batch_size, cfg.num_layers, cfg.d_model
+        f32 = dict(dtype=torch.float32, device=self.device)
+        if cfg.family == "ssm":
+            H, rhd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+            return {"wkv": torch.zeros((L, B, H, rhd, rhd), **f32),
+                    "x_tm": torch.zeros((L, B, d), **f32),
+                    "x_cm": torch.zeros((L, B, d), **f32),
+                    "pos": 0}
+        shape = (L, B, cfg.num_kv_heads, cache_len, cfg.resolved_head_dim)
+        kv = dict(dtype=self.policy.compute_dtype, device=self.device)
+        return {"layers": (torch.zeros(shape, **kv), torch.zeros(shape, **kv)),
+                "pos": 0}
+
+    @torch.no_grad()
+    def decode_step(self, tokens, cache: Cache) -> Tuple[torch.Tensor, Cache]:
+        """tokens (B,) -> (logits (B, Vp), cache), the cache updated in
+        place. The ssm family, as in the JAX package, embeds the token
+        without the ``ln0`` norm that prefill applies."""
+        cfg = self.cfg
+        pos = int(cache["pos"])
+        x = embed_tokens(self.embed, self._tokens(tokens))
+        if cfg.family == "ssm":
+            for i, lp in enumerate(self.layers):
+                st = {name: cache[name][i] for name in ("wkv", "x_tm",
+                                                         "x_cm")}
+                x, new = rwkv6.block_step(lp, cfg, x, st)
+                for name, val in new.items():
+                    cache[name][i] = val
+        else:
+            kc, vc = cache["layers"]
+            positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                                   device=self.device)
+            rope = rope_tables(positions, cfg.resolved_head_dim,
+                               cfg.rope_theta)
+            for i, lp in enumerate(self.layers):
+                x = tfm.decoder_layer_step(lp, cfg, x, kc[i], vc[i], pos,
+                                           rope)
+        cache["pos"] = pos + 1
+        return self._final_logits(x), cache
+
+
+__all__ = ["Cache", "FAMILIES", "Model"]

@@ -1,0 +1,182 @@
+"""RWKV6 (Finch): attention-free linear recurrence with data-dependent decay.
+
+Prefill runs the chunked WKV recurrence through the WKV6 kernel on the
+card (its plain version on the CPU), with the model's chunking: 32 tokens
+when the sequence is a multiple of 32, else one chunk of the whole
+sequence. Decode is one O(1) state update in plain PyTorch, as in the JAX
+package, where it is no Pallas kernel either.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.models.common import Init
+from repro_torch.models.layers import group_norm, layer_norm
+
+CHUNK = 32
+LORA_MIX = 32
+LORA_DECAY = 64
+
+
+class TimeMix(nn.Module):
+    def __init__(self, init: Init, cfg):
+        super().__init__()
+        d = cfg.d_model
+        H, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        self.mu_x = init.normal((d,), 0.1)
+        self.mu_rkvgw = init.normal((5, d), 0.1)
+        self.w1 = init.dense(d, 5 * LORA_MIX)
+        self.w2 = init.normal((5, LORA_MIX, d), 0.01)
+        self.dw0 = init.full((d,), -3.0)                  # decay ~ .95
+        self.dw1 = init.dense(d, LORA_DECAY)
+        self.dw2 = init.normal((LORA_DECAY, d), 0.01)
+        self.u = init.normal((H, hd), 0.1)
+        self.wr = init.dense(d, d)
+        self.wk = init.dense(d, d)
+        self.wv = init.dense(d, d)
+        self.wg = init.dense(d, d)
+        self.wo = init.dense(d, d)
+        self.ln_x_s = init.ones((d,))
+        self.ln_x_b = init.zeros((d,))
+
+
+class ChannelMix(nn.Module):
+    def __init__(self, init: Init, cfg):
+        super().__init__()
+        d = cfg.d_model
+        self.mu_k = init.normal((d,), 0.1)
+        self.mu_r = init.normal((d,), 0.1)
+        self.wk = init.dense(d, cfg.d_ff)
+        self.wv = init.dense(cfg.d_ff, d)
+        self.wr = init.dense(d, d)
+
+
+class Block(nn.Module):
+    """``ln1``, ``ln2``, ``tm`` (time mix), ``cm`` (channel mix)."""
+
+    def __init__(self, init: Init, cfg):
+        super().__init__()
+        self.ln1 = init.zeros((cfg.d_model,))
+        self.ln2 = init.zeros((cfg.d_model,))
+        self.tm = TimeMix(init, cfg)
+        self.cm = ChannelMix(init, cfg)
+
+
+def _ddlerp(tm: TimeMix, x: torch.Tensor, sx: torch.Tensor):
+    """Data-dependent token-shift interpolation -> (xr, xk, xv, xg, xw)."""
+    xxx = x + sx * tm.mu_x.to(x.dtype)
+    t = torch.tanh(xxx @ tm.w1)
+    B, S, _ = t.shape
+    t = t.reshape(B, S, 5, LORA_MIX)
+    mix = torch.einsum("bsrk,rkd->bsrd", t, tm.w2.to(x.dtype))
+    mus = tm.mu_rkvgw.to(x.dtype)
+    return [x + sx * (mus[i] + mix[:, :, i]) for i in range(5)]
+
+
+def _decay_logw(tm: TimeMix, xw: torch.Tensor) -> torch.Tensor:
+    """Data-dependent per-channel log-decay (negative, float32)."""
+    lo = xw.float() @ tm.dw1.float()
+    dd = torch.tanh(lo) @ tm.dw2.float()
+    return -torch.exp(tm.dw0.float() + dd)
+
+
+def wkv_chunked(r, k, v, logw, u, state):
+    """Chunked WKV6. r/k/v (B, S, H, hd) compute dtype; logw (B, S, H, hd)
+    float32; u (H, hd); state (B, H, hd, hd) float32 -> (y (B, S, H, hd)
+    float32, state). The exponent clamp makes the result depend on the
+    chunk, so the kernel gets the model's chunk, not its own default."""
+    S = r.shape[1]
+    return wkv6(r, k, v, logw, u, state,
+                chunk=CHUNK if S % CHUNK == 0 else S)
+
+
+def wkv_step(r, k, v, logw, u, state):
+    """One decode step. r/k/v (B, H, hd); logw (B, H, hd) float32; state
+    (B, H, hd, hd) float32."""
+    rf, kf, vf = (t.float() for t in (r, k, v))
+    y = torch.einsum("bhk,bhkv->bhv", rf, state) + \
+        (rf * u.float()[None] * kf).sum(-1, keepdim=True) * vf
+    state = torch.exp(logw)[..., None] * state + kf[..., None] * vf[:, :, None]
+    return y, state
+
+
+def time_mix(p: Block, cfg, x, sx, state):
+    """x (B, S, D) prefill (sx = shifted x minus x); state (B, H, hd, hd)."""
+    B, S, d = x.shape
+    H, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    tm = p.tm
+    xr, xk, xv, xg, xw = _ddlerp(tm, x, sx)
+    r = (xr @ tm.wr).reshape(B, S, H, hd)
+    k = (xk @ tm.wk).reshape(B, S, H, hd)
+    v = (xv @ tm.wv).reshape(B, S, H, hd)
+    g = F.silu(xg @ tm.wg)
+    logw = _decay_logw(tm, xw).reshape(B, S, H, hd)
+    y, state = wkv_chunked(r, k, v, logw, tm.u, state)
+    y = y.reshape(B, S, d).to(x.dtype)
+    y = group_norm(y, tm.ln_x_s, tm.ln_x_b, num_groups=H) * g
+    return y @ tm.wo, state
+
+
+def channel_mix(p: Block, x, sx):
+    pc = p.cm
+    xk = x + sx * pc.mu_k.to(x.dtype)
+    xr = x + sx * pc.mu_r.to(x.dtype)
+    k = F.relu(xk @ pc.wk).square()
+    return torch.sigmoid(xr @ pc.wr) * (k @ pc.wv)
+
+
+def shift(x: torch.Tensor) -> torch.Tensor:
+    """Token shift: x_{t-1} (zeros at t = 0)."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _ln(x, scale, eps):
+    return layer_norm(x, 1.0 + scale, torch.zeros_like(scale), eps)
+
+
+def block(p: Block, cfg, x, wkv_state, *, collect_last: bool = False
+          ) -> Tuple[torch.Tensor, torch.Tensor,
+                     Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """One block (prefill). Returns (x, new_state, last), ``last`` the
+    float32 (x_tm, x_cm) last-token activations that seed the decode token
+    shift (None unless ``collect_last``)."""
+    h = _ln(x, p.ln1, cfg.norm_eps)
+    dt, wkv_state = time_mix(p, cfg, h, shift(h) - h, wkv_state)
+    x = x + dt
+    h2 = _ln(x, p.ln2, cfg.norm_eps)
+    x = x + channel_mix(p, h2, shift(h2) - h2)
+    last = (h[:, -1].float(), h2[:, -1].float()) if collect_last else None
+    return x, wkv_state, last
+
+
+def block_step(p: Block, cfg, x, state: Dict[str, torch.Tensor]):
+    """One decode step. x (B, D); state dict(wkv, x_tm, x_cm)."""
+    B, d = x.shape
+    H, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    tm = p.tm
+    h = _ln(x, p.ln1, cfg.norm_eps)
+    sx = state["x_tm"].to(h.dtype) - h
+    xr, xk, xv, xg, xw = _ddlerp(tm, h[:, None], sx[:, None])
+    r = (xr @ tm.wr).reshape(B, H, hd)
+    k = (xk @ tm.wk).reshape(B, H, hd)
+    v = (xv @ tm.wv).reshape(B, H, hd)
+    g = F.silu(xg @ tm.wg)[:, 0]
+    logw = _decay_logw(tm, xw).reshape(B, H, hd)
+    y, wkv = wkv_step(r, k, v, logw, tm.u, state["wkv"])
+    y = y.reshape(B, d).to(x.dtype)
+    y = group_norm(y, tm.ln_x_s, tm.ln_x_b, num_groups=H) * g
+    x = x + y @ tm.wo
+
+    h2 = _ln(x, p.ln2, cfg.norm_eps)
+    sx2 = state["x_cm"].to(h2.dtype) - h2
+    x = x + channel_mix(p, h2, sx2)
+    return x, {"wkv": wkv, "x_tm": h.float(), "x_cm": h2.float()}
+
+
+__all__ = ["Block", "CHUNK", "block", "block_step", "channel_mix", "shift",
+           "time_mix", "wkv_chunked", "wkv_step"]

@@ -1,0 +1,128 @@
+"""Parity of the port's flash attention with the JAX package's Pallas
+kernel.
+
+The plain PyTorch version is held against the reference ``attention``
+(Pallas in interpret mode, as ``tests/test_kernels.py`` runs it) with the
+reference's own tolerances: float32 atol/rtol 2e-5, bfloat16 3e-2. The
+CUDA kernel is held against the plain version on the card (marked
+``cuda``: skips here).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import attention as jax_attention
+from repro.kernels.flash_attention.flash_attention import \
+    flash_attention as jax_flash_attention
+from repro_torch.kernels.flash_attention import (COUNTER, attention,
+                                                 attention_flops,
+                                                 attention_ref,
+                                                 flash_attention)
+
+SHAPES = [  # B, S, T, Hq, Hkv, hd, causal (tests/test_kernels.py's five)
+    (2, 128, 128, 4, 2, 64, True),
+    (1, 256, 256, 8, 8, 128, True),
+    (2, 96, 96, 4, 1, 64, False),       # padding + MQA
+    (1, 300, 300, 2, 2, 32, True),      # non-multiple lengths
+    (2, 64, 192, 4, 2, 64, False),      # cross-shaped T != S
+]
+
+
+def _qkv(B, S, T, Hq, Hkv, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, Hq, hd), dtype=np.float32),
+            rng.standard_normal((B, T, Hkv, hd), dtype=np.float32),
+            rng.standard_normal((B, T, Hkv, hd), dtype=np.float32))
+
+
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,causal", SHAPES)
+def test_plain_matches_reference_kernel(B, S, T, Hq, Hkv, hd, causal):
+    q, k, v = _qkv(B, S, T, Hq, Hkv, hd, seed=S + T + hd)
+    want = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    block_q=64, block_k=64))
+    got = attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                    causal=causal)
+    assert got.shape == (B, S, Hq, hd)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+def test_plain_dtypes_match_reference_kernel(dtype, tol):
+    q, k, v = _qkv(1, 128, 128, 4, 2, 64, seed=11)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = getattr(torch, dtype)
+    want = jax_attention(jnp.asarray(q, jd), jnp.asarray(k, jd),
+                         jnp.asarray(v, jd), block_q=64, block_k=64)
+    # the same rounded inputs on both sides
+    got = attention(*(torch.from_numpy(x).to(td) for x in (q, k, v)))
+    assert got.dtype == td
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("q_offset", [64, 128])
+def test_q_offset_matches_reference_kernel(q_offset):
+    # a query block placed after the keys it may see: the decode-chunk
+    # case the kernel's q_offset exists for (kernel layout, as the
+    # reference kernel takes it)
+    q, k, v = _qkv(1, 64, 192, 4, 2, 32, seed=q_offset)
+    to_k = lambda x: np.ascontiguousarray(np.moveaxis(x, 1, 2))
+    want = np.asarray(jax_flash_attention(
+        jnp.asarray(to_k(q)), jnp.asarray(to_k(k)), jnp.asarray(to_k(v)),
+        causal=True, block_q=64, block_k=64, q_offset=q_offset,
+        interpret=True))
+    got = attention_ref(*(torch.from_numpy(to_k(x)) for x in (q, k, v)),
+                        causal=True, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_kv_len_masks_padded_keys():
+    q, k, v = _qkv(1, 64, 128, 2, 2, 32, seed=5)
+    tq, tk, tv = (torch.from_numpy(x).transpose(1, 2) for x in (q, k, v))
+    padded = attention_ref(tq, tk, tv, causal=False, kv_len=100)
+    cut = attention_ref(tq, tk[:, :, :100], tv[:, :, :100], causal=False)
+    np.testing.assert_allclose(padded.numpy(), cut.numpy(), atol=1e-6)
+
+
+def test_flops_count_the_live_pairs():
+    assert attention_flops(1, 1, 4, 4, 8, causal=False) == 4 * 8 * 16
+    assert attention_flops(1, 1, 4, 4, 8, causal=True) == 4 * 8 * 10
+    # prefill of qwen3-4b at 4096 tokens: ~137 GFLOP
+    f = attention_flops(1, 32, 4096, 4096, 128, causal=True)
+    assert 137e9 < f < 138e9
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    q, k, v = (torch.from_numpy(x).transpose(1, 2)
+               for x in _qkv(1, 64, 64, 2, 2, 32, seed=3))
+    before = COUNTER.launches
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v)
+    assert COUNTER.launches == before
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false); the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,causal", SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_kernel_matches_plain_on_card(cuda, B, S, T, Hq, Hkv, hd, causal,
+                                      dtype, tol):
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype)
+               for x in _qkv(B, S, T, Hq, Hkv, hd, seed=7))
+    before = COUNTER.launches
+    got = attention(q, k, v, causal=causal)
+    assert COUNTER.launches == before + 1
+    want = attention(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), atol=tol, rtol=tol)

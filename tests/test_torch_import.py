@@ -48,7 +48,14 @@ def test_every_module_is_covered():
     for want in ("repro_torch.core.detector", "repro_torch.guard.session",
                  "repro_torch.kernels.fleet_score.fleet_score",
                  "repro_torch.kernels.sweep_burn.sweep_burn",
-                 "repro_torch.convert", "repro_torch.device"):
+                 "repro_torch.convert", "repro_torch.device",
+                 "repro_torch.configs", "repro_torch.configs.qwen3_4b",
+                 "repro_torch.configs.rwkv6_7b",
+                 "repro_torch.models.model", "repro_torch.models.rwkv6",
+                 "repro_torch.models.transformer",
+                 "repro_torch.kernels.flash_attention.flash_attention",
+                 "repro_torch.kernels.wkv6.wkv6",
+                 "repro_torch.launch.serve"):
         assert want in names
 
 
@@ -56,3 +63,5 @@ def test_cuda_sources_ship_with_the_package():
     csrc = SRC / "repro_torch" / "csrc"
     assert (csrc / "fleet_score.cu").is_file()
     assert (csrc / "sweep_burn.cu").is_file()
+    assert (csrc / "flash_attention.cu").is_file()
+    assert (csrc / "wkv6.cu").is_file()
