@@ -12,17 +12,19 @@ order, it
   2. holds the fleet_score kernel against its plain PyTorch version on the
      card at 16,384 and 131,072 nodes, bit for bit, and times both;
   3. holds the sweep_burn kernel against its plain version (atol 1e-3,
-     two runs bit-equal), and times it beside a cuBLAS float32 matmul
-     chain of the same flops;
+     two runs bit-equal) at 512^2 x 64, 128x256 x 8 and 2048^2 x 16,
+     checks with the profiler that a call is one launch, and times it
+     beside a cuBLAS float32 matmul chain of the same flops;
   4. drives Guard's closed loop through ``GuardSession`` on a synthetic
      16,384-node fleet with 64 spares and four planted faults, asserts
      the actions, swaps and quarantines, that both kernels ran on that
      path, and that the same frames through the port on the CPU give the
      identical JSONL event stream;
   5. holds the flash-attention kernel against its plain version on the
-     card at qwen3-4b's prefill shape (bfloat16 and float32) and at a
-     ragged non-causal shape, and times it beside PyTorch's
-     ``scaled_dot_product_attention``;
+     card at qwen3-4b's prefill shape (bfloat16 and float32), at a ragged
+     non-causal shape and at bfloat16 cases covering head dims 32/64/128,
+     MQA, q_offset and kv_len (``K3_CASES``), and times it beside
+     PyTorch's ``scaled_dot_product_attention``;
   6. holds the WKV6 kernel against its plain version at rwkv6-7b's
      prefill shape and at a reduced one, and times it;
   7. serves full-width, full-depth qwen3-4b (weights from a seeded
@@ -157,11 +159,23 @@ def phase_k1(torch, np, dirs):
 
 # ------------------------------------------------------------ phase 3: K2
 
+def kernels_in(torch, fn) -> list:
+    """Names of the device kernels one call of ``fn`` runs (profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def phase_k2(torch, np):
     from repro_torch.kernels.sweep_burn import burn, burn_flops, burn_ref
+    from repro_torch.kernels.sweep_burn.sweep_burn import LAST
     main = None
-    for m, k, iters in [(512, 512, 64), (2048, 2048, 16)]:
-        rng = np.random.default_rng(m)
+    # the first is the compute probe's shape (the main path's)
+    for m, k, iters in [(512, 512, 64), (128, 256, 8), (2048, 2048, 16)]:
+        rng = np.random.default_rng(m + k)
         a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
         b = torch.from_numpy(rng.standard_normal((k, k), dtype=np.float32))
         a, b = a.cuda(), b.cuda()
@@ -173,6 +187,9 @@ def phase_k2(torch, np):
         err = max_abs_err(o1, want)
         check(err <= 1e-3, f"burn differs from plain at {(m, k, iters)}: "
                            f"max abs err {err}")
+        names = kernels_in(torch, lambda: burn(a, b, iters=iters))
+        check(len(names) == 1 and "burn" in names[0],
+              f"burn at {(m, k, iters)} ran {names}, not one launch")
         ms = time_ms(lambda: burn(a, b, iters=iters), reps=5, warm=1)
         plain = time_ms(lambda: burn_ref(a, b, iters=iters), reps=5, warm=1)
         y = torch.empty_like(a)
@@ -183,15 +200,17 @@ def phase_k2(torch, np):
         torch.backends.cuda.matmul.allow_tf32 = False
         lib = time_ms(matmul_chain, reps=5, warm=1)
         flops = burn_flops(m, k, iters)
-        bound = flops / FP32_SIMT_FLOPS * 1e3
+        bnd = flops / FP32_SIMT_FLOPS * 1e3
         print(f"K2 sweep_burn M,K,iters={m},{k},{iters}: max abs err "
-              f"{err:.3e}, bit-repeatable; kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
-              f"matmul chain {lib:.4f} ms ({flops / lib / 1e9:.2f} TFLOP/s)"
-              f", bound {bound:.4f} ms (operations)", flush=True)
+              f"{err:.3e}, bit-repeatable, one launch ({LAST['mode']}, "
+              f"{LAST['blocks']} blocks); kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.2f} TFLOP/s, {bnd / ms:.1%} of bound), "
+              f"plain {plain:.4f} ms, matmul chain {lib:.4f} ms "
+              f"({flops / lib / 1e9:.2f} TFLOP/s), bound {bnd:.4f} ms "
+              f"(operations)", flush=True)
         if main is None:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                        bound_ms=bound, library_ms=lib,
+                        bound_ms=bnd, library_ms=lib,
                         shape=[m, k, iters])
     return main
 
@@ -363,6 +382,25 @@ def bound(flops: float, peak: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# K3 cases: B, Hq, Hkv, S, T, hd, causal, q_offset, kv_len, dtype. The
+# first is qwen3-4b's prefill at 4,096 tokens, the main path's shape; the
+# bfloat16 ones after the float32 case cover every head dim, a ragged S,
+# MQA and Hq/Hkv = 4, a decode chunk (q_offset > 0, causal) and kv_len < T.
+K3_CASES = [
+    (1, 32, 8, 4096, 4096, 128, True, 0, 0, "bfloat16"),
+    (1, 32, 8, 4096, 4096, 128, True, 0, 0, "float32"),
+    (2, 8, 2, 300, 450, 64, False, 0, 0, "bfloat16"),
+    (1, 4, 1, 300, 300, 32, True, 0, 0, "bfloat16"),
+    (2, 8, 8, 300, 300, 64, True, 0, 0, "bfloat16"),
+    (1, 8, 2, 300, 300, 128, True, 0, 0, "bfloat16"),
+    (1, 8, 2, 64, 576, 128, True, 512, 0, "bfloat16"),
+    (2, 8, 1, 256, 512, 64, False, 0, 400, "bfloat16"),
+    (1, 4, 4, 200, 333, 32, True, 133, 300, "bfloat16"),
+    (1, 4, 1, 130, 200, 64, True, 70, 190, "float32"),
+]
+K3_TOL = {"bfloat16": 3e-2, "float32": 2e-5}   # the reference's own
+
+
 def phase_k3(torch, np):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_flops,
@@ -371,39 +409,42 @@ def phase_k3(torch, np):
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version: fp32
     torch.backends.cudnn.allow_tf32 = False
     main = None
-    # B, Hq, Hkv, S, T, hd, causal, dtype, tolerance (atol = rtol; the
-    # reference's own: float32 2e-5, bfloat16 3e-2). The first is
-    # qwen3-4b's prefill at 4,096 tokens, the main path's shape.
-    for i, (b, hq, hkv, s, t, hd, causal, dt, tol) in enumerate([
-            (1, 32, 8, 4096, 4096, 128, True, torch.bfloat16, 3e-2),
-            (1, 32, 8, 4096, 4096, 128, True, torch.float32, 2e-5),
-            (2, 8, 2, 300, 450, 64, False, torch.bfloat16, 3e-2)]):
+    for i, (b, hq, hkv, s, t, hd, causal, qo, kvl, dname) in enumerate(
+            K3_CASES):
+        dt, tol = getattr(torch, dname), K3_TOL[dname]
         rng = np.random.default_rng(100 + i)
+        # the model's (B, S, H, hd) layout, seen through transposes
         q, k, v = (torch.from_numpy(rng.standard_normal(
-            shape, dtype=np.float32)).to("cuda", dt) for shape in (
-                (b, hq, s, hd), (b, hkv, t, hd), (b, hkv, t, hd)))
-        got = flash_attention(q, k, v, causal=causal)
-        want = attention_ref(q, k, v, causal=causal)
+            shape, dtype=np.float32)).to("cuda", dt).transpose(1, 2)
+            for shape in ((b, s, hq, hd), (b, t, hkv, hd), (b, t, hkv, hd)))
+        kw = dict(causal=causal, q_offset=qo, kv_len=kvl)
+        got = flash_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         tag = (f"K3 flash_attention B,Hq,Hkv,S,T,hd={b},{hq},{hkv},{s},{t},"
-               f"{hd} {'causal' if causal else 'full'} "
-               f"{str(dt).split('.')[-1]}")
+               f"{hd} {'causal' if causal else 'full'}"
+               f"{f' q_offset {qo}' if qo else ''}"
+               f"{f' kv_len {kvl}' if kvl else ''} {dname}")
         err = close_err(got, want, tol, tol, tag)
         del got, want
-        ms = time_ms(lambda: flash_attention(q, k, v, causal=causal),
-                     reps=10, warm=2)
-        plain = time_ms(lambda: attention_ref(q, k, v, causal=causal),
-                        reps=5, warm=1)
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), reps=10, warm=2)
-        flops = attention_flops(b, hq, s, t, hd, causal=causal)
+        ms = time_ms(lambda: flash_attention(q, k, v, **kw), reps=10, warm=2)
+        flops = attention_flops(b, hq, s, kvl or t, hd, causal=causal,
+                                q_offset=qo)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else FP32_SIMT_FLOPS
         bnd, by = bound(flops, peak, nbytes)
-        print(f"{tag}: max abs err {err:.3e} (tol {tol}); kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
-              f"sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}; "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+        line = (f"{tag}: max abs err {err:.3e} (tol {tol}); kernel "
+                f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s, "
+                f"{bnd / ms:.1%} of bound), bound {bnd:.4f} ms ({by}; "
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        if i < 3:                           # timed beside plain and sdpa
+            plain = time_ms(lambda: attention_ref(q, k, v, **kw), reps=5,
+                            warm=1)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), reps=10,
+                warm=2)
+            line += f"; plain {plain:.4f} ms, sdpa {lib:.4f} ms"
+        print(line, flush=True)
         if main is None:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                         bound_ms=bnd, bound_by=by, library_ms=lib,
@@ -669,7 +710,8 @@ def main() -> None:
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"  ptxas {name}: {line.strip()}")
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
 

@@ -25,6 +25,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # nvcc flags per source. All keep IEEE division, square root and expf (no
 # --use_fast_math); fleet_score also forbids fused multiply-adds so that
 # every product and sum is rounded on its own, as numpy rounds them.
+# flash_attention needs no flag of its own: it reaches the driver's
+# cuTensorMapEncodeTiled through the runtime's driver entry point (no
+# -lcuda) and writes its wgmma/TMA instructions as inline PTX (no CUTLASS
+# include); sweep_burn's grid barrier is cooperative_groups' grid.sync,
+# which needs no relocatable device code.
 _COMMON = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 FLAGS: Dict[str, Tuple[str, ...]] = {

@@ -1,7 +1,11 @@
-"""Wrapper of the hand-written CUDA flash-attention kernel
-(``csrc/flash_attention.cu``): one block per (64-row query tile, q head,
-batch), online softmax in float32, causal tiles in the future skipped,
-ragged edges masked in the kernel.
+"""Wrapper of the hand-written CUDA flash-attention kernels
+(``csrc/flash_attention.cu``). bfloat16 runs on the tensor cores: one
+block per (128 query rows, q head, batch), a TMA producer warpgroup
+filling a 2-stage K/V ring, two consumer warpgroups on ``wgmma`` with the
+online softmax in registers and P rounded to bfloat16 for P.V. float32
+runs on the CUDA cores (one block per 64 query rows), exact to the
+reference's 2e-5. Both skip key tiles in the causal future and mask the
+ragged edges in the kernel.
 
 The library is built with ``nvcc`` at the first launch (see
 ``repro_torch.kernels._build``). The wrapper checks its inputs, allocates
@@ -42,7 +46,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_len: int = 0) -> torch.Tensor:
     """q (B, Hq, S, hd); k/v (B, Hkv, T, hd) CUDA tensors -> (B, Hq, S, hd).
 
-    The same function as ``ref.attention_ref``. Inputs may be strided
+    The same function as ``ref.attention_ref``, except that in bfloat16
+    the kernel rounds P to bfloat16 before P.V. Inputs may be strided
     views (a transposed (B, S, H, hd) tensor needs no copy) as long as the
     last dimension is contiguous. The result is a (B, Hq, S, hd) view of a
     (B, S, Hq, hd) buffer, so moving it back to the model layout is free."""
@@ -71,6 +76,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len = kv_len or T
     if not 0 < kv_len <= T:
         raise ValueError(f"kv_len={kv_len} outside 1..{T}")
+    if q.dtype == torch.bfloat16:      # TMA reads 16-byte aligned rows
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(st * 2 % 16 for st in t.stride()[:3]):
+                raise ValueError(
+                    f"{name}: the bfloat16 kernel loads with TMA, which needs "
+                    f"a 16-byte aligned base and (batch, head, row) strides "
+                    f"that are multiples of 8 elements; got strides "
+                    f"{t.stride()}")
     out = torch.empty((B, S, Hq, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lib = _lib()

@@ -1,18 +1,27 @@
 """Wrapper of the hand-written CUDA burn kernel (``csrc/sweep_burn.cu``):
-a tiled float32 SIMT GEMM plus a fixed-order rescale, 2 launches per
-iteration, issued by one C call. ``COUNTER.launches`` counts the calls.
+the whole chain in one cooperative launch, one grid barrier per
+iteration. Each block owns 32x64 tiles of y; at 512^2 the 128 blocks keep
+their panels of b resident in shared memory, larger shapes stream b in
+double-buffered slices. Sums are taken in a fixed order, so the result
+repeats bit for bit. ``COUNTER.launches`` counts the launches and
+``LAST`` holds the last launch's mode (``resident`` or ``streaming``) and
+grid size. A grid that cannot be co-resident raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
 from repro_torch.kernels import _build
 
-TILE = 64          # the kernel's output tile: M and K must be multiples
+TILE = 64          # M and K must be multiples
+_TILE_ROWS = 32    # the kernel's tiles of y are 32 x 64
 
 COUNTER = _build.LaunchCounter()
+LAST: Dict[str, object] = {}
+_MODES = {1: "resident", 2: "streaming"}
 
 
 def _lib() -> ctypes.CDLL:
@@ -20,7 +29,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sweep_burn_launch
     if fn.argtypes is None:            # first use: declare the C signature
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, p]
+        ip = ctypes.POINTER(ctypes.c_int)
+        fn.argtypes = [p, p, p, p, p, i, i, i, p, ip, ip]
         fn.restype = ctypes.c_int
         lib.sweep_burn_error_string.argtypes = [ctypes.c_int]
         lib.sweep_burn_error_string.restype = ctypes.c_char_p
@@ -49,24 +59,32 @@ def burn(a: torch.Tensor, b: torch.Tensor, *, iters: int = 64
         raise ValueError(f"M={m} and K={k} must be multiples of {TILE}")
     if iters < 0:
         raise ValueError(f"iters={iters} < 0")
-    b = b.contiguous()
-    x = a.contiguous().clone()
-    y = torch.empty_like(x)
-    partial = torch.empty((m // TILE) * (k // TILE), dtype=torch.float32,
-                          device=a.device)
+    a, b = a.contiguous(), b.contiguous()
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("burn kernel needs 16-byte aligned a and b")
+    if iters == 0:
+        return a.clone()
+    out = torch.empty_like(a)
+    ybuf = torch.empty((2, m, k), dtype=torch.float32, device=a.device)
+    partial = torch.empty(2 * (m // _TILE_ROWS) * (k // TILE),
+                          dtype=torch.float32, device=a.device)
     lib = _lib()
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = lib.sweep_burn_launch(x.data_ptr(), b.data_ptr(), y.data_ptr(),
-                                partial.data_ptr(), m, k, int(iters), stream)
+    mode, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.sweep_burn_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                ybuf.data_ptr(), partial.data_ptr(), m, k,
+                                int(iters), stream, ctypes.byref(mode),
+                                ctypes.byref(blocks))
     if err:
         raise RuntimeError(f"sweep_burn launch failed: "
                            f"{lib.sweep_burn_error_string(err).decode()}")
     COUNTER.launches += 1
-    return x
+    LAST.update(mode=_MODES[mode.value], blocks=blocks.value)
+    return out
 
 
 def burn_flops(M: int, K: int, iters: int) -> float:
     return 2.0 * M * K * K * iters
 
 
-__all__ = ["COUNTER", "TILE", "burn", "burn_flops"]
+__all__ = ["COUNTER", "LAST", "TILE", "burn", "burn_flops"]

@@ -76,10 +76,9 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, S, Hq, hd), k/v (B, T, Hkv, hd) -> (B, S, Hq, hd).
 
     On the card this is the flash-attention kernel; on the CPU its plain
-    version. Both keep the whole softmax in float32, where the JAX
-    package's XLA path rounds the probabilities to the compute dtype
-    before the value product, so in bfloat16 the two differ by that
-    rounding."""
+    version. In bfloat16 the kernel rounds the probabilities to bfloat16
+    before the value product, as the JAX package's XLA path does; the
+    plain version keeps them in float32."""
     return flash(q, k, v, causal=causal, q_offset=q_offset)
 
 

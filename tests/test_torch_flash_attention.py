@@ -3,10 +3,14 @@ kernel.
 
 The plain PyTorch version is held against the reference ``attention``
 (Pallas in interpret mode, as ``tests/test_kernels.py`` runs it) with the
-reference's own tolerances: float32 atol/rtol 2e-5, bfloat16 3e-2. The
-CUDA kernel is held against the plain version on the card (marked
-``cuda``: skips here).
+reference's own tolerances: float32 atol/rtol 2e-5, bfloat16 3e-2. So is
+a plain emulation of the bfloat16 kernel's arithmetic (P rounded to
+bfloat16 before P.V), which shows that the rounding the tensor-core
+kernel adds fits the bfloat16 tolerance. The CUDA kernel is held against
+the plain version on the card (marked ``cuda``: skips here).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,6 +83,69 @@ def test_q_offset_matches_reference_kernel(q_offset):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
 
 
+def _tensor_core_emulation(q, k, v, *, causal, q_offset=0, tile=128):
+    """The bfloat16 kernel's arithmetic in plain torch, kernel layout q
+    (B, Hq, S, hd), k/v (B, Hkv, T, hd): float32 scores, the online
+    softmax over 128-key tiles in float32 with the finite -1e30 mask, P
+    rounded to bfloat16 before P.V with float32 accumulation, the
+    denominator summed from the unrounded P."""
+    B, Hq, S, hd = q.shape
+    _, Hkv, T, _ = k.shape
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, S, hd)
+    m = torch.full((B, Hkv, Hq // Hkv, S), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qf)
+    qpos = q_offset + torch.arange(S)
+    for k0 in range(0, T, tile):
+        kt, vt = k[:, :, k0:k0 + tile].float(), v[:, :, k0:k0 + tile].float()
+        s = torch.einsum("bhgsd,bhtd->bhgst", qf, kt) / math.sqrt(hd)
+        if causal:
+            kpos = torch.arange(k0, k0 + kt.shape[2])
+            s = s.masked_fill(kpos[None, :] > qpos[:, None], -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = alpha * l + p.sum(dim=-1)
+        o = o * alpha[..., None] + torch.einsum(
+            "bhgst,bhtd->bhgsd", p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    o = o / l.clamp_min(1e-30)[..., None]
+    return o.reshape(B, Hq, S, hd).to(torch.bfloat16)
+
+
+def _bf16(x):
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,causal", SHAPES)
+def test_tensor_core_rounding_matches_reference_kernel(B, S, T, Hq, Hkv, hd,
+                                                       causal):
+    q, k, v = _qkv(B, S, T, Hq, Hkv, hd, seed=S + T + hd + 1)
+    want = jax_attention(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                         causal=causal, block_q=64, block_k=64)
+    got = _tensor_core_emulation(*(_bf16(x).transpose(1, 2)
+                                   for x in (q, k, v)),
+                                 causal=causal).transpose(1, 2)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.parametrize("q_offset", [64, 128])
+def test_tensor_core_rounding_with_q_offset(q_offset):
+    q, k, v = _qkv(1, 64, 192, 4, 2, 32, seed=q_offset + 1)
+    to_k = lambda x: np.ascontiguousarray(np.moveaxis(x, 1, 2))
+    want = jax_flash_attention(
+        *(jnp.asarray(to_k(x), jnp.bfloat16) for x in (q, k, v)),
+        causal=True, block_q=64, block_k=64, q_offset=q_offset,
+        interpret=True)
+    got = _tensor_core_emulation(*(_bf16(to_k(x)) for x in (q, k, v)),
+                                 causal=True, q_offset=q_offset)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=3e-2,
+                               rtol=3e-2)
+
+
 def test_kv_len_masks_padded_keys():
     q, k, v = _qkv(1, 64, 128, 2, 2, 32, seed=5)
     tq, tk, tv = (torch.from_numpy(x).transpose(1, 2) for x in (q, k, v))
@@ -126,3 +193,40 @@ def test_kernel_matches_plain_on_card(cuda, B, S, T, Hq, Hkv, hd, causal,
     want = attention(q.cpu(), k.cpu(), v.cpu(), causal=causal)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().numpy(), atol=tol, rtol=tol)
+
+
+# bfloat16 cases of the tensor-core kernel: B, S, T, Hq, Hkv, hd, causal,
+# q_offset, kv_len (every head dim, a ragged S, MQA and Hq/Hkv = 4, a
+# decode chunk, kv_len < T)
+CARD_BF16 = [
+    (1, 300, 300, 4, 1, 32, True, 0, 0),
+    (2, 300, 300, 8, 8, 64, True, 0, 0),
+    (1, 300, 300, 8, 2, 128, True, 0, 0),
+    (1, 64, 576, 8, 2, 128, True, 512, 0),
+    (2, 256, 512, 8, 1, 64, False, 0, 400),
+    (1, 200, 333, 4, 4, 32, True, 133, 300),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,causal,q_offset,kv_len", CARD_BF16)
+def test_tensor_core_kernel_matches_plain_on_card(cuda, B, S, T, Hq, Hkv, hd,
+                                                  causal, q_offset, kv_len):
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16).transpose(1, 2)
+               for x in _qkv(B, S, T, Hq, Hkv, hd, seed=9))
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    got = flash_attention(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernel_refuses_unaligned_strides(cuda):
+    # TMA needs 16-byte aligned rows: a head dim sliced out of a wider
+    # buffer at an odd offset is refused, never sent to a slower path
+    q = torch.zeros(1, 2, 64, 40, device=cuda, dtype=torch.bfloat16)
+    q = q[..., 4:36]
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)

@@ -80,7 +80,8 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,iters", [(512, 512, 64), (128, 256, 8)])
+@pytest.mark.parametrize("M,K,iters", [(512, 512, 64), (128, 256, 8),
+                                       (2048, 2048, 16)])
 def test_kernel_matches_plain_on_card(cuda, M, K, iters):
     a, b = (torch.from_numpy(x).to(cuda) for x in _inputs(M, K, seed=3))
     before = COUNTER.launches
@@ -91,3 +92,21 @@ def test_kernel_matches_plain_on_card(cuda, M, K, iters):
     want = burn_ref(a, b, iters=iters)
     np.testing.assert_allclose(o1.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,mode", [(512, 512, "resident"),
+                                      (2048, 2048, "streaming")])
+def test_kernel_is_one_launch_on_card(cuda, M, K, mode):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.sweep_burn.sweep_burn import LAST
+    a, b = (torch.from_numpy(x).to(cuda) for x in _inputs(M, K, seed=4))
+    burn(a, b, iters=4)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        burn(a, b, iters=4)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "burn" in names[0], names
+    assert LAST["mode"] == mode
