@@ -10,7 +10,9 @@ order, it
      ``build/repro_torch/`` (one nvcc per source, all started together)
      and prints the card's name and power limit;
   2. holds the fleet_score kernel against its plain PyTorch version on the
-     card at 16,384 and 131,072 nodes, bit for bit, and times both;
+     card, bit for bit, at 16,384 nodes (staged in shared memory) and
+     131,072 (streamed), with NaN rows and with edge rows (N = 1 and 2,
+     all equal, signed zeros, infinities, ties), and times both;
   3. holds the sweep_burn kernel against its plain version (atol 1e-3,
      two runs bit-equal) at 512^2 x 64, 128x256 x 8 and 2048^2 x 16,
      checks with the profiler that a call is one launch, and times it
@@ -25,14 +27,18 @@ order, it
      non-causal shape and at bfloat16 cases covering head dims 32/64/128,
      MQA, q_offset and kv_len (``K3_CASES``), and times it beside
      PyTorch's ``scaled_dot_product_attention``;
-  6. holds the WKV6 kernel against its plain version at rwkv6-7b's
-     prefill shape and at a reduced one, and times it;
+  6. holds the WKV6 kernels against their plain version at rwkv6-7b's
+     prefill shape and at the other ``K4_CASES`` (every head dim, B = 2,
+     single chunks of 7, 100, 300 and 1,000 tokens), checks that two calls
+     are bit-equal, that a call runs the state pass and the output pass
+     and that a state carried over two calls agrees, and times it;
   7. serves full-width, full-depth qwen3-4b (weights from a seeded
      generator on the card): ``Model.prefill`` of 4,096 tokens on the
      kernel path, which must launch flash attention once per layer and
      agree with the same model run through the plain attention, then a
      ``BatchedServer`` of 12 requests on 4 slots to completion;
-  8. the same for full rwkv6-7b, with WKV6 once per layer at 2,048 tokens;
+  8. the same for full rwkv6-7b, with WKV6 once per layer at 2,048 tokens
+     and again at 1,000 (one chunk of the whole prompt);
   9. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
@@ -108,65 +114,127 @@ def max_abs_err(a, b) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def kernel_device_ms(torch, fn, name: str, reps: int = 20):
+    """Device ms per call of ``fn`` in the kernels whose name holds
+    ``name``, from ``torch.profiler`` over ``reps`` calls (a throwaway
+    kernel goes first: the tracer may lose its first one); None when the
+    trace holds no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    return sum(rows) / reps / 1e3 if rows else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 # ------------------------------------------------------------ phase 2: K1
 
-def k1_inputs(r: int, m: int, n: int, nan_rows: bool, seed: int):
+def k1_inputs(r: int, m: int, n: int, kind: str, seed: int):
+    """Seeded (r, m, n) rows: plain, with NaN rows ("nan"), or with the
+    selection's edge cases ("edge": an all-equal row, signed zeros, both
+    infinities, sign-bit NaNs and ties)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     mats = (rng.random((r, m, n), dtype=np.float32) * 0.1 + 1.0)
     mats[:, 0, n - 1] *= 1.5                 # planted step-time stragglers
-    mats[:, 0, 3] *= 1.3
-    if nan_rows:
-        sign_nan = np.frombuffer(np.uint32(0xFFC00000).tobytes(),
-                                 np.float32)[0]
+    mats[:, 0, min(3, n - 1)] *= 1.3
+    sign_nan = np.frombuffer(np.uint32(0xFFC00000).tobytes(), np.float32)[0]
+    if kind == "nan":
         mats[:, 2, :] = np.nan               # a metric with no readings
         drop = rng.choice(n, n // 50, replace=False)
         mats[:, 3, drop] = np.nan            # sensor dropouts
         mats[:, 0, drop[:7]] = sign_nan      # x86 inf - inf NaNs
+    elif kind == "edge":
+        mats[:, 1, :] = 1.25                 # all equal
+        mats[:, 2, ::2] = 0.0                # +0 and -0
+        mats[:, 2, 1::3] = -0.0
+        mats[:, 3, ::5] = np.inf             # both infinities
+        mats[:, 3, 1::7] = -np.inf
+        mats[:, 4, ::4] = sign_nan
+        mats[:, 5, :] = np.round(mats[:, 5, :] * 4) / 4   # ties
     return mats
+
+
+# K1 cases: R, M, N, kind. The first is the main path's steady state; rows
+# of up to 49,152 nodes are staged in shared memory, longer ones streamed.
+K1_CASES = [(1, 8, 16_384, ""), (6, 8, 16_384, ""), (1, 8, 131_072, ""),
+            (1, 8, 16_383, "nan"), (1, 8, 1, "edge"), (1, 8, 2, "edge"),
+            (2, 8, 4_097, "edge"), (1, 8, 131_072, "edge")]
 
 
 def phase_k1(torch, np, dirs):
     from repro_torch.kernels.fleet_score import fleet_score, score_rows_ref
     kw = dict(z_threshold=3.0, slowdown_floor=0.025, mad_floor_frac=0.01)
     main = None
-    for i, (r, m, n, nans) in enumerate([(1, 8, 16_384, False),
-                                         (6, 8, 16_384, False),
-                                         (1, 8, 131_072, False),
-                                         (1, 8, 16_383, True)]):
-        mats = torch.from_numpy(k1_inputs(r, m, n, nans, i)).cuda()
+    for i, (r, m, n, kind) in enumerate(K1_CASES):
+        mats = torch.from_numpy(k1_inputs(r, m, n, kind, i)).cuda()
         got = fleet_score(mats, dirs, 0, **kw)
+        again = fleet_score(mats, dirs, 0, **kw)
         want = score_rows_ref(mats, dirs, 0, **kw)
         torch.cuda.synchronize()
-        check(torch.equal(got[0], want[0]),
-              f"fleet_score dev differs at {(r, m, n)}")
+        tag = (f"K1 fleet_score R,M,N={r},{m},{n}{f' {kind} rows' if kind else ''}"
+               f" ({'staged' if n <= 49_152 else 'streamed'})")
+        check(torch.equal(got[0], want[0]), f"{tag}: dev differs")
         err = max(max_abs_err(got[1], want[1]),
                   max_abs_err(got[2], want[2]))
-        check(err == 0.0, f"fleet_score rel/contrib differ at {(r, m, n)}: "
-                          f"max abs err {err}")
-        ms = time_ms(lambda: fleet_score(mats, dirs, 0, **kw))
-        plain = time_ms(lambda: score_rows_ref(mats, dirs, 0, **kw))
-        nbytes = r * m * n * 4 + r * m * n + 2 * r * n * 4 + m * 4
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"K1 fleet_score R,M,N={r},{m},{n}{' +NaN rows' if nans else ''}"
-              f": bit-equal to plain; kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, bound {bound:.6f} ms (bytes)", flush=True)
-        if main is None:                     # the main path's shape
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                        bound_ms=bound, shape=[r, m, n])
+        check(err == 0.0, f"{tag}: rel/contrib differ, max abs err {err}")
+        check(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                  for a, b in zip(got, again)), f"{tag}: two calls differ")
+        line = f"{tag}: bit-equal to plain, two calls bit-equal"
+        if kind != "edge":                      # timed at the real shapes
+            ms = time_ms(lambda: fleet_score(mats, dirs, 0, **kw))
+            dev_ms = kernel_device_ms(
+                torch, lambda: fleet_score(mats, dirs, 0, **kw),
+                "fleet_score")
+            plain = time_ms(lambda: score_rows_ref(mats, dirs, 0, **kw))
+            nbytes = r * m * n * 4 + r * m * n + 2 * r * n * 4 + m * 4
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            line += (f"; kernel {ms:.4f} ms a call ({fmt_ms(dev_ms)} on "
+                     f"the device), plain {plain:.4f} ms, bound {bound:.6f} "
+                     f"ms (bytes)")
+            if main is None:                     # the main path's shape
+                main = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                            plain_ms=plain, bound_ms=bound, shape=[r, m, n])
+        print(line, flush=True)
     return main
 
 
 # ------------------------------------------------------------ phase 3: K2
 
-def kernels_in(torch, fn) -> list:
-    """Names of the device kernels one call of ``fn`` runs (profiler)."""
+def kernels_in(torch, fn, calls: int = 3) -> list:
+    """Names of the device kernels one call of ``fn`` runs, from the
+    profiler over ``calls`` calls; the whole list when the calls differ.
+    A throwaway kernel goes first, since a profiler session after the first
+    one in a process can lose its first kernel, and the framework kernels
+    at the front of the trace are stripped."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = [e.name for e in events]
+    while names and names[0].startswith("void at::native::"):
+        names.pop(0)
+    per = len(names) // calls
+    if per and names == names[:per] * calls:
+        return names[:per]
+    return names
 
 
 def phase_k2(torch, np):
@@ -456,16 +524,23 @@ def phase_k3(torch, np):
 
 # ------------------------------------------------------------ phase 6: K4
 
+# K4 cases: B, S, H, hd, chunk, r/k/v dtype. The first is rwkv6-7b's
+# prefill at 2,048 tokens with the model's chunk of 32, the main path's
+# shape; the rest cover every head dim, B = 2, and single chunks whose
+# length is no multiple of 32 (the model's chunk for a ragged prompt),
+# 1,000 tokens at rwkv6-7b's width among them.
+K4_CASES = [(1, 2048, 64, 64, 32, "bfloat16"), (2, 128, 4, 32, 32, "float32"),
+            (1, 256, 2, 128, 64, "float32"), (2, 100, 4, 16, 100, "bfloat16"),
+            (1, 1000, 64, 64, 1000, "bfloat16"),
+            (2, 300, 2, 128, 300, "bfloat16"), (1, 7, 2, 64, 7, "float32")]
+
+
 def phase_k4(torch, np):
-    from repro_torch.kernels.wkv6 import (wkv6_bytes, wkv6_chunked,
-                                          wkv6_flops, wkv6_ref)
+    from repro_torch.kernels.wkv6 import (scratch_bytes, wkv6_bytes,
+                                          wkv6_chunked, wkv6_flops, wkv6_ref)
     main = None
-    # B, S, H, hd, chunk, r/k/v dtype. The first is rwkv6-7b's prefill at
-    # 2,048 tokens with the model's chunk of 32, the main path's shape.
-    for i, (b, s, h, hd, c, dt) in enumerate([
-            (1, 2048, 64, 64, 32, torch.bfloat16),
-            (2, 128, 4, 32, 32, torch.float32),
-            (1, 256, 2, 128, 64, torch.float32)]):
+    for i, (b, s, h, hd, c, dname) in enumerate(K4_CASES):
+        dt = getattr(torch, dname)
         rng = np.random.default_rng(200 + i)
 
         def mk(*shape, scale=0.5):
@@ -476,26 +551,60 @@ def phase_k4(torch, np):
         logw = (-torch.exp(mk(b, s, h, hd) - 2.0)).transpose(1, 2)
         u, s0 = mk(h, hd, scale=0.15), mk(b, h, hd, hd, scale=0.05)
         y, st = wkv6_chunked(r, k, v, logw, u, s0, chunk=c)
+        y2, st2 = wkv6_chunked(r, k, v, logw, u, s0, chunk=c)
         wy, ws = wkv6_ref(r, k, v, logw, u, s0, chunk=c)
         torch.cuda.synchronize()
-        tag = (f"K4 wkv6 B,S,H,hd={b},{s},{h},{hd} chunk {c} "
-               f"{str(dt).split('.')[-1]}")
+        tag = f"K4 wkv6 B,S,H,hd={b},{s},{h},{hd} chunk {c} {dname}"
         err = max(close_err(y, wy, 2e-3, 1e-3, tag + " y"),
                   close_err(st, ws, 2e-3, 1e-3, tag + " state"))
+        check(torch.equal(y, y2) and torch.equal(st, st2),
+              f"{tag}: two calls are not bit-equal")
+        line = (f"{tag}: max abs err {err:.3e} (atol 2e-3, rtol 1e-3), two "
+                f"calls bit-equal, scratch "
+                f"{scratch_bytes(b, h, s, hd, c) / 2**20:.2f} MiB")
+        if i == 0:
+            # a call is the state pass, then the output pass
+            names = [n.split("<")[0].split("::")[-1] for n in kernels_in(
+                torch, lambda: wkv6_chunked(r, k, v, logw, u, s0, chunk=c))]
+            check(names == ["wkv6_state", "wkv6_out"],
+                  f"{tag}: one call ran {names}")
+            # the state carried across two calls of half the tokens
+            half = s // 2
+            ya, sa = wkv6_chunked(r[:, :, :half], k[:, :, :half],
+                                  v[:, :, :half], logw[:, :, :half], u, s0,
+                                  chunk=c)
+            yb, sb = wkv6_chunked(r[:, :, half:], k[:, :, half:],
+                                  v[:, :, half:], logw[:, :, half:], u, sa,
+                                  chunk=c)
+            carry = max(close_err(torch.cat([ya, yb], 2), y, 2e-3, 1e-3,
+                                  tag + " two calls y"),
+                        close_err(sb, st, 2e-3, 1e-3, tag + " two calls s"))
+            line += (f", 2 device kernels per call ({', '.join(names)}), "
+                     f"state carried over two calls of {half} tokens "
+                     f"within {carry:.3e}")
         ms = time_ms(lambda: wkv6_chunked(r, k, v, logw, u, s0, chunk=c))
+        split = {n: kernel_device_ms(torch, lambda: wkv6_chunked(
+            r, k, v, logw, u, s0, chunk=c), n, reps=10)
+            for n in ("wkv6_state", "wkv6_out")}
+        dev_ms = (None if None in split.values()
+                  else split["wkv6_state"] + split["wkv6_out"])
         plain = time_ms(lambda: wkv6_ref(r, k, v, logw, u, s0, chunk=c),
                         reps=5, warm=1)
         flops = wkv6_flops(b, h, s, hd, c)
         nbytes = wkv6_bytes(b, h, s, hd, r.element_size())
         bnd, by = bound(flops, FP32_SIMT_FLOPS, nbytes)
-        print(f"{tag}: max abs err {err:.3e} (atol 2e-3, rtol 1e-3); kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, library none, bound "
+        print(f"{line}; kernel {ms:.4f} ms a call ({fmt_ms(dev_ms)} on the "
+              f"device: state pass {fmt_ms(split['wkv6_state'])}, output "
+              f"pass {fmt_ms(split['wkv6_out'])}), plain {plain:.4f} ms, "
+              f"library none, bound "
               f"{bnd:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP fp32, "
               f"{nbytes / 1e6:.2f} MB)", flush=True)
         if main is None:
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                        bound_ms=bnd, bound_by=by, library_ms=None,
-                        shape=[b, s, h, hd, c])
+            main = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                        plain_ms=plain, bound_ms=bnd, bound_by=by,
+                        library_ms=None, shape=[b, s, h, hd, c])
+        del r, k, v, logw, y, y2, wy
+    torch.cuda.empty_cache()
     return main
 
 
@@ -556,6 +665,8 @@ def device_profile(torch, fn, reps: int):
     wall = (time.perf_counter() - t0) / reps * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)     # the tracer's first kernel
+        torch.cuda.synchronize()                 # may be lost: not fn's
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -571,38 +682,26 @@ def rel_err(got, want) -> float:
     return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
 
 
-def phase_serve(torch, np, arch: str, seq: int, counters: dict):
-    """Prefill at full width and depth on the kernel path, checked against
-    the plain path, then a BatchedServer to completion. Returns the
-    launches of each kernel during the prefill and the numbers."""
-    import gc
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import BatchedServer, synthetic_requests
-    from repro_torch.models.model import Model
-    cfg = get_config(arch)
-    t0 = time.perf_counter()
-    model = Model(cfg, device="cuda", seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    tokens = torch.from_numpy(np.random.default_rng(7).integers(
-        0, cfg.vocab_size, (1, seq))).cuda()
-
+def prefill_vs_plain(torch, model, cfg, tokens, counters: dict, tag: str):
+    """Prefill ``tokens`` on the kernel path and on the plain path; fails
+    unless both agree within PATH_REL_TOL / FIRST_REL_TOL. Returns the
+    launches of each kernel during the kernel-path prefill and its
+    seconds."""
     for c in counters.values():
         c.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = model.prefill(tokens)
     torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    secs = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
     check(bool(torch.isfinite(logits).all()),
-          f"{arch}: non-finite prefill logits")
+          f"{tag}: non-finite prefill logits")
     with plain_paths():
         plain_logits, plain_cache = model.prefill(tokens)
     torch.cuda.synchronize()
     check(all(c.launches == launches[n] for n, c in counters.items()),
-          f"{arch}: the plain path launched a kernel")
+          f"{tag}: the plain path launched a kernel")
     errs = {"logits": rel_err(logits, plain_logits)}
     if cfg.family == "ssm":
         for name in ("wkv", "x_tm", "x_cm"):
@@ -616,17 +715,47 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict):
         first = ("layer 1 k/v", max(
             rel_err(got[1], want[1]) for got, want in
             zip(cache["layers"], plain_cache["layers"])))
-    print(f"{arch} prefill kernel vs plain path, max abs err / max abs: "
+    print(f"{tag} prefill kernel vs plain path, max abs err / max abs: "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-          + f"; {first[0]} {first[1]:.3e}", flush=True)
+          + f"; {first[0]} {first[1]:.3e}; launches {launches}", flush=True)
     for name, e in errs.items():
-        check(e <= PATH_REL_TOL, f"{arch}: prefill {name} differs from the "
+        check(e <= PATH_REL_TOL, f"{tag}: prefill {name} differs from the "
                                  f"plain path by {e:.3e} of its largest "
                                  f"magnitude (> {PATH_REL_TOL})")
     check(first[1] <= FIRST_REL_TOL[cfg.family],
-          f"{arch}: {first[0]} differs from the plain path by "
+          f"{tag}: {first[0]} differs from the plain path by "
           f"{first[1]:.3e} (> {FIRST_REL_TOL[cfg.family]})")
-    del cache, plain_cache, plain_logits
+    return launches, secs
+
+
+def phase_serve(torch, np, arch: str, seq: int, counters: dict,
+                ragged: int = 0):
+    """Prefill at full width and depth on the kernel path, checked against
+    the plain path (again at a ``ragged`` prompt length when given), then a
+    BatchedServer to completion. Returns the launches of each kernel during
+    the prefill and the numbers (``ragged_launches`` among them)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchedServer, synthetic_requests
+    from repro_torch.models.model import Model
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, seq))).cuda()
+    launches, first_s = prefill_vs_plain(torch, model, cfg, tokens,
+                                         counters, f"{arch} {seq} tokens")
+    extra = {}
+    if ragged:
+        rtoks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                              (1, ragged))).cuda()
+        extra["ragged_launches"], extra["ragged_prefill_s"] = \
+            prefill_vs_plain(torch, model, cfg, rtoks, counters,
+                             f"{arch} {ragged} tokens")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model.prefill(tokens)
@@ -667,7 +796,7 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict):
           f"{arch}: a token outside the vocabulary")
     nums = dict(init_s=init_s, first_prefill_s=first_s, prefill_s=prefill_s,
                 seq=seq, params=n_params, prefill_busy_ms=p_busy,
-                decode_step_ms=d_wall, decode_busy_ms=d_busy, **out)
+                decode_step_ms=d_wall, decode_busy_ms=d_busy, **extra, **out)
     print(f"{arch} ({n_params / 1e9:.2f} B params, {cfg.num_layers} layers):"
           f" init {init_s:.2f} s; prefill of {seq} tokens {prefill_s * 1e3:.1f}"
           f" ms ({seq / prefill_s:.0f} tok/s; first call {first_s * 1e3:.1f}"
@@ -675,9 +804,11 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict):
           f"requests in {out['decode_steps']} decode steps, "
           f"{out['tokens_out']} tokens, {out['wall_s']:.2f} s, "
           f"{out['tok_per_s']:.1f} tok/s "
-          f"({out['decode_steps'] / out['wall_s']:.1f} steps/s at batch 4)",
-          flush=True)
-    del model, server, logits, decode
+          f"({out['decode_steps'] / out['wall_s']:.1f} steps/s at batch 4)"
+          + (f"; ragged prefill of {ragged} tokens (one chunk) "
+             f"{extra['ragged_prefill_s'] * 1e3:.1f} ms, first call"
+             if ragged else ""), flush=True)
+    del model, server, decode
     gc.collect()
     torch.cuda.empty_cache()
     return launches, nums
@@ -733,10 +864,13 @@ def main() -> None:
                     "wkv6": 0},
           f"qwen3-4b prefill launched {dense} (flash_attention once per "
           f"layer, 36)")
-    ssm, _ = phase_serve(torch, np, "rwkv6-7b", 2048, counters)
-    check(ssm == {"fleet_score": 0, "sweep_burn": 0, "flash_attention": 0,
-                  "wkv6": 32},
-          f"rwkv6-7b prefill launched {ssm} (wkv6 once per layer, 32)")
+    ssm, nums = phase_serve(torch, np, "rwkv6-7b", 2048, counters,
+                            ragged=1000)
+    for n, got in ((2048, ssm), (1000, nums["ragged_launches"])):
+        check(got == {"fleet_score": 0, "sweep_burn": 0,
+                      "flash_attention": 0, "wkv6": 32},
+              f"rwkv6-7b prefill of {n} tokens launched {got} (wkv6 once "
+              f"per layer, 32)")
     n3, n4 = dense["flash_attention"], ssm["wkv6"]
 
     kernels = [
@@ -744,8 +878,9 @@ def main() -> None:
          "source": "src/repro_torch/csrc/fleet_score.cu",
          "replaces": "src/repro/kernels/fleet_score/fleet_score.py:146",
          "launches": n1, "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": "bytes", "library_ms": None, "shape": k1["shape"]},
+         "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "shape": k1["shape"]},
         {"name": "sweep_burn", "route": "cuda",
          "source": "src/repro_torch/csrc/sweep_burn.cu",
          "replaces": "src/repro/kernels/sweep_burn/sweep_burn.py:47",
@@ -764,6 +899,7 @@ def main() -> None:
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/wkv6/wkv6.py:76",
          "launches": n4, "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+         "device_ms": k4["device_ms"], "device_kernels_per_call": 2,
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": None,
          "shape": k4["shape"]},

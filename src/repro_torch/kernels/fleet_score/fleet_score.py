@@ -1,7 +1,10 @@
 # guardlint: hot  (fleet-sized arrays live here: float32, no per-node loops)
 """Wrapper of the hand-written CUDA fleet-score kernel
-(``csrc/fleet_score.cu``): one block per (row, metric), exact medians by
-bisection over uint32 keys, outputs bit-identical to ``ref.score_rows_ref``.
+(``csrc/fleet_score.cu``): one block per (row, metric), exact medians by a
+radix select over uint32 keys (4 rounds of 8-bit digits per order
+statistic, from a copy of the row in shared memory up to 49,152 nodes,
+from global memory beyond), outputs bit-identical to
+``ref.score_rows_ref``.
 
 The library is built with ``nvcc`` at the first launch (see
 ``repro_torch.kernels._build``). The wrapper checks its inputs, allocates

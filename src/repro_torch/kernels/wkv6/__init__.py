@@ -2,10 +2,10 @@
 plain PyTorch versions (chunked, and token by token)."""
 from repro_torch.kernels.wkv6.ops import wkv6
 from repro_torch.kernels.wkv6.ref import chunk_of, wkv6_naive, wkv6_ref
-from repro_torch.kernels.wkv6.wkv6 import (CHUNKS, COUNTER, HEAD_DIMS,
-                                           wkv6_bytes, wkv6_chunked,
+from repro_torch.kernels.wkv6.wkv6 import (COUNTER, HEAD_DIMS, scratch_bytes,
+                                           supports, wkv6_bytes, wkv6_chunked,
                                            wkv6_flops)
 
-__all__ = ["CHUNKS", "COUNTER", "HEAD_DIMS", "chunk_of", "wkv6",
-           "wkv6_bytes", "wkv6_chunked", "wkv6_flops", "wkv6_naive",
+__all__ = ["COUNTER", "HEAD_DIMS", "chunk_of", "scratch_bytes", "supports",
+           "wkv6", "wkv6_bytes", "wkv6_chunked", "wkv6_flops", "wkv6_naive",
            "wkv6_ref"]
