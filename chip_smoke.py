@@ -39,7 +39,22 @@ order, it
      ``BatchedServer`` of 12 requests on 4 slots to completion;
   8. the same for full rwkv6-7b, with WKV6 once per layer at 2,048 tokens
      and again at 1,000 (one chunk of the whole prompt);
-  9. prints one JSON line of per-kernel numbers, then
+  9. holds the flash-attention backward kernel against its plain version
+     on the card at qwen3-4b's training shape (bfloat16 and float32) and
+     at the other ``K3B_CASES`` (head dims 32/64/128, a ragged S, MQA and
+     Hq = Hkv, q_offset, kv_len), checks that two calls are bit-equal, and
+     times it beside the backward of ``scaled_dot_product_attention``;
+ 10. trains qwen3-4b at full width (8 of its 36 layers, one 4,096-token
+     sequence, bf16, remat "full"): one step on the kernel path against
+     the plain path (loss, every gradient, the AdamW-updated master
+     weights), then a ``Trainer`` of 12 steps with a ``GuardStepHook``
+     whose detector runs fleet_score on the card (flash attention 16 and
+     its backward 8 launches a step, fleet_score one a Guard window; the
+     loss finite and falling), then the ``examples/train_with_guard.py``
+     scenario at that example's reduced size: an injected stall, a Guard
+     restart, and a recovery from the peer tier of a
+     ``TieredCheckpointManager`` (a hot spare);
+ 11. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -116,9 +131,11 @@ def max_abs_err(a, b) -> float:
 
 def kernel_device_ms(torch, fn, name: str, reps: int = 20):
     """Device ms per call of ``fn`` in the kernels whose name holds
-    ``name``, from ``torch.profiler`` over ``reps`` calls (a throwaway
-    kernel goes first: the tracer may lose its first one); None when the
-    trace holds no such kernel."""
+    ``name``, from ``torch.profiler`` over ``reps`` calls: the sum over
+    those kernels of each one's mean time per launch, so a launch the
+    tracer loses does not lower it (a throwaway kernel goes first too: the
+    tracer may lose its first one); None when the trace holds no such
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -128,9 +145,10 @@ def kernel_device_ms(torch, fn, name: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name in e.key]
-    return sum(rows) / reps / 1e3 if rows else None
+    rows = [e.self_device_time_total / e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key
+            and e.count]
+    return sum(rows) / 1e3 if rows else None
 
 
 def fmt_ms(ms) -> str:
@@ -814,6 +832,402 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict,
     return launches, nums
 
 
+# ------------------------------------------------------------ phase 9: K3'
+
+# K3' cases: B, Hq, Hkv, S, T, hd, causal, q_offset, kv_len, dtype. The
+# first is qwen3-4b's training shape at 4,096 tokens, the main path's; then
+# float32 there, and every head dim, a ragged non-causal S != T, MQA,
+# Hq = Hkv, a decode-chunk q_offset, kv_len < T, and phase 10's
+# train_with_guard shape (6 heads of 64, 128 tokens).
+K3B_CASES = [
+    (1, 32, 8, 4096, 4096, 128, True, 0, 0, "bfloat16"),
+    (1, 32, 8, 4096, 4096, 128, True, 0, 0, "float32"),
+    (2, 8, 2, 300, 450, 64, False, 0, 0, "bfloat16"),
+    (1, 4, 1, 300, 300, 32, True, 0, 0, "bfloat16"),
+    (2, 8, 8, 300, 300, 64, True, 0, 0, "bfloat16"),
+    (1, 8, 2, 64, 576, 128, True, 512, 0, "bfloat16"),
+    (2, 8, 1, 256, 512, 64, False, 0, 400, "bfloat16"),
+    (1, 4, 4, 200, 333, 32, True, 133, 300, "float32"),
+    (4, 6, 6, 128, 128, 64, True, 0, 0, "bfloat16"),
+]
+# The forward's log-sum-exp (natural units, about log T) against the plain
+# forward's, largest absolute difference: both sum exp of the same float32
+# scores (bfloat16 inputs are exact in float32), in another order and with
+# exp2 in the kernel.
+LSE_TOL = 2e-5
+# Each gradient's largest |kernel - plain| over its largest magnitude. The
+# plain version runs the same equations in float32 from the plain
+# forward's o and lse and the same dO: float32 differs by summation order
+# only (2.9e-7 measured on an H100, from the kernel's o and lse); the
+# bfloat16 kernel rounds P and dS to bfloat16 before their
+# products on the tensor cores and writes dq, dk, dv in bfloat16 (up to
+# 7.2e-3 measured on an H100; the CPU emulation of that arithmetic in
+# tests/test_torch_flash_attention.py stays within 6.9e-3 of the JAX
+# package's bfloat16 gradients).
+K3B_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+
+
+def phase_k3_bwd(torch, np):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_flops, attention_bwd_ref, attention_ref,
+        flash_attention, flash_attention_bwd)
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version: fp32
+    main = None
+    for i, (b, hq, hkv, s, t, hd, causal, qo, kvl, dname) in enumerate(
+            K3B_CASES):
+        dt, tol = getattr(torch, dname), K3B_TOL[dname]
+        rng = np.random.default_rng(300 + i)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to("cuda", dt).transpose(1, 2)
+            for shape in ((b, s, hq, hd), (b, t, hkv, hd), (b, t, hkv, hd),
+                          (b, s, hq, hd)))
+        kw = dict(causal=causal, q_offset=qo, kv_len=kvl)
+        o, lse = flash_attention(q, k, v, lse=True, **kw)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        # the plain backward from the plain forward's o and log-sum-exp:
+        # the comparison covers the forward's lse epilogue too
+        o_ref, lse_ref = attention_ref(q, k, v, return_lse=True, **kw)
+        want = attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+        torch.cuda.synchronize()
+        tag = (f"K3' flash_attention_bwd B,Hq,Hkv,S,T,hd={b},{hq},{hkv},{s},"
+               f"{t},{hd} {'causal' if causal else 'full'}"
+               f"{f' q_offset {qo}' if qo else ''}"
+               f"{f' kv_len {kvl}' if kvl else ''} {dname}")
+        lse_err = max_abs_err(lse, lse_ref)
+        check(lse_err <= LSE_TOL, f"{tag}: the forward's log-sum-exp "
+              f"differs from plain by {lse_err:.3e} (> {LSE_TOL})")
+        del o_ref
+        errs = {}
+        for n, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs[n] = rel_err(g, w)
+            check(bool(torch.isfinite(g).all()) and errs[n] <= tol,
+                  f"{tag}: {n} differs from plain by {errs[n]:.3e} of its "
+                  f"largest magnitude (> {tol})")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"{tag}: two calls are not bit-equal")
+        err = max(errs.values())
+        abs_err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        del got, again, want
+        ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                     reps=5, warm=1)
+        dev_ms = kernel_device_ms(torch, lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, **kw), "fa_bwd", reps=3)
+        flops = attention_bwd_flops(b, hq, s, kvl or t, hd, causal=causal,
+                                    q_offset=qo)
+        nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * \
+            q.element_size() + lse.numel() * 4
+        peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else FP32_SIMT_FLOPS
+        bnd, by = bound(flops, peak, nbytes)
+        line = (f"{tag}: forward lse max abs err {lse_err:.3e} (tol "
+                f"{LSE_TOL}); max err / max abs " + ", ".join(
+            f"{n} {e:.3e}" for n, e in errs.items()) + f" (tol {tol}), two "
+            f"calls bit-equal; kernel {ms:.4f} ms a call ({fmt_ms(dev_ms)} "
+            f"on the device, 3 kernels), {flops / ms / 1e9:.2f} TFLOP/s, "
+            f"{bnd / ms:.2%} of bound, bound {bnd:.4f} ms ({by}; "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        plain = lib = None
+        if i < 3:                    # timed beside plain and sdpa's backward
+            plain = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse_ref,
+                                                      do, **kw),
+                            reps=3, warm=1)
+            qq, kk, vv = (x.detach().clone().requires_grad_(True)
+                          for x in (q, k, v))
+            out = F.scaled_dot_product_attention(qq, kk, vv,
+                                                 is_causal=causal,
+                                                 enable_gqa=True)
+            lib = time_ms(lambda: torch.autograd.grad(
+                out, (qq, kk, vv), do, retain_graph=True), reps=5, warm=2)
+            del out, qq, kk, vv
+            line += f"; plain {plain:.4f} ms, sdpa backward {lib:.4f} ms"
+        if i == 0:
+            split = {n: kernel_device_ms(torch, lambda: flash_attention_bwd(
+                q, k, v, o, lse, do, **kw), n, reps=3)
+                for n in ("fa_bwd_dot", "fa_bwd_dkdv", "fa_bwd_dq")}
+            line += "; device split " + ", ".join(
+                f"{n} {fmt_ms(m)}" for n, m in split.items())
+        print(line, flush=True)
+        if main is None:
+            main = dict(max_abs_err=abs_err, max_rel_err=err, ms=ms,
+                        device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
+                        bound_by=by, library_ms=lib,
+                        shape=[b, hq, hkv, s, t, hd])
+        del q, k, v, do, o, lse, lse_ref
+        torch.cuda.empty_cache()
+    return main
+
+
+# ---------------------------------------------------- phase 10: training
+
+TRAIN_LAYERS = 8           # of qwen3-4b's 36: 16 B a parameter must fit
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 12
+# kernel path against plain path, one bf16 step at full width (8 layers):
+# the loss within LOSS_REL_TOL of the plain path's, every gradient within
+# GRAD_REL_TOL of its largest magnitude (measured on an H100: 7.9e-6 and
+# 9.5e-3; the same bf16 rounding flips as in serving, through 8 layers and
+# their backward). AdamW's first step from zero moments moves each master
+# weight by about lr times the sign of its gradient (|m / (sqrt(v) + eps)|
+# <= 1) plus the decay term, which is the same on both paths: so the two
+# updates must point the same way. Their cosine must be at least
+# UPDATE_COS (measured on an H100: 0.9995; each entry whose update changes
+# sign, a gradient near zero, costs it about 2 / n), and at most
+# UPDATE_FLIP of the entries may change sign (from the cosine, about
+# (1 - 0.9995) / 2 = 2.5e-4 are expected).
+LOSS_REL_TOL = 1e-3
+GRAD_REL_TOL = 5e-2
+UPDATE_COS = 0.99
+UPDATE_FLIP = 5e-3
+
+
+def train_step_grads(torch, model, batch):
+    """Loss and a copy of every working-weight gradient of one step."""
+    loss, _ = model.train_loss(batch)
+    loss.backward()
+    grads = {}
+    for name, p in model.named_parameters():
+        grads[name] = p.grad
+        p.grad = None
+    torch.cuda.synchronize()
+    return loss.detach(), grads
+
+
+def adamw_from_zero(master, grads, opt, decay):
+    """A copy of the master weights after one AdamW step from zero moments,
+    and that step's learning rate."""
+    from repro_torch.train import apply_adamw, init_opt_state
+    params = {n: m.clone() for n, m in master.items()}
+    _, _, metrics = apply_adamw(params, grads, init_opt_state(params), opt,
+                                decay)
+    return params, float(metrics["lr"])
+
+
+def update_agreement(master, a, b):
+    """The share of entries whose updates a - master and b - master differ
+    in sign, and the cosine of the two updates."""
+    flips, total, dot, na, nb = 0, 0, 0.0, 0.0, 0.0
+    for n, m in master.items():
+        ua, ub = a[n] - m, b[n] - m
+        flips += int((ua.sign() != ub.sign()).sum())
+        total += ua.numel()
+        dot += float((ua.double() * ub.double()).sum())
+        na += float(ua.double().square().sum())
+        nb += float(ub.double().square().sum())
+    return flips / total, dot / max((na * nb) ** 0.5, 1e-300)
+
+
+def phase_train(torch, np, counters: dict):
+    """Phase 10: qwen3-4b training at full width, then the train_with_guard
+    scenario. Returns (launches of the Trainer run, numbers)."""
+    import dataclasses
+    import gc
+    import tempfile
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.guard import (GuardStepHook, NodeSwapped, RecoveryEvent,
+                                   StragglerFlagged)
+    from repro_torch.models.model import Model
+    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticLM,
+                                   TieredCheckpointManager, TrainConfig,
+                                   Trainer)
+    from repro_torch.train.trainer import decay_mask, master_params
+    cfg = dataclasses.replace(get_config("qwen3-4b"),
+                              num_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0, remat="full")
+    for p in model.parameters():
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, 1, seed=0))
+    batch = data.batch_at(0)
+    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    tag = f"qwen3-4b train ({TRAIN_LAYERS} layers, 1 x {TRAIN_SEQ} tokens)"
+    print(f"{tag}: {n_params / 1e9:.3f} B parameters, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (a) one step, kernel path against plain path
+    for c in counters.values():
+        c.reset()
+    loss_k, grads_k = train_step_grads(torch, model, batch)
+    launches = {n: c.launches for n, c in counters.items()}
+    check(launches["flash_attention"] == 2 * TRAIN_LAYERS
+          and launches["flash_attention_bwd"] == TRAIN_LAYERS,
+          f"{tag}: a kernel-path step launched {launches} (flash_attention "
+          f"{2 * TRAIN_LAYERS}: forward and remat; its backward "
+          f"{TRAIN_LAYERS})")
+    with plain_paths():
+        loss_p, grads_p = train_step_grads(torch, model, batch)
+    check(all(c.launches == launches[n] for n, c in counters.items()),
+          f"{tag}: the plain path launched a kernel")
+    check(bool(torch.isfinite(loss_k)), f"{tag}: non-finite loss")
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    gerr = {n: rel_err(grads_k[n], grads_p[n]) for n in grads_k}
+    worst = max(gerr, key=gerr.get)
+    check(all(bool(torch.isfinite(g).all()) for g in grads_k.values()),
+          f"{tag}: non-finite gradients")
+    check(loss_err <= LOSS_REL_TOL, f"{tag}: loss {float(loss_k)} vs plain "
+                                    f"{float(loss_p)} ({loss_err:.3e})")
+    check(gerr[worst] <= GRAD_REL_TOL,
+          f"{tag}: gradient {worst} differs from the plain path by "
+          f"{gerr[worst]:.3e} of its largest magnitude")
+    master = master_params(model)
+    decay = decay_mask(model)
+    upd_k, lr1 = adamw_from_zero(master, grads_k, opt, decay)
+    upd_p, _ = adamw_from_zero(master, grads_p, opt, decay)
+    flip, cos = update_agreement(master, upd_k, upd_p)
+    check(cos >= UPDATE_COS and flip <= UPDATE_FLIP,
+          f"{tag}: AdamW updates' cosine {cos:.5f} (< {UPDATE_COS}?) or "
+          f"share of entries whose update changes sign {flip:.3e} "
+          f"(> {UPDATE_FLIP}?)")
+    print(f"{tag} step, kernel vs plain path: loss {float(loss_k):.6f} vs "
+          f"{float(loss_p):.6f} ({loss_err:.3e}); gradients within "
+          f"{gerr[worst]:.3e} of their largest magnitude (worst {worst}); "
+          f"AdamW updates (lr {lr1:.3e}): cosine {cos:.6f} (limit "
+          f"{UPDATE_COS}), {flip:.3e} of entries change sign (limit "
+          f"{UPDATE_FLIP}); launches {launches}",
+          flush=True)
+    del grads_k, grads_p, upd_k, upd_p, master
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the Trainer with Guard on the card, no durable checkpoint (a
+    # save at this size is ~25 GB: fp32 master weights and two moments)
+    hook = GuardStepHook(window_steps=4, device="cuda")
+    model_gb = torch.cuda.memory_allocated() / 1e9
+    trainer = Trainer(model, data, TrainConfig(steps=TRAIN_STEPS,
+                                               ckpt_interval=10 ** 9,
+                                               opt=opt), hook=hook)
+    init_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    out = trainer.run()
+    launches = {n: c.launches for n, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # what stays between steps: working weights, fp32 master, two moments
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    walls = [h["wall_s"] for h in hist]
+    check(out["final_step"] == TRAIN_STEPS and len(hist) == TRAIN_STEPS,
+          f"{tag}: trainer stopped at {out['final_step']}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{tag}: losses {losses} not finite and falling")
+    want = {"fleet_score": hook.frames_fed, "sweep_burn": 0,
+            "flash_attention": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_attention_bwd": TRAIN_LAYERS * TRAIN_STEPS, "wkv6": 0}
+    check(hook.frames_fed >= 1 and launches == want,
+          f"{tag}: the Trainer run launched {launches}, expected {want}")
+    step_ms = float(np.median(walls[1:])) * 1e3
+    s_wall, s_busy, s_top = device_profile(
+        torch, lambda: trainer._step_fn(trainer.params, trainer.opt_state,
+                                        batch), reps=2)
+    nums = dict(params=n_params, step_ms=step_ms, first_step_s=walls[0],
+                tok_per_s=TRAIN_SEQ / (step_ms / 1e3), peak_gb=peak_gb,
+                state_gb=state_gb, model_gb=model_gb, trainer_gb=init_gb,
+                busy_ms=s_busy, profiled_step_ms=s_wall,
+                losses=[round(x, 4) for x in losses],
+                frames=hook.frames_fed)
+    print(f"{tag}, Trainer + GuardStepHook on the card: {TRAIN_STEPS} steps, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; step median "
+          f"{step_ms:.1f} ms (first {walls[0] * 1e3:.0f} ms), "
+          f"{nums['tok_per_s']:.0f} tokens/s; peak memory {peak_gb:.2f} GB "
+          f"({state_gb:.2f} GB held between steps; {model_gb:.2f} GB before "
+          f"the Trainer, {init_gb:.2f} GB after its master weights and "
+          f"moments); "
+          f"launches per step: flash_attention "
+          f"{launches['flash_attention'] / TRAIN_STEPS:.0f}, its backward "
+          f"{launches['flash_attention_bwd'] / TRAIN_STEPS:.0f}; "
+          f"fleet_score {launches['fleet_score']} in {hook.frames_fed} Guard "
+          f"windows; profiled step {s_wall:.1f} ms wall, card busy "
+          f"{s_busy:.1f} ms ({s_busy / s_wall:.0%}); top kernels (ms per "
+          f"step): {s_top}", flush=True)
+    del trainer, model, hook
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) examples/train_with_guard.py at that example's reduced size
+    steps = 200
+    small = reduced(get_config("phi3-mini-3.8b"), num_layers=6, d_model=384,
+                    num_heads=6, num_kv_heads=6, d_ff=1024, head_dim=64,
+                    vocab_size=4096)
+    model = Model(small, device="cuda", seed=0)
+    data = SyntheticLM(DataConfig(small.vocab_size, seq_len=128,
+                                  global_batch=4))
+    window, stall_at, stall_steps = 4, steps // 2, 4
+    hook = GuardStepHook(window_steps=window, n_peers=15, device="cuda")
+    hook.inject_stall(at_step=stall_at, factor=8.0, steps=stall_steps)
+    swaps, recoveries, flags = [], [], []
+    hook.session.bus.subscribe(NodeSwapped, swaps.append)
+    hook.session.bus.subscribe(RecoveryEvent, recoveries.append)
+    hook.session.bus.subscribe(StragglerFlagged, flags.append)
+    tmp = tempfile.TemporaryDirectory(prefix="train_with_guard_")
+    ckpt = TieredCheckpointManager(tmp.name, node_id=hook.node_id,
+                                   fast_interval_s=5.0)
+    hook.bind_checkpoint(ckpt)
+    trainer = Trainer(model, data, TrainConfig(
+        steps=steps, ckpt_interval=50,
+        opt=AdamWConfig(peak_lr=6e-4, warmup_steps=20, total_steps=steps)),
+        ckpt=ckpt, hook=hook)
+    t0 = time.perf_counter()
+    out = trainer.run()
+    secs = time.perf_counter() - t0
+    losses = [h["loss"] for h in out["history"]]
+    walls = np.array([h["wall_s"] for h in out["history"]]) * 1e3
+    tier = [(e.ckpt_tier, e.hot_spare, e.step, e.replay_steps)
+            for e in recoveries]
+    # the step at which Guard asked for each restart: a recovery restores
+    # to e.step and replays the steps up to it
+    restart_steps = [e.step + e.replay_steps for e in recoveries]
+    # A scored window of `window` consecutive steps that ends at step r
+    # holds a stalled step, inflated 8-fold, when stall_at <= r <=
+    # stall_at + stall_steps + window - 2. Guard must restart the host at
+    # the end of such a window (an immediate-restart flag from the
+    # detector at that step, not a deferred swap landing at a checkpoint),
+    # onto a hot spare from the peer tier. The host's own spread on the
+    # card brings restarts elsewhere in the run too; they are printed.
+    scored = range(stall_at, stall_at + stall_steps + window - 1)
+    immediate = {e.step for e in flags if e.action == "immediate_restart"}
+    stall_flags = [(e.step, e.action, e.reason) for e in flags
+                   if e.step in scored]
+    stall_restarts = [e for e in recoveries
+                      if e.step + e.replay_steps in scored
+                      and e.step + e.replay_steps in immediate]
+    check(out["final_step"] == steps,
+          f"train_with_guard: final step {out['final_step']}")
+    check(any(e.hot_spare and e.ckpt_tier == "peer"
+              for e in stall_restarts),
+          f"train_with_guard: no immediate restart onto a hot spare from "
+          f"the peer tier at the end of a window holding the stall (steps "
+          f"{scored.start}-{scored.stop - 1}); restarts at {restart_steps}, "
+          f"recoveries {tier}, flags there {stall_flags}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "train_with_guard: loss not finite and falling")
+    print(f"train_with_guard ({small.name} reduced, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+          f"parameters, bf16, on the card): {out['final_step']} steps in "
+          f"{secs:.1f} s, loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
+          f"{hook.frames_fed} Guard windows, {hook.restarts_requested} "
+          f"restart(s) at steps {restart_steps}; flags in steps "
+          f"{scored.start}-{scored.stop - 1} (stall at {stall_at}-"
+          f"{stall_at + stall_steps - 1}): {stall_flags}; swaps "
+          f"{[(e.old, e.new) for e in swaps]}, recoveries "
+          f"(tier, hot spare, restored step, replayed) {tier}; "
+          f"{ckpt.snapshots_taken} fast snapshots; measured step ms p10 / "
+          f"p50 / p90 / max {np.percentile(walls, 10):.1f} / "
+          f"{np.median(walls):.1f} / {np.percentile(walls, 90):.1f} / "
+          f"{walls.max():.1f} (the hook's synthetic peers jitter 1 %)",
+          flush=True)
+    ckpt.wait()
+    tmp.cleanup()
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, nums
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> None:
@@ -854,24 +1268,28 @@ def main() -> None:
     k4 = phase_k4(torch, np)
 
     from repro_torch.kernels.fleet_score import COUNTER as C1
+    from repro_torch.kernels.flash_attention import BWD_COUNTER as C3B
     from repro_torch.kernels.flash_attention import COUNTER as C3
     from repro_torch.kernels.sweep_burn import COUNTER as C2
     from repro_torch.kernels.wkv6 import COUNTER as C4
     counters = {"fleet_score": C1, "sweep_burn": C2, "flash_attention": C3,
-                "wkv6": C4}
+                "flash_attention_bwd": C3B, "wkv6": C4}
     dense, _ = phase_serve(torch, np, "qwen3-4b", 4096, counters)
     check(dense == {"fleet_score": 0, "sweep_burn": 0, "flash_attention": 36,
-                    "wkv6": 0},
+                    "flash_attention_bwd": 0, "wkv6": 0},
           f"qwen3-4b prefill launched {dense} (flash_attention once per "
           f"layer, 36)")
     ssm, nums = phase_serve(torch, np, "rwkv6-7b", 2048, counters,
                             ragged=1000)
     for n, got in ((2048, ssm), (1000, nums["ragged_launches"])):
         check(got == {"fleet_score": 0, "sweep_burn": 0,
-                      "flash_attention": 0, "wkv6": 32},
+                      "flash_attention": 0, "flash_attention_bwd": 0,
+                      "wkv6": 32},
               f"rwkv6-7b prefill of {n} tokens launched {got} (wkv6 once "
               f"per layer, 32)")
     n3, n4 = dense["flash_attention"], ssm["wkv6"]
+    k3b = phase_k3_bwd(torch, np)
+    train, tnums = phase_train(torch, np, counters)
 
     kernels = [
         {"name": "fleet_score", "route": "cuda",
@@ -894,7 +1312,18 @@ def main() -> None:
          "launches": n3, "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
-         "shape": k3["shape"]},
+         "shape": k3["shape"],
+         "launches_train": train["flash_attention"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention/ops.py:42",
+         "launches": train["flash_attention_bwd"],
+         "max_abs_err": k3b["max_abs_err"],
+         "max_rel_err": k3b["max_rel_err"], "ms": k3b["ms"],
+         "device_ms": k3b["device_ms"], "device_kernels_per_call": 3,
+         "plain_ms": k3b["plain_ms"], "bound_ms": k3b["bound_ms"],
+         "bound_by": k3b["bound_by"], "library_ms": k3b["library_ms"],
+         "shape": k3b["shape"]},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/wkv6/wkv6.py:76",
@@ -904,6 +1333,7 @@ def main() -> None:
          "bound_by": k4["bound_by"], "library_ms": None,
          "shape": k4["shape"]},
     ]
+    print(f"training (phase 10): {json.dumps(tnums)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

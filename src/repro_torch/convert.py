@@ -18,6 +18,16 @@ moves both across without importing ``repro``:
       dicts of numpy arrays): the stacked ``layers`` axis unstacked, every
       (in, out) matrix kept as it is, each leaf cast to the compute dtype
       once.
+  named_params(jax_tree, depth)
+      any tree shaped like the parameters (float32 master weights, AdamW
+      moments, gradients) as ``{port parameter name: array}``;
+  opt_state(jax_opt_state, model)
+      the reference's ``{"mu", "nu", "count"}`` as the port's optimizer
+      state for ``model``;
+  reference_tree(named)
+      the inverse of ``named_params``: port parameters, gradients or
+      moments as the JAX package's nested tree of numpy arrays, layers
+      stacked again, so tests compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -194,6 +204,76 @@ def model_params(jax_params: Mapping, cfg, *,
     return model
 
 
+def named_params(jax_tree: Mapping, depth: int) -> Dict[str, np.ndarray]:
+    """``{port parameter name: array}`` of a tree shaped like the JAX
+    package's parameters, whose ``layers`` leaves are stacked ``depth``
+    deep."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(tree: Mapping, prefix: str) -> None:
+        for key, val in tree.items():
+            if isinstance(val, Mapping):
+                walk(val, f"{prefix}{key}.")
+            else:
+                out[f"{prefix}{key}"] = np.asarray(val)
+
+    walk({k: v for k, v in jax_tree.items() if k != "layers"}, "")
+    for i in range(depth):
+        walk(_layer(jax_tree["layers"], i, depth), f"layers.{i}.")
+    return out
+
+
+def opt_state(jax_opt_state: Mapping, model: Model) -> Dict[str, object]:
+    """The reference's AdamW state ``{"mu", "nu", "count"}`` as the port's
+    (``repro_torch.train.optimizer``) for ``model``: float32 moments keyed
+    by parameter name on the model's device, a 0-d int32 count. Raises
+    unless the moments cover exactly the model's parameters."""
+    params = dict(model.named_parameters())
+    out: Dict[str, object] = {}
+    for key in ("mu", "nu"):
+        flat = named_params(jax_opt_state[key], len(model.layers))
+        if set(flat) != set(params):
+            raise KeyError(f"{key}: reference names "
+                           f"{sorted(set(flat) ^ set(params))[:8]} do not "
+                           f"match the port's parameters")
+        out[key] = {n: torch.from_numpy(np.array(flat[n], np.float32)).to(
+            model.device) for n in params}
+    out["count"] = torch.tensor(int(np.asarray(jax_opt_state["count"])),
+                                dtype=torch.int32, device=model.device)
+    return out
+
+
+def reference_tree(named: Mapping[str, object]) -> Dict[str, object]:
+    """Port-named leaves (tensors or arrays) as the JAX package's nested
+    tree of float32 numpy arrays, the ``layers.<i>.`` leaves stacked on a
+    leading layer axis."""
+    tree: Dict[str, object] = {}
+    layers: Dict[int, Dict[str, np.ndarray]] = {}
+    for name, val in named.items():
+        arr = (val.detach().float().cpu().numpy()
+               if isinstance(val, torch.Tensor) else np.asarray(val))
+        parts = name.split(".")
+        if parts[0] == "layers":
+            layers.setdefault(int(parts[1]), {})[".".join(parts[2:])] = arr
+            continue
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+    if layers:
+        stacked: Dict[str, object] = {}
+        for key in layers[0]:
+            node = stacked
+            parts = key.split(".")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = np.stack([layers[i][key]
+                                        for i in sorted(layers)])
+        tree["layers"] = stacked
+    return tree
+
+
 __all__ = ["detector_config", "detector_state_to_numpy",
-           "load_detector_state", "model_params", "policy_config",
-           "sweep_config", "triage_config"]
+           "load_detector_state", "model_params", "named_params",
+           "opt_state", "policy_config", "reference_tree", "sweep_config",
+           "triage_config"]

@@ -41,6 +41,11 @@
 // 2e-5 (a bf16 P could not hold it). One 256-thread block per (64 query
 // rows, q head, batch); per 64-key tile S = Q K^T as 4x4 micro-tiles from
 // shared memory, the softmax by four lanes per row, O += P V in registers.
+//
+// Both kernels write each row's natural log-sum-exp of the scaled, masked
+// scores (m + log l, float32, (B, Hq, S) contiguous) when given a non-null
+// `lse`: the backward (flash_attention_bwd.cu) rebuilds P from it. Serving
+// passes null and the epilogue skips the store.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,9 +79,10 @@ struct Smem {
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ o, int G, int S,
-            int Tk, int kv_len, int q_offset, int causal, float scale,
-            Strides qs, Strides ks, Strides vs, Strides os) {
+            const float* __restrict__ v, float* __restrict__ o,
+            float* __restrict__ lse, int G, int S, int Tk, int kv_len,
+            int q_offset, int causal, float scale, Strides qs, Strides ks,
+            Strides vs, Strides os) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
   constexpr int OJ = HD / 16;
   extern __shared__ float smem[];
@@ -210,6 +216,9 @@ fa_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   __syncthreads();                   // l_s is final (also when nk == 0)
+  if (lse != nullptr && tid < BQ && q0 + tid < S)
+    lse[((long long)b * gridDim.y + h) * S + q0 + tid] =
+        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -223,10 +232,10 @@ fa_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
-                int Hq, int Hkv, int S, int Tk, int kv_len, int q_offset,
-                int causal, float scale, Strides qs, Strides ks, Strides vs,
-                Strides os, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Hq, int Hkv, int S, int Tk, int kv_len,
+                int q_offset, int causal, float scale, Strides qs, Strides ks,
+                Strides vs, Strides os, cudaStream_t stream) {
   const size_t smem = Smem<HD>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       fa_fwd_simt<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -234,7 +243,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
   fa_fwd_simt<HD><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
       Hq / Hkv, S, Tk, kv_len, q_offset, causal, scale, qs, ks, vs, os);
   return (int)cudaGetLastError();
 }
@@ -462,8 +471,9 @@ __global__ void __launch_bounds__(kBlock, 1)
 fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv,
-          __nv_bfloat16* __restrict__ o, Strides os, int G, int S,
-          int kv_len, int q_offset, int causal, float scale_log2) {
+          __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+          Strides os, int G, int S, int kv_len, int q_offset, int causal,
+          float scale_log2) {
   using C = Cfg<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -654,6 +664,17 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
     // O / max(l, 1e-30), written in bf16 through the output's strides
     const float den[2] = {fmaxf(l_lo, 1e-30f), fmaxf(l_hi, 1e-30f)};
     __nv_bfloat16* ob = o + b * os.b + h * os.h;
+    if (lse != nullptr && (lane & 3) == 0) {
+      // the row's log-sum-exp in natural units: (m + log2 l) ln 2
+      const float m2[2] = {m_lo, m_hi};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = q0 + r_lo + 8 * half;
+        if (row < S)
+          lse[((long long)b * gridDim.x + h) * S + row] =
+              (m2[half] + log2f(den[half])) * 0.6931471805599453f;
+      }
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = q0 + r_lo + 8 * half;
@@ -720,8 +741,8 @@ bool make_map(CUtensorMap* map, const void* base, int rows, int heads,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int S, int T, int kv_len, int q_offset,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Hq, int Hkv, int S, int T, int kv_len, int q_offset,
            int causal, float scale, Strides qs, Strides ks, Strides vs,
            Strides os, cudaStream_t stream) {
   if (!encode_fn()) return (int)cudaErrorSymbolNotFound;
@@ -745,44 +766,44 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(Hq, B, (S + BM - 1) / BM);
   const float scale_log2 = (float)((double)scale * 1.4426950408889634);
   fa_fwd_tc<HD><<<grid, kBlock, Cfg<HD>::SMEM, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, os, Hq / Hkv, S, kv_len, q_offset,
-      causal, scale_log2);
+      tq, tk, tv, (__nv_bfloat16*)o, lse, os, Hq / Hkv, S, kv_len,
+      q_offset, causal, scale_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
 template <bool BF16, int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
-              int Hq, int Hkv, int S, int T, int kv_len, int q_offset,
-              int causal, float scale, Strides qs, Strides ks, Strides vs,
-              Strides os, cudaStream_t stream) {
+int launch_hd(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int Hq, int Hkv, int S, int T, int kv_len,
+              int q_offset, int causal, float scale, Strides qs, Strides ks,
+              Strides vs, Strides os, cudaStream_t stream) {
   if constexpr (BF16)
-    return tc::launch<HD>(q, k, v, o, B, Hq, Hkv, S, T, kv_len, q_offset,
-                          causal, scale, qs, ks, vs, os, stream);
+    return tc::launch<HD>(q, k, v, o, lse, B, Hq, Hkv, S, T, kv_len,
+                          q_offset, causal, scale, qs, ks, vs, os, stream);
   else
-    return launch_simt<HD>(q, k, v, o, B, Hq, Hkv, S, T, kv_len, q_offset,
-                           causal, scale, qs, ks, vs, os, stream);
+    return launch_simt<HD>(q, k, v, o, lse, B, Hq, Hkv, S, T, kv_len,
+                           q_offset, causal, scale, qs, ks, vs, os, stream);
 }
 
 template <bool BF16>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                int B, int Hq, int Hkv, int S, int T, int kv_len,
+                float* lse, int B, int Hq, int Hkv, int S, int T, int kv_len,
                 int q_offset, int causal, float scale, Strides qs,
                 Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch_hd<BF16, 32>(q, k, v, o, B, Hq, Hkv, S, T, kv_len,
-                                 q_offset, causal, scale, qs, ks, vs, os,
-                                 stream);
+      return launch_hd<BF16, 32>(q, k, v, o, lse, B, Hq, Hkv, S, T,
+                                 kv_len, q_offset, causal, scale, qs, ks, vs,
+                                 os, stream);
     case 64:
-      return launch_hd<BF16, 64>(q, k, v, o, B, Hq, Hkv, S, T, kv_len,
-                                 q_offset, causal, scale, qs, ks, vs, os,
-                                 stream);
+      return launch_hd<BF16, 64>(q, k, v, o, lse, B, Hq, Hkv, S, T,
+                                 kv_len, q_offset, causal, scale, qs, ks, vs,
+                                 os, stream);
     case 128:
-      return launch_hd<BF16, 128>(q, k, v, o, B, Hq, Hkv, S, T, kv_len,
-                                  q_offset, causal, scale, qs, ks, vs, os,
-                                  stream);
+      return launch_hd<BF16, 128>(q, k, v, o, lse, B, Hq, Hkv, S, T,
+                                  kv_len, q_offset, causal, scale, qs, ks, vs,
+                                  os, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -794,14 +815,17 @@ extern "C" {
 
 // q (B, Hq, S, hd), k/v (B, Hkv, T, hd), o (B, Hq, S, hd), each addressed
 // by its (batch, head, row) element strides with a contiguous last
-// dimension. dtype 0: float32, 1: bfloat16 (all four tensors; bfloat16
-// needs 16-byte aligned base addresses and row/head/batch strides, which
-// TMA reads). hd in {32, 64, 128}; Hq a multiple of Hkv; 1 <= kv_len <= T.
+// dimension; lse null or a contiguous float32 (B, Hq, S) that receives
+// each row's log-sum-exp. dtype 0: float32, 1: bfloat16 (all four tensors;
+// bfloat16 needs 16-byte aligned base addresses and row/head/batch strides,
+// which TMA reads). hd in {32, 64, 128}; Hq a multiple of Hkv;
+// 1 <= kv_len <= T.
 // Returns the first CUDA error (cudaSuccess = 0), cudaErrorInvalidValue
 // for a shape or layout the kernel does not take.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int dtype, int B, int Hq, int Hkv, int S,
-                           int T, int hd, int kv_len, int q_offset,
+                           void* o, void* lse, int dtype, int B, int Hq,
+                           int Hkv, int S, int T, int hd, int kv_len,
+                           int q_offset,
                            int causal, float scale, long long qsb,
                            long long qsh, long long qss, long long ksb,
                            long long ksh, long long kss, long long vsb,
@@ -813,8 +837,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   cudaStream_t s = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (dtype == 0)
-    return dispatch_hd<false>(hd, q, k, v, o, B, Hq, Hkv, S, T, kv_len,
+    return dispatch_hd<false>(hd, q, k, v, o, l, B, Hq, Hkv, S, T, kv_len,
                               q_offset, causal, scale, qs, ks, vs, os, s);
   if (dtype == 1) {
     for (const void* p : {q, k, v, (const void*)o})
@@ -823,7 +848,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     for (long long st : {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss})
       if ((st * 2) % 16) return (int)cudaErrorInvalidValue;
     if ((S + tc::BM - 1) / tc::BM > 65535) return (int)cudaErrorInvalidValue;
-    return dispatch_hd<true>(hd, q, k, v, o, B, Hq, Hkv, S, T, kv_len,
+    return dispatch_hd<true>(hd, q, k, v, o, l, B, Hq, Hkv, S, T, kv_len,
                              q_offset, causal, scale, qs, ks, vs, os, s);
   }
   return (int)cudaErrorInvalidValue;

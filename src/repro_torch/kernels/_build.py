@@ -28,14 +28,16 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # flash_attention needs no flag of its own: it reaches the driver's
 # cuTensorMapEncodeTiled through the runtime's driver entry point (no
 # -lcuda) and writes its wgmma/TMA instructions as inline PTX (no CUTLASS
-# include); sweep_burn's grid barrier is cooperative_groups' grid.sync,
-# which needs no relocatable device code.
+# include); flash_attention_bwd is plain CUDA-core code; sweep_burn's grid
+# barrier is cooperative_groups' grid.sync, which needs no relocatable
+# device code.
 _COMMON = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 FLAGS: Dict[str, Tuple[str, ...]] = {
     "fleet_score": _COMMON + ("-fmad=false",),
     "sweep_burn": _COMMON,
     "flash_attention": _COMMON,
+    "flash_attention_bwd": _COMMON,
     "wkv6": _COMMON,
 }
 

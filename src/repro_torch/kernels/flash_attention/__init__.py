@@ -1,9 +1,13 @@
-"""Flash-attention forward (tiled online-softmax, causal or full, GQA) as a
-hand-written CUDA kernel with its plain PyTorch version."""
+"""Flash attention (tiled online-softmax, causal or full, GQA) as
+hand-written CUDA kernels, forward and backward, with their plain PyTorch
+versions."""
 from repro_torch.kernels.flash_attention.flash_attention import (
-    COUNTER, HEAD_DIMS, attention_flops, flash_attention)
+    BWD_COUNTER, COUNTER, HEAD_DIMS, attention_bwd_flops, attention_flops,
+    flash_attention, flash_attention_bwd)
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
 
-__all__ = ["COUNTER", "HEAD_DIMS", "attention", "attention_flops",
-           "attention_ref", "flash_attention"]
+__all__ = ["BWD_COUNTER", "COUNTER", "HEAD_DIMS", "attention",
+           "attention_bwd_flops", "attention_bwd_ref", "attention_flops",
+           "attention_ref", "flash_attention", "flash_attention_bwd"]

@@ -1,17 +1,27 @@
-"""Wrapper of the hand-written CUDA flash-attention kernels
-(``csrc/flash_attention.cu``). bfloat16 runs on the tensor cores: one
+"""Wrappers of the hand-written CUDA flash-attention kernels.
+
+Forward (``csrc/flash_attention.cu``). bfloat16 runs on the tensor cores: one
 block per (128 query rows, q head, batch), a TMA producer warpgroup
 filling a 2-stage K/V ring, two consumer warpgroups on ``wgmma`` with the
 online softmax in registers and P rounded to bfloat16 for P.V. float32
 runs on the CUDA cores (one block per 64 query rows), exact to the
 reference's 2e-5. Both skip key tiles in the causal future and mask the
-ragged edges in the kernel.
+ragged edges in the kernel, and both write each row's log-sum-exp when
+asked (``lse=True``), for the backward.
+
+Backward (``csrc/flash_attention_bwd.cu``): dQ, dK, dV from the forward's
+output and log-sum-exp, three launches per call (D = rowsum(dO o O), a
+dK/dV kernel per key tile, a dQ kernel per query tile), float32 sums in a
+fixed order with no atomics, so two calls are bit-equal. bfloat16 runs on
+the tensor cores (``mma.sync``, P and dS rounded to bfloat16 before their
+products) and needs 16-byte aligned rows; float32 runs on the CUDA cores.
+``BWD_COUNTER`` counts its calls.
 
 The library is built with ``nvcc`` at the first launch (see
 ``repro_torch.kernels._build``). The wrapper checks its inputs, allocates
-the output with ``torch.empty``, launches on PyTorch's current stream and
+the outputs with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reports an error. ``COUNTER.launches`` counts the
-launches.
+forward's launches.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 COUNTER = _build.LaunchCounter()
+BWD_COUNTER = _build.LaunchCounter()
 
 
 def _lib() -> ctypes.CDLL:
@@ -34,23 +45,36 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:            # first use: declare the C signature
         p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                        ctypes.c_longlong)
-        fn.argtypes = [p, p, p, p] + [i] * 10 + [f] + [ll] * 12 + [p]
+        fn.argtypes = [p] * 5 + [i] * 10 + [f] + [ll] * 12 + [p]
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_offset: int = 0,
-                    kv_len: int = 0) -> torch.Tensor:
-    """q (B, Hq, S, hd); k/v (B, Hkv, T, hd) CUDA tensors -> (B, Hq, S, hd).
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([p] * 10 + [i] * 10 + [ctypes.c_float]
+                       + [ctypes.POINTER(ctypes.c_longlong), p])
+        fn.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
 
-    The same function as ``ref.attention_ref``, except that in bfloat16
-    the kernel rounds P to bfloat16 before P.V. Inputs may be strided
-    views (a transposed (B, S, H, hd) tensor needs no copy) as long as the
-    last dimension is contiguous. The result is a (B, Hq, S, hd) view of a
-    (B, S, Hq, hd) buffer, so moving it back to the model layout is free."""
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether a bfloat16 tensor's base and (batch, head, row) strides are
+    16-byte aligned, as TMA and the 16-byte tile loads need."""
+    return t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for st in t.stride()[:3])
+
+
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               kv_len: int) -> int:
+    """Raise on what the kernels do not take; returns kv_len (0 -> T)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention kernel needs CUDA tensors, "
@@ -76,9 +100,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len = kv_len or T
     if not 0 < kv_len <= T:
         raise ValueError(f"kv_len={kv_len} outside 1..{T}")
+    return kv_len
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0, kv_len: int = 0,
+                    lse: bool = False):
+    """q (B, Hq, S, hd); k/v (B, Hkv, T, hd) CUDA tensors -> (B, Hq, S, hd),
+    and with ``lse`` also the rows' float32 log-sum-exp (B, Hq, S).
+
+    The same function as ``ref.attention_ref``, except that in bfloat16
+    the kernel rounds P to bfloat16 before P.V. Inputs may be strided
+    views (a transposed (B, S, H, hd) tensor needs no copy) as long as the
+    last dimension is contiguous. The result is a (B, Hq, S, hd) view of a
+    (B, S, Hq, hd) buffer, so moving it back to the model layout is free."""
+    kv_len = _check_qkv(q, k, v, kv_len)
+    B, Hq, S, hd = q.shape
+    _, Hkv, T, _ = k.shape
     if q.dtype == torch.bfloat16:      # TMA reads 16-byte aligned rows
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(st * 2 % 16 for st in t.stride()[:3]):
+            if not aligned16(t):
                 raise ValueError(
                     f"{name}: the bfloat16 kernel loads with TMA, which needs "
                     f"a 16-byte aligned base and (batch, head, row) strides "
@@ -86,18 +127,80 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     f"{t.stride()}")
     out = torch.empty((B, S, Hq, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    rows = (torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+            if lse else None)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if rows is None else rows.data_ptr(),
         _DTYPES[q.dtype], B, Hq, Hkv, S, T, hd, kv_len, int(q_offset),
         int(bool(causal)), 1.0 / math.sqrt(hd), *strides, stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: "
                            f"{lib.flash_attention_error_string(err).decode()}")
     COUNTER.launches += 1
-    return out
+    return out if rows is None else (out, rows)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, q_offset: int = 0,
+                        kv_len: int = 0):
+    """dq, dk, dv of ``flash_attention`` for the upstream gradient ``do``:
+    the same function as ``ref.attention_bwd_ref``. q, k, v, o, do are CUDA
+    tensors in the forward's layouts (strided views with a contiguous last
+    dimension, one dtype); ``o`` and ``lse`` are what the forward returned
+    with ``lse=True``. Needs ``q_offset >= 0`` when causal, so that every
+    query row sees a key. dq is a (B, Hq, S, hd) view of a (B, S, Hq, hd)
+    buffer and dk/dv (B, Hkv, T, hd) views of (B, T, Hkv, hd) buffers, so
+    moving them back to the model layout is free."""
+    kv_len = _check_qkv(q, k, v, kv_len)
+    B, Hq, S, hd = q.shape
+    _, Hkv, T, _ = k.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.device != q.device or t.dtype != q.dtype or \
+                tuple(t.shape) != (B, Hq, S, hd) or t.stride(-1) != 1:
+            raise ValueError(f"{name} must match q's device, dtype and shape "
+                             f"with a contiguous last dimension; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if lse.device != q.device or lse.dtype != torch.float32 or \
+            tuple(lse.shape) != (B, Hq, S) or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 {(B, Hq, S)} on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset={q_offset}: the backward needs every "
+                         f"query row to see a key (q_offset >= 0)")
+    if q.dtype == torch.bfloat16:      # 16-byte loads of every row
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+            if not aligned16(t):
+                raise ValueError(
+                    f"{name}: the bfloat16 backward loads rows 16 bytes at a "
+                    f"time, which needs a 16-byte aligned base and (batch, "
+                    f"head, row) strides that are multiples of 8 elements; "
+                    f"got strides {t.stride()}")
+    dq = torch.empty((B, S, Hq, hd), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dk, dv = (torch.empty((B, T, Hkv, hd), dtype=q.dtype,
+                          device=q.device).transpose(1, 2) for _ in range(2))
+    scratch = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *[s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, Hq, Hkv, S, T,
+        hd, kv_len, int(q_offset), int(bool(causal)), 1.0 / math.sqrt(hd),
+        strides, stream)
+    if err:
+        raise RuntimeError(
+            f"flash_attention_bwd launch failed: "
+            f"{lib.flash_attention_bwd_error_string(err).decode()}")
+    BWD_COUNTER.launches += 1
+    return dq, dk, dv
 
 
 def attention_flops(B: int, Hq: int, S: int, T: int, hd: int, *,
@@ -111,4 +214,14 @@ def attention_flops(B: int, Hq: int, S: int, T: int, hd: int, *,
     return 4.0 * B * Hq * hd * live
 
 
-__all__ = ["COUNTER", "HEAD_DIMS", "attention_flops", "flash_attention"]
+def attention_bwd_flops(B: int, Hq: int, S: int, T: int, hd: int, *,
+                        causal: bool, q_offset: int = 0) -> float:
+    """The backward's five products (S, dP, dV, dK, dQ) over the live
+    pairs: 2.5 times the forward's two."""
+    return 2.5 * attention_flops(B, Hq, S, T, hd, causal=causal,
+                                 q_offset=q_offset)
+
+
+__all__ = ["BWD_COUNTER", "COUNTER", "HEAD_DIMS", "aligned16",
+           "attention_bwd_flops", "attention_flops", "flash_attention",
+           "flash_attention_bwd"]

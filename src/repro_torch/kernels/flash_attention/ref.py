@@ -1,36 +1,83 @@
-"""Plain PyTorch version of the flash-attention kernel: the same math as
+"""Plain PyTorch versions of the flash-attention kernels: the same math as
 the JAX package's ``attention_ref`` (float32 scores, one softmax over the
-whole key axis), plus the kernel's ``q_offset`` and ``kv_len``."""
+whole key axis), plus the kernel's ``q_offset`` and ``kv_len``, and the
+backward's recompute equations."""
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, q_offset: int = 0,
-                  kv_len: int = 0) -> torch.Tensor:
-    """q (B, Hq, S, hd); k/v (B, Hkv, T, hd) -> (B, Hq, S, hd) in q's dtype.
-
-    GQA: query head h reads kv head h // (Hq // Hkv). Keys at or past
-    ``kv_len`` (0 -> T) are masked; with ``causal`` query i sees keys
-    ``<= q_offset + i``."""
+def _scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+            q_offset: int, kv_len: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 scaled scores (B, Hkv, G, S, T) and the live mask (S, T)."""
     B, Hq, S, hd = q.shape
     _, Hkv, T, _ = k.shape
-    G = Hq // Hkv
-    qf = q.float().reshape(B, Hkv, G, S, hd)
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, S, hd)
     s = torch.einsum("bhgsd,bhtd->bhgst", qf, k.float()) / math.sqrt(hd)
     kpos = torch.arange(T, device=q.device)
     mask = (kpos < (kv_len or T))[None, :].expand(S, T)
     if causal:
         qpos = q_offset + torch.arange(S, device=q.device)
         mask = mask & (kpos[None, :] <= qpos[:, None])
+    return s, mask
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, q_offset: int = 0, kv_len: int = 0,
+                  return_lse: bool = False):
+    """q (B, Hq, S, hd); k/v (B, Hkv, T, hd) -> (B, Hq, S, hd) in q's dtype.
+
+    GQA: query head h reads kv head h // (Hq // Hkv). Keys at or past
+    ``kv_len`` (0 -> T) are masked; with ``causal`` query i sees keys
+    ``<= q_offset + i``. With ``return_lse`` also each row's float32
+    log-sum-exp (B, Hq, S) of the scaled, masked scores, as the kernel
+    writes it for the backward."""
+    B, Hq, S, hd = q.shape
+    s, mask = _scores(q, k, causal=causal, q_offset=q_offset, kv_len=kv_len)
     s = s.masked_fill(~mask, float("-inf"))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    p = p / denom
     o = torch.einsum("bhgst,bhtd->bhgsd", p, v.float())
-    return o.reshape(B, Hq, S, hd).to(q.dtype)
+    o = o.reshape(B, Hq, S, hd).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = (m + torch.log(denom)).reshape(B, Hq, S)
+    return o, lse
 
 
-__all__ = ["attention_ref"]
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      *, causal: bool = True, q_offset: int = 0,
+                      kv_len: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's equations in float32: with P = exp(s - lse)
+    on the live pairs (exactly 0 elsewhere) and D = rowsum(dO o O),
+    dV = P^T dO, dS = P o (dO V^T - D), dQ = scale dS K, dK = scale dS^T Q
+    (summed over the query heads of each kv head). Layouts as
+    ``attention_ref``; ``o`` and ``lse`` are the forward's. Returns dq,
+    dk, dv in the inputs' dtype."""
+    B, Hq, S, hd = q.shape
+    _, Hkv, T, _ = k.shape
+    G, scale = Hq // Hkv, 1.0 / math.sqrt(hd)
+    s, mask = _scores(q, k, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    p = torch.exp(s - lse.float().reshape(B, Hkv, G, S)[..., None])
+    p = p.masked_fill(~mask, 0.0)
+    dof = do.float().reshape(B, Hkv, G, S, hd)
+    d = (dof * o.float().reshape(B, Hkv, G, S, hd)).sum(dim=-1)
+    dv = torch.einsum("bhgst,bhgsd->bhtd", p, dof)
+    ds = p * (torch.einsum("bhgsd,bhtd->bhgst", dof, v.float())
+              - d[..., None])
+    dq = torch.einsum("bhgst,bhtd->bhgsd", ds, k.float()) * scale
+    dk = torch.einsum("bhgst,bhgsd->bhtd", ds,
+                      q.float().reshape(B, Hkv, G, S, hd)) * scale
+    return (dq.reshape(B, Hq, S, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+__all__ = ["attention_bwd_ref", "attention_ref"]

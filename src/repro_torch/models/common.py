@@ -6,6 +6,16 @@ every call; the port draws each parameter in ``Policy.param_dtype`` and
 stores it cast to ``Policy.compute_dtype`` once. The cast rounds to
 nearest even either way, so the numbers the model computes with are the
 same.
+
+Training keeps that split: the module holds the working weights in the
+compute dtype (``requires_grad`` is switched on by the trainer), and the
+trainer (``repro_torch.train.trainer``) holds the float32 master copy and
+the AdamW moments, updates the master and copies it into the working
+weights (rounding to nearest even) before each step. The reference's
+float32 gradient is the float32 cast of its compute-dtype cotangent, which
+is what the working weights' gradient holds, so the numbers are the same;
+serving (prefill, decode) is untouched. Under a float32 ``Policy`` the
+working weights are the master weights, with no second copy.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""Shared layers: norms, RoPE, the dense MLPs, embeddings and the logits
-head, with the JAX package's dtype handling (statistics in float32, the
-result in the input's dtype)."""
+"""Shared layers: norms, RoPE, the dense MLPs, embeddings, the logits head
+and the training loss, with the JAX package's dtype handling (statistics
+in float32, the result in the input's dtype)."""
 from __future__ import annotations
 
 import functools
@@ -121,7 +121,11 @@ class Embed(nn.Module):
 
 
 def embed_tokens(embed: Embed, tokens: torch.Tensor) -> torch.Tensor:
-    return embed.tok[tokens]
+    """``F.embedding``: the same rows as ``tok[tokens]``, and on the card
+    its backward sorts the indices and sums each row's gradient in float32
+    (indexing's backward would add bfloat16 rows with atomics, in no fixed
+    order)."""
+    return F.embedding(tokens, embed.tok)
 
 
 def logits_from_hidden(embed: Embed, x: torch.Tensor, vocab_size: int,
@@ -137,5 +141,30 @@ def logits_from_hidden(embed: Embed, x: torch.Tensor, vocab_size: int,
     return logits
 
 
-__all__ = ["Embed", "MLP", "apply_rope", "embed_tokens", "group_norm",
-           "layer_norm", "logits_from_hidden", "rms_norm", "rope_tables"]
+# ---------------------------------------------------------------- loss
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean token cross-entropy of logits (B, S, Vp) against labels (B, S);
+    labels of -1 or >= ``vocab_size`` are masked.
+
+    The JAX package's arithmetic: the row max is subtracted in the logits'
+    dtype with no gradient through it, the log-sum-exp is taken in
+    float32, and the mean runs over the valid count. The correct-class
+    logit is a ``gather`` where the reference sums a one-hot mask: it
+    picks the same value exactly, without a (B, S, Vp) mask."""
+    vp = logits.shape[-1]
+    lmax = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = (logits - lmax).float()
+    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + lmax[..., 0].float()
+    idx = labels.long().clamp(0, vp - 1)[..., None]
+    correct = logits.gather(-1, idx)[..., 0].float()
+    mask = (labels >= 0) & (labels < vocab_size)
+    nll = torch.where(mask, lse - correct, torch.zeros_like(lse))
+    return nll.sum() / mask.sum().clamp_min(1)
+
+
+__all__ = ["Embed", "MLP", "apply_rope", "cross_entropy", "embed_tokens",
+           "group_norm", "layer_norm", "logits_from_hidden", "rms_norm",
+           "rope_tables"]

@@ -1,7 +1,9 @@
-"""The serving model of the dense and ssm families: prefill and KV-cache
-(or state) decode, the port of ``repro.models.model.Model``.
+"""The model of the dense and ssm families: training loss, prefill and
+KV-cache (or state) decode, the port of ``repro.models.model.Model``.
 
-  Model(cfg, policy, device=..., seed=...)   parameters drawn on the device
+  Model(cfg, policy, device=..., seed=..., remat=...)   parameters drawn
+                             on the device
+  train_loss(batch)          -> (loss, metrics)   [dense family]
   prefill(tokens)            -> (last-token logits (B, Vp), cache)
   init_cache(batch, length)  -> zero cache
   decode_step(tokens, cache) -> (logits (B, Vp), cache)
@@ -11,8 +13,12 @@ with K/V (L, B, Hkv, Sc, hd) in the compute dtype; ssm ``{"wkv", "x_tm",
 "x_cm", "pos"}`` in float32. ``pos`` is a Python int here (a 0-d int32
 array there). ``decode_step`` updates the cache's tensors in place and
 returns the same dict with ``pos`` advanced; the JAX package returns a new
-cache. Training (``train_loss``) comes with the training slice; the moe,
-hybrid, audio and vlm families with theirs.
+cache. ``train_loss`` runs with gradients through the working weights (see
+``models.common``); with ``remat="full"`` (the reference's default) each
+layer is ``torch.utils.checkpoint``-ed, so its forward, flash attention
+included, runs again in the backward. The ssm family does not train yet:
+its WKV kernel has no backward. The moe, hybrid, audio and vlm families
+come with their slices.
 """
 from __future__ import annotations
 
@@ -20,32 +26,40 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import rwkv6
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import Init, Policy, pad_vocab
-from repro_torch.models.layers import (Embed, embed_tokens, layer_norm,
-                                       logits_from_hidden, rms_norm,
-                                       rope_tables)
+from repro_torch.models.layers import (Embed, cross_entropy, embed_tokens,
+                                       layer_norm, logits_from_hidden,
+                                       rms_norm, rope_tables)
 
 FAMILIES = ("dense", "ssm")
+REMAT = ("full", "none")
 
 Cache = Dict[str, Any]
 
 
 class Model(nn.Module):
     def __init__(self, cfg, policy: Optional[Policy] = None, *,
-                 device: DeviceLike = "cuda", seed: Optional[int] = 0):
+                 device: DeviceLike = "cuda", seed: Optional[int] = 0,
+                 remat: str = "full"):
         """Build the model with its parameters on ``device``, drawn from a
         ``torch.Generator`` seeded with ``seed`` (``None``: allocated, not
-        drawn, for ``repro_torch.convert.model_params`` to fill)."""
+        drawn, for ``repro_torch.convert.model_params`` to fill).
+        ``remat`` ("full" or "none") is how ``train_loss`` keeps
+        activations."""
         super().__init__()
         if cfg.family not in FAMILIES or cfg.moe or cfg.is_encoder_decoder \
                 or cfg.mrope_sections:
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
                 f"this slice serves {FAMILIES}")
+        if remat not in REMAT:
+            raise ValueError(f"remat={remat!r}, expected one of {REMAT}")
+        self.remat = remat
         self.cfg = cfg
         self.policy = policy or Policy()
         self.device = resolve(device)
@@ -106,6 +120,45 @@ class Model(nn.Module):
             x_cm.append(lcm)
         return x, {"wkv": torch.stack(states), "x_tm": torch.stack(x_tm),
                    "x_cm": torch.stack(x_cm)}
+
+    # ------------------------------------------------------------ train
+
+    def train_loss(self, batch) -> Tuple[torch.Tensor,
+                                         Dict[str, torch.Tensor]]:
+        """batch {"tokens", "labels"} (B, S) -> (loss, {"loss", "ce",
+        "aux"}), the loss a scalar float32 tensor with a graph back to the
+        working weights. Dense family only."""
+        cfg = self.cfg
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"training the {cfg.family!r} family ({cfg.name}) needs a "
+                f"backward of the WKV6 kernel (repro_torch.kernels.wkv6), "
+                f"which is not written yet")
+        tokens = self._tokens(batch["tokens"])
+        labels = self._tokens(batch["labels"])
+        B, S = tokens.shape
+        x = embed_tokens(self.embed, tokens)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=self.device)[None].expand(B, S)
+        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        for lp in self.layers:
+            if self.remat == "full" and torch.is_grad_enabled():
+                # no randomness inside a layer: the RNG state need not be
+                # saved for the recompute
+                x = checkpoint(self._train_layer, lp, x, rope,
+                               use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._train_layer(lp, x, rope)
+        x = rms_norm(x, self.ln_f.to(x.dtype), cfg.norm_eps)
+        logits = logits_from_hidden(self.embed, x, cfg.vocab_size,
+                                    cfg.tie_embeddings)
+        ce = cross_entropy(logits, labels, cfg.vocab_size)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return ce, {"loss": ce, "ce": ce, "aux": aux}
+
+    def _train_layer(self, lp, x: torch.Tensor, rope) -> torch.Tensor:
+        return tfm.decoder_layer(lp, self.cfg, x, rope)[0]
 
     def _final_logits(self, x_last: torch.Tensor) -> torch.Tensor:
         x_last = rms_norm(x_last, self.ln_f.to(x_last.dtype),

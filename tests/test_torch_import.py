@@ -55,7 +55,11 @@ def test_every_module_is_covered():
                  "repro_torch.models.transformer",
                  "repro_torch.kernels.flash_attention.flash_attention",
                  "repro_torch.kernels.wkv6.wkv6",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.launch.train",
+                 "repro_torch.train", "repro_torch.train.optimizer",
+                 "repro_torch.train.data", "repro_torch.train.checkpoint",
+                 "repro_torch.train.trainer", "repro_torch.guard.hook",
+                 "repro_torch.guard.goodput"):
         assert want in names
 
 
@@ -64,4 +68,32 @@ def test_cuda_sources_ship_with_the_package():
     assert (csrc / "fleet_score.cu").is_file()
     assert (csrc / "sweep_burn.cu").is_file()
     assert (csrc / "flash_attention.cu").is_file()
+    assert (csrc / "flash_attention_bwd.cu").is_file()
     assert (csrc / "wkv6.cu").is_file()
+
+
+_ENTRY_PROBE = r"""
+import sys
+sys.modules["jax"] = None
+from repro_torch.guard import GuardStepHook
+from repro_torch.launch.train import main
+from repro_torch.train import Trainer
+print("ok")
+"""
+
+
+def test_training_entry_points_import_without_jax_and_default_to_cuda():
+    import inspect
+
+    from repro_torch.guard import GuardStepHook
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", _ENTRY_PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "ok"
+    for entry in (GuardStepHook, Model):
+        assert inspect.signature(entry).parameters["device"].default \
+            == "cuda"
+    assert train.parser().parse_args([]).device == "cuda"
