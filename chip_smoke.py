@@ -42,8 +42,9 @@ order, it
   9. holds the flash-attention backward kernel against its plain version
      on the card at qwen3-4b's training shape (bfloat16 and float32) and
      at the other ``K3B_CASES`` (head dims 32/64/128, a ragged S, MQA and
-     Hq = Hkv, q_offset, kv_len), checks that two calls are bit-equal, and
-     times it beside the backward of ``scaled_dot_product_attention``;
+     Hq = Hkv, G = 8, q_offset, kv_len, the tiles' ragged edges), checks
+     that two calls are bit-equal, and times it beside the backward of
+     ``scaled_dot_product_attention``;
  10. trains qwen3-4b at full width (8 of its 36 layers, one 4,096-token
      sequence, bf16, remat "full"): one step on the kernel path against
      the plain path (loss, every gradient, the AdamW-updated master
@@ -129,18 +130,25 @@ def max_abs_err(a, b) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+# A profiler session after the first one in a process can lose the kernels
+# of its first few milliseconds on the card (seen on an H100: up to ~3 ms
+# of them). A session that reads kernel names or times starts with a spin
+# of LEAD_CYCLES clock cycles (torch.cuda._sleep, ~20 ms), which takes
+# that loss instead.
+LEAD_CYCLES = 40_000_000
+
+
 def kernel_device_ms(torch, fn, name: str, reps: int = 20):
     """Device ms per call of ``fn`` in the kernels whose name holds
-    ``name``, from ``torch.profiler`` over ``reps`` calls: the sum over
-    those kernels of each one's mean time per launch, so a launch the
-    tracer loses does not lower it (a throwaway kernel goes first too: the
-    tracer may lose its first one); None when the trace holds no such
-    kernel."""
+    ``name``, from ``torch.profiler`` over ``reps`` calls after the lead-in
+    spin: the sum over those kernels of each one's mean time per launch,
+    so a launch the tracer loses does not lower it; None when the trace
+    holds no such kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.ones(1, device="cuda").add_(1)
+        torch.cuda._sleep(LEAD_CYCLES)
         torch.cuda.synchronize()
         for _ in range(reps):
             fn()
@@ -229,30 +237,45 @@ def phase_k1(torch, np, dirs):
 
 # ------------------------------------------------------------ phase 3: K2
 
-def kernels_in(torch, fn, calls: int = 3) -> list:
+def kernels_in(torch, fn, calls: int = 3, tries: int = 3) -> list:
     """Names of the device kernels one call of ``fn`` runs, from the
-    profiler over ``calls`` calls; the whole list when the calls differ.
-    A throwaway kernel goes first, since a profiler session after the first
-    one in a process can lose its first kernel, and the framework kernels
-    at the front of the trace are stripped."""
+    profiler over ``calls`` calls, each followed by a marker kernel
+    (``torch.cuda._sleep``'s ``spin_kernel``), after the lead-in spin. What
+    comes before the first marker is dropped, and a session whose calls
+    between markers are empty or disagree is taken again, up to ``tries``
+    sessions; after that every kernel of the last trace but the markers
+    is returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    names = [e.name for e in events]
-    while names and names[0].startswith("void at::native::"):
-        names.pop(0)
-    per = len(names) // calls
-    if per and names == names[:per] * calls:
-        return names[:per]
-    return names
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(LEAD_CYCLES)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        segments = [[]]
+        for e in events:
+            if "spin_kernel" in e.name:
+                segments.append([])
+            else:
+                segments[-1].append(e.name)
+        whole = segments[1:-1]           # each between two markers
+        if whole and whole[0] and all(seg == whole[0] for seg in whole):
+            return whole[0]
+    return [n for seg in segments for n in seg]
+
+
+def kernel_basenames(torch, fn) -> list:
+    """``kernels_in`` with each name cut to its function's own name: no
+    return type, namespaces, template arguments or parameters."""
+    return [n.replace("(anonymous namespace)::", "").split("<")[0]
+            .split("(")[0].split("::")[-1].split()[-1]
+            for n in kernels_in(torch, fn)]
 
 
 def phase_k2(torch, np):
@@ -582,8 +605,8 @@ def phase_k4(torch, np):
                 f"{scratch_bytes(b, h, s, hd, c) / 2**20:.2f} MiB")
         if i == 0:
             # a call is the state pass, then the output pass
-            names = [n.split("<")[0].split("::")[-1] for n in kernels_in(
-                torch, lambda: wkv6_chunked(r, k, v, logw, u, s0, chunk=c))]
+            names = kernel_basenames(torch, lambda: wkv6_chunked(
+                r, k, v, logw, u, s0, chunk=c))
             check(names == ["wkv6_state", "wkv6_out"],
                   f"{tag}: one call ran {names}")
             # the state carried across two calls of half the tokens
@@ -597,7 +620,8 @@ def phase_k4(torch, np):
             carry = max(close_err(torch.cat([ya, yb], 2), y, 2e-3, 1e-3,
                                   tag + " two calls y"),
                         close_err(sb, st, 2e-3, 1e-3, tag + " two calls s"))
-            line += (f", 2 device kernels per call ({', '.join(names)}), "
+            line += (f", {len(names)} device kernels per call "
+                     f"({', '.join(names)}), "
                      f"state carried over two calls of {half} tokens "
                      f"within {carry:.3e}")
         ms = time_ms(lambda: wkv6_chunked(r, k, v, logw, u, s0, chunk=c))
@@ -620,7 +644,8 @@ def phase_k4(torch, np):
         if main is None:
             main = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
                         plain_ms=plain, bound_ms=bnd, bound_by=by,
-                        library_ms=None, shape=[b, s, h, hd, c])
+                        library_ms=None, shape=[b, s, h, hd, c],
+                        kernels_per_call=len(names))
         del r, k, v, logw, y, y2, wy
     torch.cuda.empty_cache()
     return main
@@ -838,7 +863,11 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict,
 # first is qwen3-4b's training shape at 4,096 tokens, the main path's; then
 # float32 there, and every head dim, a ragged non-causal S != T, MQA,
 # Hq = Hkv, a decode-chunk q_offset, kv_len < T, and phase 10's
-# train_with_guard shape (6 heads of 64, 128 tokens).
+# train_with_guard shape (6 heads of 64, 128 tokens). The bfloat16 cases
+# after it hit the tensor-core kernels' tile edges (128 keys and 64
+# queries a dK/dV tile, 128 queries and 128 keys a dQ tile): S between 64
+# and 128 with T no multiple of 128, S = 333 (log-sum-exp rows not 16-byte
+# aligned), G = Hq / Hkv = 8, and hd 32 and 64 with kv_len ending mid-tile.
 K3B_CASES = [
     (1, 32, 8, 4096, 4096, 128, True, 0, 0, "bfloat16"),
     (1, 32, 8, 4096, 4096, 128, True, 0, 0, "float32"),
@@ -849,7 +878,17 @@ K3B_CASES = [
     (2, 8, 1, 256, 512, 64, False, 0, 400, "bfloat16"),
     (1, 4, 4, 200, 333, 32, True, 133, 300, "float32"),
     (4, 6, 6, 128, 128, 64, True, 0, 0, "bfloat16"),
+    (1, 8, 2, 100, 200, 128, False, 0, 0, "bfloat16"),
+    (2, 8, 2, 333, 333, 128, True, 0, 0, "bfloat16"),
+    (1, 16, 2, 384, 384, 128, True, 0, 0, "bfloat16"),
+    (2, 4, 2, 200, 320, 32, True, 120, 250, "bfloat16"),
+    (1, 4, 1, 190, 190, 64, False, 0, 170, "bfloat16"),
 ]
+# the kernels of one call, in launch order: the D pass, then the dK/dV
+# and dQ kernels (wgmma in bfloat16, the CUDA cores in float32)
+K3B_KERNELS = {"bfloat16": ["fa_bwd_dot", "fa_bwd_dkdv_wgmma",
+                            "fa_bwd_dq_wgmma"],
+               "float32": ["fa_bwd_dot", "fa_bwd_dkdv", "fa_bwd_dq"]}
 # The forward's log-sum-exp (natural units, about log T) against the plain
 # forward's, largest absolute difference: both sum exp of the same float32
 # scores (bfloat16 inputs are exact in float32), in another order and with
@@ -910,6 +949,10 @@ def phase_k3_bwd(torch, np):
         err = max(errs.values())
         abs_err = max(max_abs_err(g, w) for g, w in zip(got, want))
         del got, again, want
+        names = kernel_basenames(torch, lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, **kw))
+        check(names == K3B_KERNELS[dname], f"{tag}: one call ran {names}, "
+              f"not {K3B_KERNELS[dname]}")
         ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
                      reps=5, warm=1)
         dev_ms = kernel_device_ms(torch, lambda: flash_attention_bwd(
@@ -924,7 +967,8 @@ def phase_k3_bwd(torch, np):
                 f"{LSE_TOL}); max err / max abs " + ", ".join(
             f"{n} {e:.3e}" for n, e in errs.items()) + f" (tol {tol}), two "
             f"calls bit-equal; kernel {ms:.4f} ms a call ({fmt_ms(dev_ms)} "
-            f"on the device, 3 kernels), {flops / ms / 1e9:.2f} TFLOP/s, "
+            f"on the device, {len(names)} kernels: {', '.join(names)}), "
+            f"{flops / ms / 1e9:.2f} TFLOP/s, "
             f"{bnd / ms:.2%} of bound, bound {bnd:.4f} ms ({by}; "
             f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
         plain = lib = None
@@ -943,16 +987,25 @@ def phase_k3_bwd(torch, np):
             line += f"; plain {plain:.4f} ms, sdpa backward {lib:.4f} ms"
         if i == 0:
             split = {n: kernel_device_ms(torch, lambda: flash_attention_bwd(
-                q, k, v, o, lse, do, **kw), n, reps=3)
-                for n in ("fa_bwd_dot", "fa_bwd_dkdv", "fa_bwd_dq")}
+                q, k, v, o, lse, do, **kw), n, reps=3) for n in names}
+            check(None not in split.values(), f"{tag}: the device split "
+                  f"{split} lacks a kernel")
+            # the dK/dV kernel does four of the five products (S, dP, dV,
+            # dK), the dQ kernel three (S, dP, dQ): each against its own
+            one = flops / 5 / BF16_TENSOR_FLOPS * 1e3
+            own = {names[1]: 4 * one, names[2]: 3 * one}
             line += "; device split " + ", ".join(
-                f"{n} {fmt_ms(m)}" for n, m in split.items())
+                f"{n} {m:.4f} ms" + (
+                    f" ({own[n] / m:.1%} of its {own[n]:.4f} ms bound)"
+                    if n in own else "")
+                for n, m in split.items())
         print(line, flush=True)
         if main is None:
             main = dict(max_abs_err=abs_err, max_rel_err=err, ms=ms,
                         device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
                         bound_by=by, library_ms=lib,
-                        shape=[b, hq, hkv, s, t, hd])
+                        shape=[b, hq, hkv, s, t, hd],
+                        kernels_per_call=len(names))
         del q, k, v, do, o, lse, lse_ref
         torch.cuda.empty_cache()
     return main
@@ -1320,7 +1373,8 @@ def main() -> None:
          "launches": train["flash_attention_bwd"],
          "max_abs_err": k3b["max_abs_err"],
          "max_rel_err": k3b["max_rel_err"], "ms": k3b["ms"],
-         "device_ms": k3b["device_ms"], "device_kernels_per_call": 3,
+         "device_ms": k3b["device_ms"],
+         "device_kernels_per_call": k3b["kernels_per_call"],
          "plain_ms": k3b["plain_ms"], "bound_ms": k3b["bound_ms"],
          "bound_by": k3b["bound_by"], "library_ms": k3b["library_ms"],
          "shape": k3b["shape"]},
@@ -1328,7 +1382,8 @@ def main() -> None:
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/wkv6/wkv6.py:76",
          "launches": n4, "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
-         "device_ms": k4["device_ms"], "device_kernels_per_call": 2,
+         "device_ms": k4["device_ms"],
+         "device_kernels_per_call": k4["kernels_per_call"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": None,
          "shape": k4["shape"]},

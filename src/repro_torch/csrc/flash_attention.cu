@@ -46,20 +46,13 @@
 // scores (m + log l, float32, (B, Hq, S) contiguous) when given a non-null
 // `lse`: the backward (flash_attention_bwd.cu) rebuilds P from it. Serving
 // passes null and the epilogue skips the store.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <initializer_list>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-
-struct Strides {
-  long long b, h, s;
-};
 
 // ===================================================== float32, CUDA cores
 
@@ -252,6 +245,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BM = 128;            // query rows per block, 64 per consumer
 constexpr int TK = 128;            // keys per tile
 constexpr int kStages = 2;
@@ -259,213 +254,14 @@ constexpr int kBlock = 384;        // producer + two consumer warpgroups
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;   // 168 on average
 
 template <int HD>
-struct Cfg {
-  static constexpr int ATOM_B = HD * 2 >= 128 ? 128 : HD * 2;  // swizzle
-  static constexpr int AC = ATOM_B / 2;          // hd columns per atom
-  static constexpr int NA = HD / AC;             // atoms along hd
-  static constexpr int KPA = ATOM_B / 32;        // k16 steps per atom
-  static constexpr uint64_t LAYOUT = ATOM_B == 128 ? 1 : 2;  // B128 / B64
+struct Cfg : Atom<HD> {
   static constexpr int Q_BYTES = BM * HD * 2;
   static constexpr int KV_BYTES = TK * HD * 2;
   static constexpr int SMEM = Q_BYTES + 2 * kStages * KV_BYTES + 1024 + 64;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-__device__ __forceinline__ void bar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// Wait until the phase of parity `parity` has completed. A wait of more
-// than ~2^34 cycles (seconds) can only be a fault: it traps, so the launch
-// fails instead of holding the card.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  long long t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (!t0) t0 = clock64();
-    else if (clock64() - t0 > (1LL << 34)) __trap();
-  }
-}
-
-// One TMA box of a 4-D (hd, rows, heads, batch) tensor into shared memory.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2, int c3,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle layout.
-__device__ __forceinline__ uint64_t mat_desc(uint32_t addr, uint32_t lbo,
-                                             uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving reads or writes of wgmma's registers
-// across the asynchronous instructions.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D (64 x 32, fp32) += A (64 x 16, bf16 pairs in registers) . B (16 x 32);
-// B MN-major in shared memory (descriptor db, transposed).
-__device__ __forceinline__ void wgmma_rs(float (&d)[16],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 64, fp32) += A (64 x 16, bf16 pairs in registers) . B (16 x 64);
-// B MN-major in shared memory (descriptor db, transposed).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, fp32) {=, +=} A (64 x 16) . B (16 x 128); A and B K-major
-// in shared memory (descriptors da, db).
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      "%62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 128, fp32) += A (64 x 16, bf16 pairs in registers) . B (16 x 128);
-// B MN-major in shared memory (descriptor db, transposed).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      "%62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The wgmma accumulator layout (m64nN, fp32): warp w of the warpgroup
-// holds rows 16w..16w+15; lane l holds rows r = l/4 and r + 8, and for
-// every 8-column chunk i the columns 8i + 2(l%4) + {0, 1}: element
-// 4i + 2*half + e is (row r + 8*half, column 8i + 2(l%4) + e). The same
-// layout, packed in bf16 pairs, is wgmma's A fragment for one k16 step
-// per two chunks, so P goes from S to the P.V product without a shuffle.
+// P goes from the S accumulators to the P.V product's A operand without a
+// shuffle (the accumulator layout is the A-fragment layout: hopper.cuh).
 template <int HD>
 __global__ void __launch_bounds__(kBlock, 1)
 fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
@@ -503,8 +299,7 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
       bar_init(v_full + s, 1);
       bar_init(empty + s, 8);                      // the consumers' warps
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();
 
@@ -516,21 +311,16 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0) {
       const int hk = h / G;
       bar_expect_tx(q_full, C::Q_BYTES);
-      for (int a = 0; a < C::NA; ++a)
-        tma_load(sQ + a * BM * C::ATOM_B, &tq, a * C::AC, q0, h, b, q_full);
+      tma_tile<HD>(sQ, &tq, BM, q0, h, b, q_full);
       for (int j = 0; j < nk; ++j) {
         const int s = j % kStages;
         if (j >= kStages) bar_wait(empty + s, (j / kStages - 1) & 1);
-        uint8_t* kd = sK + s * C::KV_BYTES;
-        uint8_t* vd = sV + s * C::KV_BYTES;
         bar_expect_tx(k_full + s, C::KV_BYTES);
-        for (int a = 0; a < C::NA; ++a)
-          tma_load(kd + a * TK * C::ATOM_B, &tk, a * C::AC, j * TK, hk, b,
-                   k_full + s);
+        tma_tile<HD>(sK + s * C::KV_BYTES, &tk, TK, j * TK, hk, b,
+                     k_full + s);
         bar_expect_tx(v_full + s, C::KV_BYTES);
-        for (int a = 0; a < C::NA; ++a)
-          tma_load(vd + a * TK * C::ATOM_B, &tv, a * C::AC, j * TK, hk, b,
-                   v_full + s);
+        tma_tile<HD>(sV + s * C::KV_BYTES, &tv, TK, j * TK, hk, b,
+                     v_full + s);
       }
     }
   } else {
@@ -550,7 +340,6 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
     float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.0f, l_hi = 0.0f;
 
     const uint32_t q_addr = smem_u32(sQ) + w * 64 * C::ATOM_B;
-    const uint32_t sbo = 8 * C::ATOM_B;
     bar_wait(q_full, 0);
 
     for (int j = 0; j < nk; ++j) {
@@ -563,18 +352,11 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
       bar_wait(k_full + s, ph);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t off = (kk % C::KPA) * 32;  // 16 bf16 along hd
-        const uint64_t da = mat_desc(
-            q_addr + (kk / C::KPA) * BM * C::ATOM_B + off, 16, sbo,
-            C::LAYOUT);
-        const uint64_t db = mat_desc(
-            k_addr + (kk / C::KPA) * TK * C::ATOM_B + off, 16, sbo,
-            C::LAYOUT);
-        wgmma_ss(sacc, da, db, kk > 0);
-      }
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss(sacc, desc_kmajor<HD>(q_addr, BM, kk),
+                 desc_kmajor<HD>(k_addr, TK, kk), kk > 0);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(sacc);
 
       // mask, then the online softmax (log2 domain) on the two rows
@@ -630,13 +412,7 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
 
       // P in bf16, as wgmma A fragments: one k16 step per two chunks
       uint32_t pa[TK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < TK / 16; ++kk) {
-        pa[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
-      }
+      to_a_frags(pa, sacc);
 #pragma unroll
       for (int i = 0; i < HD / 8; ++i) {
         oacc[4 * i + 0] *= al_lo;
@@ -650,13 +426,10 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
       fence_regs(oacc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < TK / 16; ++kk) {
-        const uint64_t db = mat_desc(v_addr + kk * 16 * C::ATOM_B,
-                                     TK * C::ATOM_B, sbo, C::LAYOUT);
-        wgmma_rs(oacc, pa[kk], db);
-      }
+      for (int kk = 0; kk < TK / 16; ++kk)
+        wgmma_rs(oacc, pa[kk], desc_mnmajor<HD>(v_addr, TK, kk));
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(oacc);
       if (lane == 0) bar_arrive(empty + s);
     }
@@ -691,55 +464,6 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no link against libcuda.
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &res);
-#endif
-    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (hd, rows, heads, batch) bf16 map over a strided tensor; boxes of
-// (AC columns, box_rows rows) with the atom's swizzle; rows past `rows`
-// read as zeros.
-template <int HD>
-bool make_map(CUtensorMap* map, const void* base, int rows, int heads,
-              int batch, Strides st, int box_rows) {
-  using C = Cfg<HD>;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
-                                 (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)C::AC, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                     const_cast<void*>(base), dims, strides, box, estr,
-                     CU_TENSOR_MAP_INTERLEAVE_NONE,
-                     C::ATOM_B == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                      : CU_TENSOR_MAP_SWIZZLE_64B,
-                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Hq, int Hkv, int S, int T, int kv_len, int q_offset,
@@ -755,14 +479,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       fa_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Cfg<HD>::SMEM);
   if (e != cudaSuccess) return (int)e;
-  // setmaxnreg moves registers between the warpgroups: the consumers'
-  // raise waits forever unless the block started with the 168 per thread
-  // that the producer's and consumers' counts add up to
-  cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, fa_fwd_tc<HD>);
+  // the block must start with the 168 registers a thread that the
+  // producer's and consumers' setmaxnreg counts add up to
+  e = check_regs(fa_fwd_tc<HD>, kBlock, kProducerRegs, kConsumerRegs);
   if (e != cudaSuccess) return (int)e;
-  if (attr.numRegs * kBlock < kProducerRegs * 128 + kConsumerRegs * 256)
-    return (int)cudaErrorInvalidConfiguration;
   const dim3 grid(Hq, B, (S + BM - 1) / BM);
   const float scale_log2 = (float)((double)scale * 1.4426950408889634);
   fa_fwd_tc<HD><<<grid, kBlock, Cfg<HD>::SMEM, stream>>>(

@@ -15,55 +15,68 @@
 // against ~170 MB of inputs and outputs, so the floor is the tensor-core
 // rate (989 TFLOP/s bf16).
 //
-// Three kernels a call: D = rowsum(dO o O) (`fa_bwd_dot`, one warp per
-// row), then one block per (64-key tile, kv head, batch) for dK and dV,
-// which keeps its K and V tile in shared memory and its dK and dV tiles
-// in registers and walks every query head of its group and, for each, the
-// query tiles from the causal limit on (S and dP of the pair, P and dS,
-// then dV += P^T dO and dK += dS^T Q); then one block per (64-query tile,
-// q head, batch) for dQ, walking the key tiles up to the causal limit (S
-// and dP again, dS, dQ += dS K). S and dP are computed twice: seven
-// products in all instead of five, the price of having no atomics. Every
-// sum runs in float32 in one fixed order, so two calls are bit-equal.
+// Three kernels a call, on one stream, with no atomics: D = rowsum(dO o O)
+// (`fa_bwd_dot`, one warp per row, into a float32 (B, Hq, S) scratch), a
+// dK/dV kernel (one block per key tile, kv head and batch, walking every
+// query head of its group and, for each, the query tiles from the causal
+// limit on: S^T and dP^T of the pair, P^T and dS^T, dV += P^T dO and
+// dK += dS^T Q, dK and dV in registers), then a dQ kernel (one block per
+// query tile, q head and batch, walking the key tiles up to the causal
+// limit: S and dP again, dS, dQ += dS K). S and dP are computed twice:
+// seven products of the forward's size instead of five (a 0.49 ms floor
+// at qwen3-4b's shape), the price of summing every gradient in float32 in
+// one fixed order, so that two calls are bit-equal.
 //
-// bfloat16 (`fa_bwd_dkdv_tc`, `fa_bwd_dq_tc`): 128-thread blocks on the
-// tensor cores with `mma.sync` m16n8k16 (bf16 in, fp32 accumulate); each
-// warp owns 16 rows of the block's 64 (keys for dK/dV, queries for dQ).
-// The dK/dV kernel computes S^T = K Q^T and dP^T = V dO^T, so that P^T
-// and dS^T leave the accumulators as the A operands of the next products
-// without a trip through shared memory (the accumulator layout of two
-// n8 tiles is the A layout of one k16 step); Q and dO serve as B operands
-// of those products through `ldmatrix.trans`, as K does for dQ += dS K.
-// P and dS are rounded to bf16 before their products, as the forward
-// rounds P before P.V; the plain version keeps them in float32 (the
-// stated tolerance in chip_smoke.py covers the difference). Tiles are
-// staged with 16-byte loads into rows padded by 16 bytes, so the
-// fragment loads and ldmatrix phases are free of bank conflicts; the
-// wrapper raises on bf16 rows that are not 16-byte aligned.
+// bfloat16 (`fa_bwd_dkdv_wgmma`, `fa_bwd_dq_wgmma`): both kernels have the
+// forward's warp-specialised shape (flash_attention.cu, helpers in
+// hopper.cuh). What held the earlier `mma.sync` design at ~9x its bound:
+// products issued a warp at a time (no wgmma), tiles staged by 16-byte
+// loads from every thread (no overlap of loads and products), and a dK/dV
+// kernel at 255 registers with a spill. Here each block is 384 threads:
+// warpgroup 0 is a TMA producer that gives most of its registers to the
+// consumers (setmaxnreg 24 / 240; the launcher refuses a kernel that ptxas
+// gave fewer than the 168 registers a thread this needs, since the
+// consumers' raise would wait forever), and warpgroups 1 and 2 each own 64
+// rows of the block's 128 and run wgmma (bf16 in, fp32 accumulate).
+//   dK/dV: the block's K and V tiles (128 keys) arrive once by TMA; then
+//   the producer streams 64-query tiles of Q and dO by TMA, with their
+//   rows' log-sum-exp and D (ordinary loads: the (B, Hq, S) rows are
+//   16-byte aligned only when S is a multiple of 4), through a 3-stage
+//   ring guarded by mbarriers (full: bytes landed and rows stored; empty:
+//   both consumers done). A consumer computes S^T = K Q^T and dP^T =
+//   V dO^T (both operands from shared memory, the two products in flight
+//   together), P^T and dS^T in registers, and dV += P^T dO and dK +=
+//   dS^T Q with P^T and dS^T as register A operands (the accumulator
+//   layout is the A layout) and dO, Q read MN-major from the same tiles.
+//   dQ: the producer loads the block's 128 rows of Q and dO once and
+//   streams 128-key tiles of K and V through a 2-stage ring; a consumer
+//   computes S = Q K^T and dP = dO V^T, dS in registers and dQ += dS K
+//   (K MN-major); dQ is scaled and rounded to bf16 once, at the end.
+// P and dS are rounded to bf16 before the products that take them, as the
+// forward rounds P before P.V; the plain version keeps them in float32
+// (chip_smoke.py states the tolerance). Key (dK/dV) and query (dQ) tiles
+// are issued longest-first under a causal mask; a consumer whose 64 rows
+// lie wholly in the causal future of a tile (or past kv_len) skips its
+// products, which would add exact zeros. TMA reads q, k, v and dO through
+// their (batch, head, row) strides and zero-fills rows past S and T, which
+// the kernels mask; every mbarrier wait traps after ~2^34 cycles, so a
+// pipeline fault fails the launch instead of hanging the card.
 //
-// float32 (`fa_bwd_dkdv`, `fa_bwd_dq`): 256-thread blocks on the CUDA
-// cores, S and dP as 4x4 micro-tiles from shared memory, P and dS through
-// shared memory, exact to the float32 equations up to summation order.
-// Masking is the forward's: keys at or past kv_len and, when causal, keys
-// after q_offset + row are dead, and their P is set to exactly 0. Tiles
-// wholly in the causal future are skipped; the longest blocks are issued
-// first. Inputs and outputs are read and written through their (batch,
-// head, row) strides, so the model's (B, S, H, hd) layout needs no copy.
-// The tensor-core redesign (wgmma, TMA) is a later step; this one is
-// right first.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
+// float32 (`fa_bwd_dkdv`, `fa_bwd_dq`): 256-thread blocks of 64 rows on
+// the CUDA cores, S and dP as 4x4 micro-tiles from shared memory, P and dS
+// through shared memory, exact to the float32 equations up to summation
+// order. Masking is the forward's: keys at or past kv_len and, when
+// causal, keys after q_offset + row are dead, and their P is set to
+// exactly 0. Tiles wholly in the causal future are skipped. Inputs and
+// outputs are read and written through their (batch, head, row) strides,
+// so the model's (B, S, H, hd) layout needs no copy.
 #include <initializer_list>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int BQ = 64, BK = 64, kThreads = 256;
-
-struct Strides {
-  long long b, h, s;
-};
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
@@ -379,326 +392,433 @@ fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 
 namespace tc {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
-constexpr int BT = 64;               // rows of a key or query tile
-constexpr int kThreadsTC = 128;      // four warps of 16 rows each
+
+constexpr int kBlock = 384;          // producer + two consumer warpgroups
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;   // 168 on average
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ------------------------------------------------ dK, dV: 128 keys a block
+
+constexpr int KN = 128;              // keys per block, 64 per consumer
+constexpr int QM = 64;               // queries per tile of the ring
 
 template <int HD>
-struct Tiles {
-  static constexpr int P = HD + 8;   // row pitch in bf16: 16 bytes of pad
-  static constexpr int TILE = BT * P;
-  static constexpr size_t bytes = 4 * TILE * sizeof(bf16) +
-                                  2 * BT * sizeof(float);
+struct DkvCfg : Atom<HD> {
+  static constexpr int STAGES = 3;               // the Q/dO ring
+  static constexpr int KV_BYTES = KN * HD * 2;   // K or V, [NA][KN][AC]
+  static constexpr int QT_BYTES = QM * HD * 2;   // Q or dO, [NA][QM][AC]
+  static constexpr int SMEM = 2 * KV_BYTES + 2 * STAGES * QT_BYTES +
+                              2 * STAGES * QM * 4 + 1024 + 64;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D (16 x 8, fp32) += A (16 x 16, bf16 row-major) . B (16 x 8, bf16)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices, transposed on the way in: the B fragments of
-// two n8 tiles of a k16 step from a row-major (k, n) tile in shared memory.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// A (64 x HD) row tile into shared memory with 16-byte loads; rows at or
-// past `n` read as 0.
+// One block per (128-key tile, kv head, batch). The producer loads the
+// block's K and V tiles once, then, for each query head of the group and
+// each query tile from the causal limit on, Q and dO (TMA) and the rows'
+// log2-scaled log-sum-exp and D (ordinary loads by warp 0's lanes: the
+// float32 (B, Hq, S) rows are 16-byte aligned only when S is a multiple
+// of 4) into a ring of STAGES stages. Each consumer warpgroup owns 64
+// keys: S^T = K Q^T and dP^T = V dO^T (SS wgmma), P^T and dS^T in
+// registers, dV += P^T dO and dK += dS^T Q (RS wgmma, dO and Q MN-major).
 template <int HD>
-__device__ __forceinline__ void load_tile(bf16* X, const bf16* base,
-                                          long long rs, int r0, int n) {
-  constexpr int CH = HD / 8, P = Tiles<HD>::P;
-  for (int i = threadIdx.x; i < BT * CH; i += kThreadsTC) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(base + (long long)(r0 + r) * rs +
-                                            c * 8);
-    *reinterpret_cast<uint4*>(X + r * P + c * 8) = val;
-  }
-}
+__global__ void __launch_bounds__(kBlock, 1)
+fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse, const float* __restrict__ D,
+                  bf16* __restrict__ dk, bf16* __restrict__ dv, Strides dks,
+                  Strides dvs, int B, int Hkv, int G, int S, int T, int kv_len,
+                  int q_offset, int causal, float scale, float scale_log2) {
+  using C = DkvCfg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sK = smem;
+  uint8_t* sV = sK + C::KV_BYTES;
+  uint8_t* sQ = sV + C::KV_BYTES;                   // [stage]
+  uint8_t* sO = sQ + C::STAGES * C::QT_BYTES;       // [stage]
+  float* sL = reinterpret_cast<float*>(sO + C::STAGES * C::QT_BYTES);
+  float* sD = sL + C::STAGES * QM;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sD + C::STAGES * QM);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + C::STAGES;
 
-// The A fragment of one k16 step (columns 16ks..) of rows r and r + 8 of
-// a row-major tile.
-template <int P>
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* X,
-                                       int r, int ks, int tig) {
-  const bf16* p = X + r * P + ks * 16 + 2 * tig;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * P);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * P + 8);
-}
-
-// acc[nt] += A . B over HD for 8 n8 tiles, B^T rows (n) of tile Bt: the
-// 16 x 64 product of a warp's rows with a tile's 64 rows.
-template <int HD>
-__device__ __forceinline__ void rows_dot(float (&acc)[8][4], const bf16* A,
-                                         const bf16* Bt, int r, int g,
-                                         int tig) {
-  constexpr int P = Tiles<HD>::P;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[nt][c] = 0.0f;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    uint32_t a[4];
-    a_frag<P>(a, A, r, ks, tig);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const bf16* bp = Bt + (nt * 8 + g) * P + ks * 16 + 2 * tig;
-      mma(acc[nt], a, ld32(bp), ld32(bp + 8));
-    }
-  }
-}
-
-// acc[n] += A (16 x 64, four k16 A fragments) . Xt (64 x HD, a row-major
-// tile read through ldmatrix.trans).
-template <int HD>
-__device__ __forceinline__ void frag_times_tile(float (&acc)[HD / 8][4],
-                                                const uint32_t (&a)[4][4],
-                                                const bf16* X, int lane) {
-  constexpr int P = Tiles<HD>::P;
-  const int row = (lane % 8) + 8 * ((lane / 8) & 1), col = 8 * (lane / 16);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int np = 0; np < HD / 16; ++np) {
-      uint32_t b[4];
-      ldsm_x4_t(b, X + (16 * j + row) * P + 16 * np + col);
-      mma(acc[2 * np], a[j], b[0], b[1]);
-      mma(acc[2 * np + 1], a[j], b[2], b[3]);
-    }
-}
-
-// The accumulators of 8 n8 tiles (16 rows x 64 columns) as the bf16 A
-// fragments of four k16 steps.
-__device__ __forceinline__ void to_frags(uint32_t (&a)[4][4],
-                                         const float (&c)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    a[j][0] = pack(c[2 * j][0], c[2 * j][1]);
-    a[j][1] = pack(c[2 * j][2], c[2 * j][3]);
-    a[j][2] = pack(c[2 * j + 1][0], c[2 * j + 1][1]);
-    a[j][3] = pack(c[2 * j + 1][2], c[2 * j + 1][3]);
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreadsTC)
-fa_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dO,
-               const float* __restrict__ lse, const float* __restrict__ D,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int G, int S,
-               int Tk, int kv_len, int q_offset, int causal, float scale,
-               float scale_log2, Strides qs, Strides ks, Strides vs,
-               Strides dos, Strides dks, Strides dvs) {
-  constexpr int NT = HD / 8, P = Tiles<HD>::P;
-  extern __shared__ __align__(16) uint8_t raw[];
-  bf16* sK = reinterpret_cast<bf16*>(raw);
-  bf16* sV = sK + Tiles<HD>::TILE;
-  bf16* sQ = sV + Tiles<HD>::TILE;
-  bf16* sO = sQ + Tiles<HD>::TILE;
-  float* sL = reinterpret_cast<float*>(sO + Tiles<HD>::TILE);
-  float* sD = sL + BT;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4, kr = warp * 16 + g;
-  const int k0 = blockIdx.x * BT, hk = blockIdx.y, b = blockIdx.z;
-  const int Hq = gridDim.y * G;
-
-  load_tile<HD>(sK, k + b * ks.b + hk * ks.h, ks.s, k0, Tk);
-  load_tile<HD>(sV, v + b * vs.b + hk * vs.h, vs.s, k0, Tk);
-
-  float acc_k[NT][4], acc_v[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_k[n][c] = acc_v[n][c] = 0.0f;
-
-  int qt0 = 0;
+  // block order: key tile slowest, so the first wave holds every head's
+  // first key tiles, the longest under a causal mask
+  const int hb = blockIdx.x % (Hkv * B);
+  const int hk = hb % Hkv, b = hb / Hkv;
+  const int k0 = (blockIdx.x / (Hkv * B)) * KN;
+  const int Hq = Hkv * G;
+  int qt0 = 0;                       // the first query tile that sees k0
   if (causal) {
     const long long first = (long long)k0 - q_offset;
-    qt0 = first <= 0 ? 0 : (int)((first < S ? first : S) / BT);
+    qt0 = first <= 0 ? 0 : (int)((first < S ? first : S) / QM);
   }
-  const int nq = (S + BT - 1) / BT;
-  const bool dead = k0 >= kv_len;
+  const int nqt = k0 < kv_len ? (S + QM - 1) / QM - qt0 : 0;
+  const int n_it = G * nqt;
 
-  for (int gi = 0; gi < G && !dead; ++gi) {
-    const int h = hk * G + gi;
-    const bf16* qb = q + b * qs.b + h * qs.h;
-    const bf16* ob = dO + b * dos.b + h * dos.h;
-    const float* lrow = lse + ((long long)b * Hq + h) * S;
-    const float* drow = D + ((long long)b * Hq + h) * S;
-    for (int qt = qt0; qt < nq; ++qt) {
-      const int q0 = qt * BT;
-      __syncthreads();                  // the previous tile is consumed
-      load_tile<HD>(sQ, qb, qs.s, q0, S);
-      load_tile<HD>(sO, ob, dos.s, q0, S);
-      if (tid < BT) {
-        const bool in = q0 + tid < S;
-        sL[tid] = in ? lrow[q0 + tid] * 1.4426950408889634f : 0.0f;
-        sD[tid] = in ? drow[q0 + tid] : 0.0f;
-      }
-      __syncthreads();
-
-      // P^T: the warp's 16 keys x the tile's 64 queries
-      float st[8][4];
-      rows_dot<HD>(st, sK, sQ, kr, g, tig);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int key = k0 + kr + 8 * (c >> 1);
-          const int ql = nt * 8 + 2 * tig + (c & 1);
-          bool live = q0 + ql < S && key < kv_len;
-          if (causal) live = live && (long long)key <=
-                                         (long long)q_offset + q0 + ql;
-          st[nt][c] = live ? exp2f(st[nt][c] * scale_log2 - sL[ql]) : 0.0f;
-        }
-      uint32_t fa[4][4];
-      to_frags(fa, st);
-      frag_times_tile<HD>(acc_v, fa, sO, lane);   // dV += P^T dO
-      // dS^T = P^T o (dP^T - D), dP^T = V dO^T; then dK += dS^T Q
-      float dpt[8][4];
-      rows_dot<HD>(dpt, sV, sO, kr, g, tig);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          dpt[nt][c] = st[nt][c] * (dpt[nt][c] - sD[nt * 8 + 2 * tig +
-                                                    (c & 1)]);
-      to_frags(fa, dpt);
-      frag_times_tile<HD>(acc_k, fa, sQ, lane);
+  if (threadIdx.x == 0) {
+    bar_init(kv_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      bar_init(full + s, 32);                      // warp 0's lanes
+      bar_init(empty + s, 8);                      // the consumers' warps
     }
+    bar_init_fence();
   }
+  __syncthreads();
 
-  bf16* kb = dk + b * dks.b + hk * dks.h;
-  bf16* vb = dv + b * dvs.b + hk * dvs.h;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     kProducerRegs));
+    if (threadIdx.x < 32) {
+      if (lane == 0 && n_it > 0) {
+        bar_expect_tx(kv_full, 2 * C::KV_BYTES);
+        tma_tile<HD>(sK, &tk, KN, k0, hk, b, kv_full);
+        tma_tile<HD>(sV, &tv, KN, k0, hk, b, kv_full);
+      }
+      for (int j = 0; j < n_it; ++j) {
+        const int s = j % C::STAGES;
+        if (j >= C::STAGES) bar_wait(empty + s, (j / C::STAGES - 1) & 1);
+        const int g = j / nqt, q0 = (qt0 + j - g * nqt) * QM;
+        const int h = hk * G + g;
+        const long long row = ((long long)b * Hq + h) * S + q0;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int key = k0 + kr + 8 * hh;
-    if (key >= Tk) continue;
+        for (int r = lane; r < QM; r += 32) {
+          const bool in = q0 + r < S;
+          sL[s * QM + r] = in ? lse[row + r] * kLog2e : 0.0f;
+          sD[s * QM + r] = in ? D[row + r] : 0.0f;
+        }
+        if (lane == 0) {
+          bar_expect_tx(full + s, 2 * C::QT_BYTES);
+          tma_tile<HD>(sQ + s * C::QT_BYTES, &tq, QM, q0, h, b, full + s);
+          tma_tile<HD>(sO + s * C::QT_BYTES, &tdo, QM, q0, h, b, full + s);
+        } else {
+          bar_arrive(full + s);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     kConsumerRegs));
+    const int w = wg - 1;                          // keys 64w .. 64w + 63
+    const int warp = (threadIdx.x / 32) % 4;
+    const int kw0 = k0 + 64 * w;
+    const int key_lo = kw0 + 16 * warp + lane / 4;   // and key_lo + 8
+    const int cq = 2 * (lane % 4);
+    const uint32_t k_addr = smem_u32(sK) + w * 64 * C::ATOM_B;
+    const uint32_t v_addr = smem_u32(sV) + w * 64 * C::ATOM_B;
+
+    float dk_acc[HD / 2], dv_acc[HD / 2];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int col = n * 8 + 2 * tig;
-      *reinterpret_cast<__nv_bfloat162*>(kb + (long long)key * dks.s + col) =
-          __floats2bfloat162_rn(acc_k[n][2 * hh] * scale,
-                                acc_k[n][2 * hh + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(vb + (long long)key * dvs.s + col) =
-          __floats2bfloat162_rn(acc_v[n][2 * hh], acc_v[n][2 * hh + 1]);
+    for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+    if (n_it > 0) bar_wait(kv_full, 0);
+    for (int j = 0; j < n_it; ++j) {
+      const int s = j % C::STAGES, ph = (j / C::STAGES) & 1;
+      const int g = j / nqt, q0 = (qt0 + j - g * nqt) * QM;
+      bar_wait(full + s, ph);
+      // keys all padded, or all after every query of the tile: P^T = 0
+      const bool idle = kw0 >= kv_len ||
+                        (causal && (long long)kw0 >
+                                       (long long)q_offset + q0 + QM - 1);
+      if (!idle) {
+        const uint32_t q_addr = smem_u32(sQ + s * C::QT_BYTES);
+        const uint32_t o_addr = smem_u32(sO + s * C::QT_BYTES);
+        const float* lrow = sL + s * QM;
+        const float* drow = sD + s * QM;
+
+        // S^T = K Q^T and dP^T = V dO^T over hd, two groups in flight
+        float st[QM / 2], dpt[QM / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss(st, desc_kmajor<HD>(k_addr, KN, kk),
+                   desc_kmajor<HD>(q_addr, QM, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss(dpt, desc_kmajor<HD>(v_addr, KN, kk),
+                   desc_kmajor<HD>(o_addr, QM, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(st);
+
+        // P^T = exp(s scale - lse) on live pairs, exactly 0 elsewhere
+        const bool masked = q0 + QM > S || kw0 + 64 > kv_len ||
+                            (causal && (long long)kw0 + 63 >
+                                           (long long)q_offset + q0);
+#pragma unroll
+        for (int i = 0; i < QM / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * i + cq + e;
+            const float l2 = lrow[col];
+            float p_lo = exp2f(st[4 * i + e] * scale_log2 - l2);
+            float p_hi = exp2f(st[4 * i + 2 + e] * scale_log2 - l2);
+            if (masked) {
+              const long long qpos = (long long)q_offset + q0 + col;
+              const bool q_in = q0 + col < S;
+              if (!q_in || key_lo >= kv_len || (causal && key_lo > qpos))
+                p_lo = 0.0f;
+              if (!q_in || key_lo + 8 >= kv_len ||
+                  (causal && key_lo + 8 > qpos))
+                p_hi = 0.0f;
+            }
+            st[4 * i + e] = p_lo;
+            st[4 * i + 2 + e] = p_hi;
+          }
+        }
+
+        // dV += P^T dO (P^T rounded to bf16)
+        uint32_t fa[QM / 16][4];
+        to_a_frags(fa, st);
+        fence_regs(dv_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < QM / 16; ++kk)
+          wgmma_rs(dv_acc, fa[kk], desc_mnmajor<HD>(o_addr, QM, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dpt);
+        fence_regs(dv_acc);
+
+        // dS^T = P^T o (dP^T - D), then dK += dS^T Q (dS^T rounded)
+#pragma unroll
+        for (int i = 0; i < QM / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float d = drow[8 * i + cq + e];
+            dpt[4 * i + e] = st[4 * i + e] * (dpt[4 * i + e] - d);
+            dpt[4 * i + 2 + e] = st[4 * i + 2 + e] * (dpt[4 * i + 2 + e] - d);
+          }
+        }
+        to_a_frags(fa, dpt);
+        fence_regs(dk_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < QM / 16; ++kk)
+          wgmma_rs(dk_acc, fa[kk], desc_mnmajor<HD>(q_addr, QM, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk_acc);
+      }
+      if (lane == 0) bar_arrive(empty + s);
+    }
+
+    bf16* kb = dk + b * dks.b + hk * dks.h;
+    bf16* vb = dv + b * dvs.b + hk * dvs.h;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = key_lo + 8 * half;
+      if (key >= T) continue;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        const int c = 8 * i + cq, a = 4 * i + 2 * half;
+        *reinterpret_cast<__nv_bfloat162*>(kb + (long long)key * dks.s + c) =
+            __floats2bfloat162_rn(dk_acc[a] * scale, dk_acc[a + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(vb + (long long)key * dvs.s + c) =
+            __floats2bfloat162_rn(dv_acc[a], dv_acc[a + 1]);
+      }
     }
   }
 }
 
+// ----------------------------------------------- dQ: 128 queries a block
+
+constexpr int QB = 128;              // queries per block, 64 per consumer
+constexpr int KT = 128;              // keys per tile of the ring
+
 template <int HD>
-__global__ void __launch_bounds__(kThreadsTC)
-fa_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ dO,
-             const float* __restrict__ lse, const float* __restrict__ D,
-             bf16* __restrict__ dq, int G, int S, int Tk, int kv_len,
-             int q_offset, int causal, float scale, float scale_log2,
-             Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs) {
-  constexpr int NT = HD / 8;
-  extern __shared__ __align__(16) uint8_t raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(raw);
-  bf16* sO = sQ + Tiles<HD>::TILE;
-  bf16* sK = sO + Tiles<HD>::TILE;
-  bf16* sV = sK + Tiles<HD>::TILE;
-  float* sL = reinterpret_cast<float*>(sV + Tiles<HD>::TILE);
-  float* sD = sL + BT;
+struct DqCfg : Atom<HD> {
+  static constexpr int STAGES = 2;               // the K/V ring
+  static constexpr int Q_BYTES = QB * HD * 2;    // Q or dO, [NA][QB][AC]
+  static constexpr int KV_BYTES = KT * HD * 2;   // K or V, [NA][KT][AC]
+  static constexpr int SMEM = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 1024 +
+                              64;
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4, qr = warp * 16 + g;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;    // longest first
-  const int h = blockIdx.y, b = blockIdx.z, Hq = gridDim.y, hk = h / G;
+// One block per (128 query rows, q head, batch), shaped like the forward:
+// the producer loads Q and dO once and streams the K and V tiles up to
+// the causal limit through the ring; each consumer warpgroup owns 64
+// rows: S = Q K^T and dP = dO V^T (SS wgmma), dS in registers, dQ += dS K
+// (RS wgmma, K MN-major). dQ is scaled and rounded to bf16 once, at the
+// end.
+template <int HD>
+__global__ void __launch_bounds__(kBlock, 1)
+fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const float* __restrict__ lse, const float* __restrict__ D,
+                bf16* __restrict__ dq, Strides dqs, int B, int Hq, int G, int S,
+                int kv_len, int q_offset, int causal, float scale,
+                float scale_log2) {
+  using C = DqCfg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sQ = smem;
+  uint8_t* sO = sQ + C::Q_BYTES;
+  uint8_t* sK = sO + C::Q_BYTES;                    // [stage]
+  uint8_t* sV = sK + C::STAGES * C::KV_BYTES;       // [stage]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + C::STAGES * C::KV_BYTES);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + C::STAGES;
 
-  load_tile<HD>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, S);
-  load_tile<HD>(sO, dO + b * dos.b + h * dos.h, dos.s, q0, S);
-  if (tid < BT) {
-    const bool in = q0 + tid < S;
-    const long long row = ((long long)b * Hq + h) * S + q0 + tid;
-    sL[tid] = in ? lse[row] * 1.4426950408889634f : 0.0f;
-    sD[tid] = in ? D[row] : 0.0f;
-  }
-
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[n][c] = 0.0f;
-
-  int nk = (kv_len + BT - 1) / BT;
+  // block order: query tile slowest and last-first, so the first wave
+  // holds every head's longest causal rows
+  const int hb = blockIdx.x % (Hq * B);
+  const int h = hb % Hq, b = hb / Hq;
+  const int q0 = ((S + QB - 1) / QB - 1 - (int)(blockIdx.x / (Hq * B))) * QB;
+  int nk = (kv_len + KT - 1) / KT;
   if (causal) {
-    const long long last = (long long)q_offset + q0 + BT - 1;
-    const long long lim = last < 0 ? 0 : last / BT + 1;
+    const long long lim = ((long long)q_offset + q0 + QB - 1) / KT + 1;
     if (lim < nk) nk = (int)lim;
   }
-  const bf16* kb = k + b * ks.b + hk * ks.h;
-  const bf16* vb = v + b * vs.b + hk * vs.h;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();                    // the previous tile is consumed
-    load_tile<HD>(sK, kb, ks.s, k0, Tk);
-    load_tile<HD>(sV, vb, vs.s, k0, Tk);
-    __syncthreads();
 
-    // S and dP: the warp's 16 queries x the tile's 64 keys
-    float s[8][4], dp[8][4];
-    rows_dot<HD>(s, sQ, sK, qr, g, tig);
-    rows_dot<HD>(dp, sO, sV, qr, g, tig);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int ql = qr + 8 * (c >> 1);
-        const int key = k0 + nt * 8 + 2 * tig + (c & 1);
-        bool live = q0 + ql < S && key < kv_len;
-        if (causal) live = live && (long long)key <=
-                                       (long long)q_offset + q0 + ql;
-        const float p = live ? exp2f(s[nt][c] * scale_log2 - sL[ql])
-                             : 0.0f;
-        dp[nt][c] = p * (dp[nt][c] - sD[ql]);
-      }
-    uint32_t da[4][4];
-    to_frags(da, dp);
-    frag_times_tile<HD>(acc, da, sK, lane);       // dQ += dS K
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, 8);                      // the consumers' warps
+    }
+    bar_init_fence();
   }
+  __syncthreads();
 
-  bf16* qo = dq + b * dqs.b + h * dqs.h;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     kProducerRegs));
+    if (threadIdx.x == 0) {
+      const int hk = h / G;
+      bar_expect_tx(q_full, 2 * C::Q_BYTES);
+      tma_tile<HD>(sQ, &tq, QB, q0, h, b, q_full);
+      tma_tile<HD>(sO, &tdo, QB, q0, h, b, q_full);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % C::STAGES;
+        if (j >= C::STAGES) bar_wait(empty + s, (j / C::STAGES - 1) & 1);
+        bar_expect_tx(full + s, 2 * C::KV_BYTES);
+        tma_tile<HD>(sK + s * C::KV_BYTES, &tk, KT, j * KT, hk, b, full + s);
+        tma_tile<HD>(sV + s * C::KV_BYTES, &tv, KT, j * KT, hk, b, full + s);
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     kConsumerRegs));
+    const int w = wg - 1;                          // rows 64w .. 64w + 63
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    const int r_lo = q0 + 64 * w + 16 * warp + lane / 4;   // and r_lo + 8
+    const long long pos_lo = (long long)q_offset + r_lo;
+    const long long first_pos = (long long)q_offset + q0 + 64 * w;
+    const int cq = 2 * (lane % 4);
+    const long long row = ((long long)b * Hq + h) * S;
+    // rows past S read zeros from TMA and are never written: 0 is safe
+    const float l2_lo = r_lo < S ? lse[row + r_lo] * kLog2e : 0.0f;
+    const float l2_hi = r_lo + 8 < S ? lse[row + r_lo + 8] * kLog2e : 0.0f;
+    const float d_lo = r_lo < S ? D[row + r_lo] : 0.0f;
+    const float d_hi = r_lo + 8 < S ? D[row + r_lo + 8] : 0.0f;
+    const uint32_t q_addr = smem_u32(sQ) + w * 64 * C::ATOM_B;
+    const uint32_t o_addr = smem_u32(sO) + w * 64 * C::ATOM_B;
+
+    float dq_acc[HD / 2];
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = q0 + qr + 8 * hh;
-    if (row >= S) continue;
+    for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.0f;
+
+    bar_wait(q_full, 0);
+    for (int j = 0; j < nk; ++j) {
+      const int s = j % C::STAGES, ph = (j / C::STAGES) & 1;
+      const int k0 = j * KT;
+      bar_wait(full + s, ph);
+      // every key of the tile after every row of this warpgroup: P = 0
+      const bool idle = causal && (long long)k0 > first_pos + 63;
+      if (!idle) {
+        const uint32_t k_addr = smem_u32(sK + s * C::KV_BYTES);
+        const uint32_t v_addr = smem_u32(sV + s * C::KV_BYTES);
+
+        // S = Q K^T and dP = dO V^T over hd, two groups in flight
+        float sacc[KT / 2], dp[KT / 2];
+        wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(qo + (long long)row * dqs.s + n * 8 +
-                                         2 * tig) =
-          __floats2bfloat162_rn(acc[n][2 * hh] * scale,
-                                acc[n][2 * hh + 1] * scale);
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss(sacc, desc_kmajor<HD>(q_addr, QB, kk),
+                   desc_kmajor<HD>(k_addr, KT, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss(dp, desc_kmajor<HD>(o_addr, QB, kk),
+                   desc_kmajor<HD>(v_addr, KT, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(sacc);
+
+        // P = exp(s scale - lse) on live pairs, exactly 0 elsewhere
+        const bool masked = k0 + KT > kv_len ||
+                            (causal && (long long)k0 + KT - 1 > first_pos);
+#pragma unroll
+        for (int i = 0; i < KT / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float p_lo = exp2f(sacc[4 * i + e] * scale_log2 - l2_lo);
+            float p_hi = exp2f(sacc[4 * i + 2 + e] * scale_log2 - l2_hi);
+            if (masked) {
+              const int kpos = k0 + 8 * i + cq + e;
+              const bool pad = kpos >= kv_len;
+              if (pad || (causal && kpos > pos_lo)) p_lo = 0.0f;
+              if (pad || (causal && kpos > pos_lo + 8)) p_hi = 0.0f;
+            }
+            sacc[4 * i + e] = p_lo;
+            sacc[4 * i + 2 + e] = p_hi;
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+
+        // dS = P o (dP - D), rounded to bf16; dQ += dS K
+#pragma unroll
+        for (int i = 0; i < KT / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            dp[4 * i + e] = sacc[4 * i + e] * (dp[4 * i + e] - d_lo);
+            dp[4 * i + 2 + e] = sacc[4 * i + 2 + e] * (dp[4 * i + 2 + e] - d_hi);
+          }
+        }
+        uint32_t fa[KT / 16][4];
+        to_a_frags(fa, dp);
+        fence_regs(dq_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KT / 16; ++kk)
+          wgmma_rs(dq_acc, fa[kk], desc_mnmajor<HD>(k_addr, KT, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq_acc);
+      }
+      if (lane == 0) bar_arrive(empty + s);
+    }
+
+    bf16* qb = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r_lo + 8 * half;
+      if (r >= S) continue;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        const int a = 4 * i + 2 * half;
+        *reinterpret_cast<__nv_bfloat162*>(qb + (long long)r * dqs.s + 8 * i +
+                                           cq) =
+            __floats2bfloat162_rn(dq_acc[a] * scale, dq_acc[a + 1] * scale);
+      }
+    }
   }
 }
 
@@ -716,31 +836,48 @@ struct Args {
 
 template <int HD>
 int launch_tc(const Args& a, cudaStream_t stream) {
-  using tc::bf16;
+  using namespace tc;
+  if (!encode_fn()) return (int)cudaErrorSymbolNotFound;
+  // boxes: 128-row K/V tiles (both kernels), 64-row Q/dO tiles (dK/dV),
+  // 128-row Q/dO tiles (dQ)
+  static_assert(KT == KN, "both kernels read K and V in boxes of KN rows");
+  CUtensorMap k128, v128, q64, do64, q128, do128;
+  if (!make_map<HD>(&k128, a.k, a.T, a.Hkv, a.B, a.ks, KN) ||
+      !make_map<HD>(&v128, a.v, a.T, a.Hkv, a.B, a.vs, KN) ||
+      !make_map<HD>(&q64, a.q, a.S, a.Hq, a.B, a.qs, QM) ||
+      !make_map<HD>(&do64, a.dO, a.S, a.Hq, a.B, a.dos, QM) ||
+      !make_map<HD>(&q128, a.q, a.S, a.Hq, a.B, a.qs, QB) ||
+      !make_map<HD>(&do128, a.dO, a.S, a.Hq, a.B, a.dos, QB))
+    return (int)cudaErrorInvalidValue;
   const int G = a.Hq / a.Hkv;
   const float scale_log2 = (float)((double)a.scale * 1.4426950408889634);
-  const int smem = (int)tc::Tiles<HD>::bytes;
+
   cudaError_t e = cudaFuncSetAttribute(
-      tc::fa_bwd_dkdv_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fa_bwd_dkdv_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DkvCfg<HD>::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 gkv((a.T + tc::BT - 1) / tc::BT, a.Hkv, a.B);
-  tc::fa_bwd_dkdv_tc<HD><<<gkv, tc::kThreadsTC, smem, stream>>>(
-      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-      (const bf16*)a.dO, a.lse, a.D, (bf16*)a.dk, (bf16*)a.dv, G, a.S, a.T,
-      a.kv_len, a.q_offset, a.causal, a.scale, scale_log2, a.qs, a.ks, a.vs,
-      a.dos, a.dks, a.dvs);
+  e = check_regs(fa_bwd_dkdv_wgmma<HD>, kBlock, kProducerRegs, kConsumerRegs);
+  if (e != cudaSuccess) return (int)e;
+  const long long nkv = (long long)(a.T + KN - 1) / KN * a.Hkv * a.B;
+  const long long nq = (long long)(a.S + QB - 1) / QB * a.Hq * a.B;
+  if (nkv > 0x7fffffffLL || nq > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  fa_bwd_dkdv_wgmma<HD><<<(unsigned)nkv, kBlock, DkvCfg<HD>::SMEM, stream>>>(
+      k128, v128, q64, do64, a.lse, a.D, (bf16*)a.dk, (bf16*)a.dv, a.dks,
+      a.dvs, a.B, a.Hkv, G, a.S, a.T, a.kv_len, a.q_offset, a.causal,
+      a.scale, scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(tc::fa_bwd_dq_tc<HD>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+
+  e = cudaFuncSetAttribute(fa_bwd_dq_wgmma<HD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           DqCfg<HD>::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 gq((a.S + tc::BT - 1) / tc::BT, a.Hq, a.B);
-  tc::fa_bwd_dq_tc<HD><<<gq, tc::kThreadsTC, smem, stream>>>(
-      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-      (const bf16*)a.dO, a.lse, a.D, (bf16*)a.dq, G, a.S, a.T, a.kv_len,
-      a.q_offset, a.causal, a.scale, scale_log2, a.qs, a.ks, a.vs, a.dos,
-      a.dqs);
+  e = check_regs(fa_bwd_dq_wgmma<HD>, kBlock, kProducerRegs, kConsumerRegs);
+  if (e != cudaSuccess) return (int)e;
+  fa_bwd_dq_wgmma<HD><<<(unsigned)nq, kBlock, DqCfg<HD>::SMEM, stream>>>(
+      q128, do128, k128, v128, a.lse, a.D, (bf16*)a.dq, a.dqs, a.B, a.Hq, G,
+      a.S, a.kv_len, a.q_offset, a.causal, a.scale, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -826,7 +963,7 @@ int flash_attention_bwd_launch(
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return dispatch_hd<float>(hd, a, s);
   if (dtype == 1) {
-    // 16-byte loads of every bf16 row
+    // TMA reads every bf16 row: 16-byte aligned bases and strides
     for (const void* p : {q, k, v, o, dO, (const void*)dq, (const void*)dk,
                           (const void*)dv})
       if (reinterpret_cast<uintptr_t>(p) % 16)

@@ -1,0 +1,374 @@
+// Hopper (sm_90a) building blocks shared by the tensor-core flash-attention
+// kernels (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA
+// loads of 4-D (hd, rows, heads, batch) tiles, wgmma shared-memory
+// descriptors and the wgmma shapes the kernels issue, all as inline PTX (no
+// CUTLASS include), and cuTensorMapEncodeTiled reached through the
+// runtime's driver entry point (no -lcuda).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+struct Strides {
+  long long b, h, s;
+};
+
+namespace hopper {
+
+// The shared-memory tile of a head dim: hd split into swizzle atoms of
+// ATOM_B bytes a row (128-byte swizzle for hd 64 and 128, hd 128 as two
+// 64-column atoms; 64-byte swizzle for hd 32). A tile of R rows is stored
+// [NA][R][AC] bf16.
+template <int HD>
+struct Atom {
+  static constexpr int ATOM_B = HD * 2 >= 128 ? 128 : HD * 2;
+  static constexpr int AC = ATOM_B / 2;          // hd columns per atom
+  static constexpr int NA = HD / AC;             // atoms along hd
+  static constexpr int KPA = ATOM_B / 32;        // k16 steps per atom
+  static constexpr uint64_t LAYOUT = ATOM_B == 128 ? 1 : 2;  // B128 / B64
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void bar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Wait until the phase of parity `parity` has completed. A wait of more
+// than ~2^34 cycles (seconds) can only be a fault: it traps, so the launch
+// fails instead of holding the card.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  long long t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (!t0) t0 = clock64();
+    else if (clock64() - t0 > (1LL << 34)) __trap();
+  }
+}
+// Make the mbarrier inits visible to the async proxy (TMA) before use.
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One TMA box of a 4-D (hd, rows, heads, batch) tensor into shared memory.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// All atoms of a tile of `rows` rows starting at row r0 (box rows = rows).
+template <int HD>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map,
+                                         int rows, int r0, int h, int b,
+                                         uint64_t* bar) {
+  using A = Atom<HD>;
+#pragma unroll
+  for (int a = 0; a < A::NA; ++a)
+    tma_load(dst + a * rows * A::ATOM_B, map, a * A::AC, r0, h, b, bar);
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle layout.
+__device__ __forceinline__ uint64_t mat_desc(uint32_t addr, uint32_t lbo,
+                                             uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// K-major operand: k16 step kk of a tile of `rows` rows whose first used
+// row is at byte `addr` (within atom 0).
+template <int HD>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr, int rows,
+                                                int kk) {
+  using A = Atom<HD>;
+  return mat_desc(addr + (kk / A::KPA) * rows * A::ATOM_B +
+                      (kk % A::KPA) * 32,
+                  16, 8 * A::ATOM_B, A::LAYOUT);
+}
+
+// MN-major B operand (rows = the product's K dimension, hd = N): k16 step
+// kk of a tile of `rows` rows at byte `addr`.
+template <int HD>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr, int rows,
+                                                 int kk) {
+  using A = Atom<HD>;
+  return mat_desc(addr + kk * 16 * A::ATOM_B, rows * A::ATOM_B,
+                  8 * A::ATOM_B, A::LAYOUT);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous instructions.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 32, fp32) += A (64 x 16, bf16 pairs in registers) . B (16 x 32);
+// B MN-major in shared memory (descriptor db, transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 pairs in registers) . B (16 x 64);
+// B MN-major in shared memory (descriptor db, transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, fp32) {=, +=} A (64 x 16) . B (16 x 64); A and B K-major in
+// shared memory (descriptors da, db).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 128, fp32) {=, +=} A (64 x 16) . B (16 x 128); A and B K-major
+// in shared memory (descriptors da, db).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16 pairs in registers) . B (16 x 128);
+// B MN-major in shared memory (descriptor db, transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The wgmma accumulator layout (m64nN, fp32): warp w of the warpgroup
+// holds rows 16w..16w+15; lane l holds rows r = l/4 and r + 8, and for
+// every 8-column chunk i the columns 8i + 2(l%4) + {0, 1}: element
+// 4i + 2*half + e is (row r + 8*half, column 8i + 2(l%4) + e). The same
+// layout, packed in bf16 pairs, is wgmma's A fragment for one k16 step
+// per two chunks, so an accumulator feeds the next product as its A
+// operand without a shuffle.
+template <int N, int KS>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[KS][4],
+                                           const float (&c)[N]) {
+  static_assert(N == 8 * KS, "one k16 step per 8 accumulator registers");
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no link against libcuda.
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &res);
+#endif
+    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (hd, rows, heads, batch) bf16 map over a strided tensor; boxes of
+// (AC columns, box_rows rows) with the atom's swizzle; rows past `rows`
+// read as zeros.
+template <int HD>
+bool make_map(CUtensorMap* map, const void* base, int rows, int heads,
+              int batch, Strides st, int box_rows) {
+  using A = Atom<HD>;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)A::AC, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                     const_cast<void*>(base), dims, strides, box, estr,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     A::ATOM_B == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                      : CU_TENSOR_MAP_SWIZZLE_64B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// setmaxnreg moves registers between the warpgroups of a block (one
+// producer warpgroup, the rest consumers): a consumer's raise waits
+// forever unless the block started with at least as many registers as
+// the producer's and the consumers' counts add up to. Returns
+// cudaErrorInvalidConfiguration when ptxas gave the kernel fewer.
+template <typename Kernel>
+cudaError_t check_regs(Kernel kernel, int block, int producer_regs,
+                       int consumer_regs) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  if (attr.numRegs * block <
+      producer_regs * 128 + consumer_regs * (block - 128))
+    return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
+}
+
+}  // namespace hopper
+}  // namespace
+

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes``. The build
 lands in ``build/repro_torch/`` at the repository root (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source never loads a stale library. Nothing is built when a module is
+``.gitignore``), named by a hash of the flags, the source and every header
+it includes (``csrc/hopper.cuh``), so an edited source or header never
+loads a stale library. Nothing is built when a module is
 imported: the first launch builds, or a caller builds every kernel at
 once, in parallel, with ``build_all``.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,12 +27,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # nvcc flags per source. All keep IEEE division, square root and expf (no
 # --use_fast_math); fleet_score also forbids fused multiply-adds so that
 # every product and sum is rounded on its own, as numpy rounds them.
-# flash_attention needs no flag of its own: it reaches the driver's
-# cuTensorMapEncodeTiled through the runtime's driver entry point (no
-# -lcuda) and writes its wgmma/TMA instructions as inline PTX (no CUTLASS
-# include); flash_attention_bwd is plain CUDA-core code; sweep_burn's grid
-# barrier is cooperative_groups' grid.sync, which needs no relocatable
-# device code.
+# flash_attention and flash_attention_bwd need no flag of their own: both
+# reach the driver's cuTensorMapEncodeTiled through the runtime's driver
+# entry point (no -lcuda) and write their wgmma/TMA instructions as inline
+# PTX (no CUTLASS include), from the shared csrc/hopper.cuh; sweep_burn's
+# grid barrier is cooperative_groups' grid.sync, which needs no
+# relocatable device code.
 _COMMON = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 FLAGS: Dict[str, Tuple[str, ...]] = {
@@ -69,10 +71,24 @@ def nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: List[Path]) -> List[Path]:
+    """``path`` and every header it includes with quotes, recursively,
+    each once."""
+    if path not in seen:
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + "\0".join(FLAGS[name]).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{h[:16]}.so"
+    h = hashlib.sha256("\0".join(FLAGS[name]).encode())
+    for path in _sources(CSRC / f"{name}.cu", []):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _command(name: str, out: Path) -> List[str]:

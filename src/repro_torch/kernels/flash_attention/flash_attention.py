@@ -11,11 +11,13 @@ asked (``lse=True``), for the backward.
 
 Backward (``csrc/flash_attention_bwd.cu``): dQ, dK, dV from the forward's
 output and log-sum-exp, three launches per call (D = rowsum(dO o O), a
-dK/dV kernel per key tile, a dQ kernel per query tile), float32 sums in a
-fixed order with no atomics, so two calls are bit-equal. bfloat16 runs on
-the tensor cores (``mma.sync``, P and dS rounded to bfloat16 before their
-products) and needs 16-byte aligned rows; float32 runs on the CUDA cores.
-``BWD_COUNTER`` counts its calls.
+dK/dV kernel per 128-key tile, a dQ kernel per 128-query tile), float32
+sums in a fixed order with no atomics, so two calls are bit-equal.
+bfloat16 runs on the tensor cores like the forward (a TMA producer
+warpgroup and two ``wgmma`` consumer warpgroups a block; P and dS rounded
+to bfloat16 before their products) and needs 16-byte aligned rows of q,
+k, v, o and do; float32 runs on the CUDA cores. ``BWD_COUNTER`` counts its
+calls.
 
 The library is built with ``nvcc`` at the first launch (see
 ``repro_torch.kernels._build``). The wrapper checks its inputs, allocates
@@ -172,14 +174,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q_offset < 0:
         raise ValueError(f"q_offset={q_offset}: the backward needs every "
                          f"query row to see a key (q_offset >= 0)")
-    if q.dtype == torch.bfloat16:      # 16-byte loads of every row
+    if q.dtype == torch.bfloat16:      # TMA reads 16-byte aligned rows
         for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
             if not aligned16(t):
                 raise ValueError(
-                    f"{name}: the bfloat16 backward loads rows 16 bytes at a "
-                    f"time, which needs a 16-byte aligned base and (batch, "
-                    f"head, row) strides that are multiples of 8 elements; "
-                    f"got strides {t.stride()}")
+                    f"{name}: the bfloat16 backward loads with TMA, which "
+                    f"needs a 16-byte aligned base and (batch, head, row) "
+                    f"strides that are multiples of 8 elements; got strides "
+                    f"{t.stride()}")
     dq = torch.empty((B, S, Hq, hd), dtype=q.dtype,
                      device=q.device).transpose(1, 2)
     dk, dv = (torch.empty((B, T, Hkv, hd), dtype=q.dtype,

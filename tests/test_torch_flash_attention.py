@@ -302,7 +302,10 @@ def test_backward_q_offset_matches_reference_vjp(q_offset):
 
 
 # B, S, T, Hq, Hkv, hd, causal, q_offset, kv_len: GQA, MQA, Hq = Hkv,
-# ragged S, q_offset and kv_len
+# ragged S, q_offset and kv_len; then the bfloat16 kernels' tile edges, as
+# chip_smoke.py's K3B_CASES has them: S between 64 and 128 with T no
+# multiple of 128, S = 333 (log-sum-exp rows not 16-byte aligned),
+# Hq / Hkv = 8, and hd 32 and 64 with kv_len ending mid-tile
 BWD_CASES = [
     (2, 128, 128, 4, 2, 64, True, 0, 0),
     (1, 100, 100, 4, 1, 32, True, 0, 0),
@@ -310,6 +313,11 @@ BWD_CASES = [
     (1, 64, 192, 4, 2, 32, True, 128, 0),
     (2, 64, 160, 4, 2, 64, False, 0, 130),
     (1, 70, 200, 2, 1, 64, True, 100, 180),
+    (1, 100, 200, 8, 2, 128, False, 0, 0),
+    (2, 333, 333, 8, 2, 128, True, 0, 0),
+    (1, 384, 384, 16, 2, 128, True, 0, 0),
+    (2, 200, 320, 4, 2, 32, True, 120, 250),
+    (1, 190, 190, 4, 1, 64, False, 0, 170),
 ]
 
 
