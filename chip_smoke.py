@@ -55,7 +55,21 @@ order, it
      scenario at that example's reduced size: an injected stall, a Guard
      restart, and a recovery from the peer tier of a
      ``TieredCheckpointManager`` (a hot spare);
- 11. prints one JSON line of per-kernel numbers, then
+ 11. drives Guard's attribution and simulation path on the card, each
+     run against the same run with the detector on the CPU: (a)
+     ``simulate_run`` of 16,384 nodes and 512 spares under
+     bench_diagnose's rack-thermal, switch-failure and congestion
+     scenarios with the diagnoser and the hang watchdog (every
+     ``RunResult`` field equal, fleet_score once an observed window, at
+     least one true culprit accusation and no false one); (b)
+     bench_hang's three quick scenarios (events equal, each with a
+     ``HangDetected`` that names a culprit); (c) ``GuardStepHook(
+     diagnose=True)`` on seeded step walls with a stall (JSONL equal);
+     (d) prints, not gated, the p50 of ``session.observe`` fed by
+     ``SimCluster`` with a ``Diagnoser`` at 16,384 and 131,072 nodes,
+     split into the detector's update, the diagnosis and the rest, and
+     the feed's own time;
+ 12. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -64,6 +78,7 @@ a CUDA device, or without the repository next to it, it fails at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1281,6 +1296,370 @@ def phase_train(torch, np, counters: dict):
     return launches, nums
 
 
+# ------------------------------------ phase 11: attribution and simulation
+
+SIM_NODES = 16_384         # bench_diagnose's scenarios placed at fleet size
+SIM_SPARES = 512
+SIM_HOURS = 2.0
+SIM_SEED = 7
+TIMING_NODES = (16_384, 131_072)   # 131,072 reaches K1's streamed path
+TIMING_WINDOWS = 30
+# benchmarks/bench_diagnose.py's rule: a verdict that accuses the node
+# itself is true when the node had one of these faults active within
+# 120 s of the verdict, false otherwise
+CULPRIT_CAUSES = ("compute_degraded", "comm_degraded", "data_stall")
+PERF_KINDS = ("thermal", "power", "mem_ecc", "nic_down", "nic_degraded",
+              "host_cpu", "congestion")
+
+
+def quiet_rates(sim):
+    return sim.FaultRates(thermal=0, power=0, mem_ecc=0, nic_down=0,
+                          nic_degraded=0, host_cpu=0, congestion=0,
+                          fail_stop=0, admission_grey_p=0)
+
+
+def bench_workload(sim, name: str):
+    """bench_diagnose's and bench_hang's comm-heavier step split."""
+    return sim.WorkloadProfile(name=name, compute_s=6.0, comm_exposed_s=2.5,
+                               host_s=1.5)
+
+
+def attribution_config(sim, device: str):
+    """(a): bench_diagnose's three scenarios inside a 16,384-node fleet."""
+    return sim.RunConfig(
+        tier=sim.Tier.ENHANCED, n_nodes=SIM_NODES, n_spare=SIM_SPARES,
+        duration_h=SIM_HOURS, dp_group_size=16, diagnose=True,
+        hang_watchdog=True, workload=bench_workload(sim, "diagnose_bench"),
+        rates=quiet_rates(sim), initial_grey_p=0.0, seed=SIM_SEED,
+        device=device, scenarios=(
+            sim.RackThermal(at_h=0.5, rack_size=8, rack_start=24,
+                            severity=0.85, power_fraction=0.0),
+            sim.SwitchFailure(at_h=0.8, group_size=16, group_start=4096,
+                              down_fraction=0.25, severity=0.9),
+            sim.CongestionStorm(at_h=0.4, duration_h=0.8, hit_fraction=0.2,
+                                severity=0.7)))
+
+
+def hang_configs(sim, device: str) -> dict:
+    """(b): bench_hang's quick suite, from the port's scenario registry."""
+    base = dict(tier=sim.Tier.ENHANCED, n_nodes=64, n_spare=10,
+                duration_h=3.0, dp_group_size=16, diagnose=True,
+                hang_watchdog=True, workload=bench_workload(sim, "hang_bench"),
+                rates=quiet_rates(sim), initial_grey_p=0.0, seed=11,
+                device=device)
+    fields = {"deadlocked_collective": dict(at_h=1.0, count=2,
+                                            interval_h=0.75),
+              "partial_nic_brownout": dict(at_h=1.0, group_size=8),
+              "straggler_timeout_cascade": dict(at_h=1.0, count=2,
+                                                interval_h=0.75)}
+    return {name: sim.RunConfig(scenarios=(sim.scenario(name, **kw),),
+                                **base) for name, kw in fields.items()}
+
+
+def active_fault(log, node: int, t: float, kinds, slack_s: float) -> bool:
+    for f in log:
+        if f["node"] != node or f["kind"] not in kinds:
+            continue
+        cleared = f["t_cleared"]
+        if f["t_start"] - slack_s <= t and \
+                (cleared is None or t <= cleared + slack_s):
+            return True
+    return False
+
+
+def score_accusations(result):
+    """(true, false) culprit accusations of a run, by bench_diagnose's
+    ``score_run`` rule."""
+    tp = fp = 0
+    for e in result.events:
+        if e["kind"] == "diagnosis" and e["root_cause"] in CULPRIT_CAUSES:
+            if active_fault(result.fault_log, e["node_id"], e["t"],
+                            PERF_KINDS, 120.0):
+                tp += 1
+            else:
+                fp += 1
+    return tp, fp
+
+
+def differing_fields(a, b) -> list:
+    """Names of the ``RunResult`` fields in which two runs differ."""
+    import numpy as np
+    out = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            same = np.array_equal(x, y, equal_nan=True)
+        elif isinstance(x, float) and x != x:
+            same = y != y
+        else:
+            same = x == y
+        if not same:
+            out.append(f.name)
+    return out
+
+
+@contextlib.contextmanager
+def counting_observe():
+    """Counts the windows every ``GuardSession`` observes meanwhile."""
+    from repro_torch.guard import GuardSession
+    seen = [0]
+    observe = GuardSession.observe
+
+    def counted(self, frame):
+        seen[0] += 1
+        return observe(self, frame)
+
+    GuardSession.observe = counted
+    try:
+        yield seen
+    finally:
+        GuardSession.observe = observe
+
+
+def run_on_card(torch, counters: dict, fn):
+    """``fn()`` on the card with every count at 0; returns its result,
+    seconds, windows observed and launches."""
+    for c in counters.values():
+        c.reset()
+    with counting_observe() as seen:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return out, secs, seen[0], {n: c.launches for n, c in counters.items()}
+
+
+def only_k1(launches: dict, windows: int) -> bool:
+    return launches == {n: (windows if n == "fleet_score" else 0)
+                        for n in launches}
+
+
+def drive_hook(hook, n_steps: int = 72, ckpt_every: int = 10) -> list:
+    """(c): the trainer's side of the step-hook protocol on seeded step
+    walls (hardware telemetry every third step, a rewind on each restart
+    the hook asks for); returns every answer the hook gave."""
+    import numpy as np
+    rng = np.random.RandomState(11)
+    answers, step = [], 0
+    while step < n_steps:
+        step += 1
+        wall = 0.5 * (1.0 + 0.004 * rng.standard_normal())
+        metrics = {"loss": 2.0}
+        if step % 3 == 0:
+            metrics.update(gpu_temp=61.0 + rng.rand(), nic_errors=0.0,
+                           gpu_power=300.0 + rng.rand())
+        if step % ckpt_every == 0:
+            hook.on_checkpoint(step)
+        restart = hook(step, wall, metrics)
+        answers.append((step, restart))
+        if restart:
+            back = (step // ckpt_every) * ckpt_every
+            hook.on_restart(back)
+            step = back
+    return answers
+
+
+def time_window(torch, np, sim, n: int, counters: dict) -> dict:
+    """(d): ``session.observe`` fed by ``SimCluster`` with a ``Diagnoser``
+    for ``TIMING_WINDOWS`` windows at ``n`` nodes, split into the
+    detector's update (frame staging, K1 and the flagged rows' host copy),
+    ``Diagnoser.diagnose`` and the rest (policy and manager); the feed is
+    ``run_window`` + ``collect``."""
+    from repro_torch.diagnose import Diagnoser, TimingTrace, Topology
+    from repro_torch.guard import GuardSession, Tier
+    topo = Topology.grouped(n, 16)
+    cluster = sim.SimCluster(n, n_spare=64, rates=quiet_rates(sim),
+                             topology=topo, seed=SIM_SEED,
+                             workload=bench_workload(sim, "diagnose_bench"))
+    trace = TimingTrace(depth=8)
+    cluster.attach_timing(trace)
+    diag = Diagnoser(trace, topo)
+    session = GuardSession.from_tier(Tier.ENHANCED, control=cluster,
+                                     sweep_backend=cluster, diagnoser=diag,
+                                     device="cuda")
+    session.register_active(cluster.active)
+    session.register_spares(cluster.spares)
+    sim.arm_all([sim.RackThermal(at_h=0.0, rack_size=8, rack_start=24,
+                                 severity=0.85, power_fraction=0.0),
+                 sim.SwitchFailure(at_h=0.0, group_size=16,
+                                   group_start=n // 4, down_fraction=0.25,
+                                   severity=0.9)],
+                cluster, np.random.RandomState(SIM_SEED))
+    cluster.fleet.advance_thermals(3600.0)
+    det = session.monitor.detector
+    update, diagnose = det.update, diag.diagnose
+    part = {"update": 0.0, "diagnose": 0.0}
+
+    def timed_update(frame):
+        t0 = time.perf_counter()
+        fleet = update(frame)
+        fleet.flagged_indices()          # the flagged rows' host copy
+        torch.cuda.synchronize()
+        part["update"] += time.perf_counter() - t0
+        return fleet
+
+    def timed_diagnose(frame, fleet):
+        t0 = time.perf_counter()
+        out = diagnose(frame, fleet)
+        part["diagnose"] += time.perf_counter() - t0
+        return out
+
+    det.update, diag.diagnose = timed_update, timed_diagnose
+    for c in counters.values():
+        c.reset()
+    rows, flagged = [], []
+    for w in range(TIMING_WINDOWS):
+        t0 = time.perf_counter()
+        cluster.run_window()
+        frame = cluster.collect()
+        t1 = time.perf_counter()
+        part["update"] = part["diagnose"] = 0.0
+        out = session.observe(frame)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rows.append((t2 - t1, part["update"], part["diagnose"],
+                     t2 - t1 - part["update"] - part["diagnose"], t1 - t0))
+        flagged.append(len(diag.last_fleet.records)
+                       if diag.last_fleet is not None else 0)
+        if (w + 1) % CKPT_EVERY == 0:
+            session.on_checkpoint(now=cluster.t, step=cluster.step)
+        session.advance(cluster.t, step=cluster.step)
+    launches = {k: c.launches for k, c in counters.items()}
+    check(only_k1(launches, TIMING_WINDOWS),
+          f"timing at {n} nodes launched {launches} in {TIMING_WINDOWS} "
+          f"windows (fleet_score once a window, nothing else)")
+    ms = np.array(rows) * 1e3
+    hit = np.array(flagged) > 0
+    keys = ("window_ms", "update_ms", "diagnose_ms", "policy_manager_ms",
+            "feed_ms")
+    out = dict(nodes=n, windows=TIMING_WINDOWS,
+               diagnosed_windows=int(hit.sum()),
+               max_flagged=int(max(flagged)))
+    out.update({k: float(v) for k, v in zip(keys, np.median(ms, axis=0))})
+    # the windows in which the diagnoser ran its what-if over the fleet
+    out["diagnosed"] = ({k: float(v) for k, v in
+                         zip(keys, np.median(ms[hit], axis=0))}
+                        if hit.any() else None)
+    return out
+
+
+def phase_sim(torch, np, counters: dict):
+    import repro_torch.simcluster as sim
+    out = ROOT / "build" / "repro_torch" / "smoke"
+    out.mkdir(parents=True, exist_ok=True)
+
+    # (a) attribution at fleet scale, card against CPU
+    card, card_s, windows, launches = run_on_card(
+        torch, counters, lambda: sim.simulate_run(
+            attribution_config(sim, "cuda")))
+    check(windows > 0 and only_k1(launches, windows),
+          f"simulate_run on the card launched {launches} in {windows} "
+          f"observed windows (fleet_score once a window, nothing else)")
+    t0 = time.perf_counter()
+    cpu = sim.simulate_run(attribution_config(sim, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    diff = differing_fields(card, cpu)
+    check(not diff, f"simulate_run on the card differs from the CPU run in "
+                    f"{diff}")
+    tp, fp = score_accusations(card)
+    check(tp >= 1 and fp == 0, f"attribution: {tp} true and {fp} false "
+                               f"culprit accusations (need >= 1 and 0)")
+    kinds = {}
+    for e in card.events:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    held = sum(1 for e in card.events
+               if e["kind"] == "diagnosis" and e["held"])
+    k1_sim = launches["fleet_score"]
+    nums = dict(sim_nodes=SIM_NODES, sim_windows=windows, steps=card.steps,
+                events=len(card.events), restarts=kinds.get("restart", 0),
+                true_accusations=tp, false_accusations=fp,
+                held_verdicts=held, card_s=card_s, cpu_s=cpu_s)
+    print(f"attribution (phase 11a): simulate_run of {SIM_NODES} nodes + "
+          f"{SIM_SPARES} spares, {SIM_HOURS} h, rack thermal + switch "
+          f"failure + congestion storm, diagnose and hang watchdog on: "
+          f"{card.steps} steps, {len(card.events)} events "
+          f"({kinds.get('restart', 0)} restarts, {kinds.get('diagnosis', 0)}"
+          f" diagnoses of which {held} held), {tp} true and {fp} false "
+          f"culprit accusations; every RunResult field equal to the CPU "
+          f"run; fleet_score launched {launches['fleet_score']} times in "
+          f"{windows} observed windows; wall {card_s:.2f} s on the card, "
+          f"{cpu_s:.2f} s on the CPU", flush=True)
+
+    # (b) hangs: bench_hang's quick suite, card against CPU
+    hangs = {}
+    for name, cfg in hang_configs(sim, "cuda").items():
+        card, secs, windows, launches = run_on_card(
+            torch, counters, lambda: sim.simulate_run(cfg))
+        check(only_k1(launches, windows),
+              f"{name}: launched {launches} in {windows} observed windows")
+        cpu = sim.simulate_run(hang_configs(sim, "cpu")[name])
+        diff = differing_fields(card, cpu)
+        check(not diff, f"{name}: the card's run differs from the CPU run "
+                        f"in {diff}")
+        verdicts = [e for e in card.events
+                    if e["kind"] == "hang" and e["op"] != "step"]
+        check(any(e["culprits"] for e in verdicts),
+              f"{name}: no HangDetected names a culprit ({verdicts})")
+        hangs[name] = dict(verdicts=len(verdicts),
+                           attributed=sum(1 for e in verdicts
+                                          if e["culprits"]),
+                           windows=windows, card_s=secs)
+        k1_sim += launches["fleet_score"]
+    print(f"hangs (phase 11b): bench_hang's quick suite on the card, each "
+          f"run equal to its CPU run: {json.dumps(hangs)}", flush=True)
+
+    # (c) the step hook's timing-trace feed, card against CPU
+    from repro_torch.guard import GuardStepHook, JsonlSink
+    streams = {}
+    for device in ("cuda", "cpu"):
+        hook = GuardStepHook(n_peers=15, window_steps=4, seed=3,
+                             diagnose=True, device=device)
+        hook.inject_stall(at_step=30, factor=8.0, steps=4)
+        path = out / f"hook_{device}.jsonl"
+        path.unlink(missing_ok=True)         # the sink appends
+        sink = JsonlSink(str(path))
+        hook.session.add_sink(sink)
+        if device == "cuda":
+            answers, _, _, launches = run_on_card(
+                torch, counters, lambda: drive_hook(hook))
+            check(only_k1(launches, hook.frames_fed),
+                  f"hook: launched {launches} in {hook.frames_fed} windows")
+            k1_sim += launches["fleet_score"]
+        else:
+            answers = drive_hook(hook)
+        sink.close()
+        streams[device] = (answers, path.read_text(), hook.trace.pushes)
+    check(streams["cuda"] == streams["cpu"],
+          "hook: the card's answers, JSONL or trace differ from the CPU's")
+    jsonl = streams["cuda"][1]
+    restarts = sum(1 for _, r in streams["cuda"][0] if r)
+    check(restarts >= 1 and '"kind": "diagnosis"' in jsonl,
+          "hook: the stall was not caught or nothing was diagnosed")
+    print(f"hook feed (phase 11c): GuardStepHook(diagnose=True) on the "
+          f"card, {restarts} restart(s), {len(jsonl.splitlines())} events "
+          f"and {streams['cuda'][2]} timing-trace rows, identical to the "
+          f"CPU run", flush=True)
+
+    # (d) the window's time and its split, printed and not gated
+    timing = [time_window(torch, np, sim, n, counters) for n in TIMING_NODES]
+    for t in timing:
+        for what, d in (("all", t), ("diagnosed", t["diagnosed"])):
+            if d is None:
+                continue
+            print(f"window timing (phase 11d) at {t['nodes']} nodes, p50 "
+                  f"of the {what} windows ({t['windows']} windows, "
+                  f"{t['diagnosed_windows']} diagnosed, up to "
+                  f"{t['max_flagged']} flagged): session.observe "
+                  f"{d['window_ms']:.3f} ms = detector.update "
+                  f"{d['update_ms']:.3f} ms (staging + fleet_score + flagged"
+                  f" copy) + Diagnoser.diagnose {d['diagnose_ms']:.3f} ms + "
+                  f"policy and manager {d['policy_manager_ms']:.3f} ms; "
+                  f"SimCluster feed {d['feed_ms']:.3f} ms a window",
+                  flush=True)
+    nums.update(hangs=hangs, timing=timing)
+    return k1_sim, nums
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> None:
@@ -1343,12 +1722,15 @@ def main() -> None:
     n3, n4 = dense["flash_attention"], ssm["wkv6"]
     k3b = phase_k3_bwd(torch, np)
     train, tnums = phase_train(torch, np, counters)
+    k1_sim, snums = phase_sim(torch, np, counters)
 
     kernels = [
         {"name": "fleet_score", "route": "cuda",
          "source": "src/repro_torch/csrc/fleet_score.cu",
          "replaces": "src/repro/kernels/fleet_score/fleet_score.py:146",
-         "launches": n1, "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+         "launches": n1 + k1_sim, "launches_loop": n1,
+         "launches_sim": k1_sim, "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"],
          "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "shape": k1["shape"]},
@@ -1389,6 +1771,8 @@ def main() -> None:
          "shape": k4["shape"]},
     ]
     print(f"training (phase 10): {json.dumps(tnums)}", flush=True)
+    print(f"attribution and simulation (phase 11): {json.dumps(snums)}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,12 +8,16 @@ each TPU kernel on the ported path has a hand-written Hopper kernel in
 
   device    device resolution (no silent CPU fall back)
   core      telemetry, detector, policy, monitor, sweep, triage, manager
-  guard     GuardSession facade, events, scheduler, local substrates
+  guard     GuardSession facade, events, scheduler, step hook, goodput
+  diagnose  timing trace, what-if blame, root-cause Diagnoser (host NumPy)
+  ccltrace  collective span trace and the hang watchdog (host NumPy)
+  simcluster  simulated fleet, faults, scenarios, ``simulate_run`` (host
+            NumPy; each window's frame is scored on ``device``)
   kernels   fleet_score, sweep_burn, flash_attention and wkv6 (CUDA
             kernels + plain versions)
   configs   the architecture configs (the port's own copy)
   models    dense and ssm serving models: prefill and decode
   launch    serve: the batched decode server
-  convert   reference configs, detector state and model parameters
-            into the port
+  convert   reference configs, detector and timing-trace state, run
+            configs and model parameters into the port
 """

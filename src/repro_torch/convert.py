@@ -28,6 +28,15 @@ moves both across without importing ``repro``:
       the inverse of ``named_params``: port parameters, gradients or
       moments as the JAX package's nested tree of numpy arrays, layers
       stacked again, so tests compare leaf by leaf.
+  run_config(cfg, device=...)
+      the port's simulator ``RunConfig`` from the reference's, nested
+      ``FaultRates`` / ``WorkloadProfile`` / ``RecoveryModel`` /
+      ``RootCauseConfig`` / ``WatchdogConfig`` and scenarios (by registry
+      name and fields) included; each nested converter is public too.
+  topology(topo) / timing_trace(trace)
+      the port's ``Topology`` and ``TimingTrace`` holding a copy of a
+      reference one's state, so two diagnosers start from one mid-run
+      state.
 """
 from __future__ import annotations
 
@@ -37,13 +46,19 @@ from typing import Dict, Mapping, Optional, Set
 import numpy as np
 import torch
 
+from repro_torch.ccltrace import WatchdogConfig
 from repro_torch.core.detector import DetectorConfig, StragglerDetector
 from repro_torch.core.policy import PolicyConfig
 from repro_torch.core.sweep import SweepConfig
 from repro_torch.core.triage import Stage, TriageConfig
 from repro_torch.device import DeviceLike
+from repro_torch.diagnose import (RootCauseConfig, TimingTrace, Topology,
+                                  WindowTiming)
+from repro_torch.guard import RecoveryModel, Tier
 from repro_torch.models.common import Policy
 from repro_torch.models.model import Model
+from repro_torch.simcluster import (FaultRates, RunConfig, WorkloadProfile,
+                                    scenario)
 
 
 def _fields_of(cls, obj, **override) -> dict:
@@ -273,7 +288,88 @@ def reference_tree(named: Mapping[str, object]) -> Dict[str, object]:
     return tree
 
 
-__all__ = ["detector_config", "detector_state_to_numpy",
+def fault_rates(cfg) -> FaultRates:
+    return FaultRates(**_fields_of(FaultRates, cfg))
+
+
+def workload_profile(cfg) -> WorkloadProfile:
+    return WorkloadProfile(**_fields_of(WorkloadProfile, cfg))
+
+
+def recovery_model(cfg) -> RecoveryModel:
+    return RecoveryModel(**_fields_of(RecoveryModel, cfg))
+
+
+def rootcause_config(cfg) -> RootCauseConfig:
+    return RootCauseConfig(**_fields_of(RootCauseConfig, cfg))
+
+
+def watchdog_config(cfg) -> WatchdogConfig:
+    return WatchdogConfig(**_fields_of(WatchdogConfig, cfg))
+
+
+def scenario_spec(sc):
+    """A registry name stays a name (both registries hold the same
+    names); a scenario instance becomes the port's scenario of the same
+    registry name and fields."""
+    if isinstance(sc, str):
+        return sc
+    return scenario(sc.name, **{f.name: getattr(sc, f.name)
+                                for f in dataclasses.fields(sc)})
+
+
+def run_config(cfg, device: DeviceLike = "cuda") -> RunConfig:
+    """The port's ``RunConfig`` of the reference's ``cfg``; ``device``
+    places the session's detector."""
+    kw = _fields_of(RunConfig, cfg, device=str(device))
+    kw["tier"] = Tier(int(cfg.tier))
+    for f in dataclasses.fields(RunConfig):
+        if isinstance(kw[f.name], dict):
+            kw[f.name] = dict(kw[f.name])
+    kw["scenarios"] = tuple(scenario_spec(sc) for sc in cfg.scenarios)
+    kw["rootcause_cfg"] = None if cfg.rootcause_cfg is None \
+        else rootcause_config(cfg.rootcause_cfg)
+    kw["hang_cfg"] = None if cfg.hang_cfg is None \
+        else watchdog_config(cfg.hang_cfg)
+    kw["recovery"] = recovery_model(cfg.recovery)
+    kw["workload"] = workload_profile(cfg.workload)
+    kw["rates"] = fault_rates(cfg.rates)
+    return RunConfig(**kw)
+
+
+def topology(topo) -> Topology:
+    """The port's ``Topology`` over the same row -> group map."""
+    return Topology(np.array(topo.stage_of, copy=True))
+
+
+def timing_trace(trace) -> TimingTrace:
+    """A port ``TimingTrace`` holding a copy of ``trace``'s state (ring
+    rows, ids, position, rolling sums, push counters), so that it goes on
+    exactly as ``trace`` would."""
+    out = TimingTrace(depth=trace.depth)
+    out._bufs = {ch: np.array(b, copy=True) for ch, b in trace._bufs.items()}
+    out._ids = None if trace._ids is None \
+        else np.array(trace._ids, copy=True)
+    out._used, out._head = int(trace._used), int(trace._head)
+    out._sums = {ch: np.array(v, copy=True) for ch, v in trace._sums.items()}
+    out._means = {ch: np.array(v, copy=True)
+                  for ch, v in getattr(trace, "_means", {}).items()}
+    out._sums_stale = bool(trace._sums_stale)
+    out.generation = int(trace.generation)
+    out.pushes = int(trace.pushes)
+    out.last_backfill = None if trace.last_backfill is None \
+        else np.array(trace.last_backfill, copy=True)
+    last = trace._last
+    out._last = None if last is None else WindowTiming(
+        t=last.t, step=last.step, node_ids=np.array(last.node_ids),
+        compute=np.array(last.compute), comm=np.array(last.comm),
+        host=np.array(last.host), stall=np.array(last.stall))
+    return out
+
+
+__all__ = ["detector_config", "detector_state_to_numpy", "fault_rates",
            "load_detector_state", "model_params", "named_params",
-           "opt_state", "policy_config", "reference_tree", "sweep_config",
-           "triage_config"]
+           "opt_state", "policy_config", "recovery_model",
+           "reference_tree", "rootcause_config", "run_config",
+           "scenario_spec", "sweep_config", "timing_trace", "topology",
+           "triage_config", "watchdog_config", "workload_profile"]

@@ -25,7 +25,7 @@ from repro_torch.core.sweep import (CampaignResult, SweepBackend,
                                     single_node_sweep)
 from repro_torch.core.telemetry import (HARDWARE_METRICS, METRIC_DIRECTION,
                                         METRICS, Collector, Frame,
-                                        RingHistory)
+                                        RingHistory, reduce_device_metrics)
 from repro_torch.core.triage import (ErrorSignals, Stage, TriageConfig,
                                      TriageOutcome, TriageResult,
                                      TriageWorkflow)
@@ -40,5 +40,5 @@ __all__ = [
     "SweepConfig", "SweepReference", "SweepReport", "TieredPolicy",
     "TriageConfig", "TriageOutcome", "TriageResult", "TriageWorkflow",
     "fleet_qualification", "intra_pairs", "multi_node_sweep",
-    "qualification_sweep", "single_node_sweep",
+    "qualification_sweep", "reduce_device_metrics", "single_node_sweep",
 ]

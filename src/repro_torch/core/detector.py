@@ -125,6 +125,15 @@ class FleetAssessment:
             return np.zeros(0, bool)
         return h["bits"][0]
 
+    def flagged_support(self, name: str) -> np.ndarray:
+        """bool sustained-deviation bits of support metric ``name`` for the
+        flagged rows, in index order (all False when the frame carried no
+        such metric). Read from the flagged rows' host copy."""
+        h = self._flagged_host()
+        if h["bits"] is None or name not in h["names"]:
+            return np.zeros(len(h["idx"]), bool)
+        return h["bits"][2 + h["names"].index(name)]
+
     def index_of(self, node_id: int) -> Optional[int]:
         hit = np.flatnonzero(self.node_ids == node_id)
         return int(hit[0]) if hit.size else None

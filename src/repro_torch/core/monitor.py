@@ -8,10 +8,10 @@ the paper's requirement for running it against production jobs. The whole
 window is processed on the detector's ``FleetAssessment`` arrays; per-node
 records are materialized only for the nodes that generated decisions.
 
-An optional ``Diagnoser`` (duck-typed) sits BETWEEN the detector
-and the policy: it attributes each flagged node to a root cause via
-what-if counterfactual replay, and mitigation decisions against nodes it
-holds (cascade victims stalled behind a culprit, transient congestion)
+An optional ``Diagnoser`` (``repro_torch.diagnose``) sits BETWEEN the
+detector and the policy: it attributes each flagged node to a root cause
+via what-if counterfactual replay, and mitigation decisions against nodes
+it holds (cascade victims stalled behind a culprit, transient congestion)
 are downgraded to pending-verification — watched, not evicted.
 """
 from __future__ import annotations
@@ -42,8 +42,8 @@ class OnlineMonitor:
         self.detector = StragglerDetector(detector_cfg)
         self.policy = TieredPolicy(policy_cfg)
         self.on_event = on_event
-        # optional diagnoser, duck-typed (diagnose/ is not ported yet;
-        # a later slice plugs it in here)
+        # optional repro_torch.diagnose.Diagnoser (duck-typed so
+        # repro_torch.core keeps zero dependency on the diagnosis package)
         self.diagnoser = diagnoser
         self.events: List[HealthEvent] = []
         # nodes currently marked pending-verification (watched closely)

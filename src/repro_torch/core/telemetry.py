@@ -184,5 +184,27 @@ class RingHistory:
         return self._last
 
 
+def reduce_device_metrics(
+    temps: np.ndarray, utils: np.ndarray, freqs: np.ndarray,
+    powers: np.ndarray, nic_err: np.ndarray, nic_tx: np.ndarray,
+    nic_up: np.ndarray,
+) -> Dict[str, np.ndarray]:
+    """Per-device (N, D) host arrays -> per-node (N,) metric dict.
+
+    Reductions pick the WORST device per node (hottest / slowest /
+    weakest), because a single degraded device gates the node's
+    collectives (§3.3). Host NumPy, as in the reference: the simulated
+    collector hands its frames to the detector as host arrays."""
+    return {
+        "gpu_temp": temps.max(axis=1),
+        "gpu_util": utils.mean(axis=1),
+        "gpu_freq": freqs.min(axis=1),
+        "gpu_power": powers.min(axis=1),
+        "nic_errors": nic_err.sum(axis=1),
+        "nic_tx_rate": nic_tx.min(axis=1),
+        "nic_up": nic_up.mean(axis=1),
+    }
+
+
 __all__ = ["Collector", "Frame", "HARDWARE_METRICS", "METRICS",
-           "METRIC_DIRECTION", "RingHistory"]
+           "METRIC_DIRECTION", "RingHistory", "reduce_device_metrics"]

@@ -25,8 +25,12 @@ into the Frames and derives actionable ``ErrorSignals`` from the
 accumulated window telemetry for triage. Without hardware telemetry it
 falls back to step-time evidence for a latched node.
 
-The reference's timing-trace feed (``trace=``, ``diagnose=True``) needs
-the ``diagnose`` package, which is not ported yet: asking for it raises.
+With ``diagnose=True`` (or a caller's ``trace=``) every window also pushes
+a ``WindowTiming`` into a ``repro_torch.diagnose.TimingTrace``: this
+host's measured split of the wall into compute/comm/host (the trainer's
+``compute_s``/``comm_s``/``host_s`` metric keys, or ``own_split`` of the
+wall), and the peers' baseline scaled by the same split. The push draws
+no random numbers, so the frames stay the reference's.
 
 ``LocalHostControl`` / ``LocalSweepBackend`` are the minimal substrate
 implementations for a process with no cluster control plane: swaps are
@@ -40,11 +44,14 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.ccltrace import adaptive_deadline
 from repro_torch.core.detector import DetectorConfig
 from repro_torch.core.sweep import SweepReference
 from repro_torch.core.telemetry import HARDWARE_METRICS, Frame
 from repro_torch.core.triage import ErrorSignals
 from repro_torch.device import DeviceLike
+from repro_torch.diagnose import (Diagnoser, TimingTrace, Topology,
+                                  WindowTiming)
 from repro_torch.guard.events import HangDetected, NodeSwapped, RecoveryEvent
 from repro_torch.guard.session import GuardSession, Tier
 
@@ -113,13 +120,6 @@ class LocalSweepBackend:
         return self._ref
 
 
-def adaptive_deadline(trailing_s: float, mult: float,
-                      floor_s: float, cap_s: float) -> float:
-    """``clamp(mult * trailing, floor, cap)``: the reference's deadline rule
-    (``repro.ccltrace.watchdog``), kept here until ccltrace is ported."""
-    return float(min(max(mult * trailing_s, floor_s), cap_s))
-
-
 @dataclasses.dataclass
 class _Stall:
     """A synthetic fault window: measured wall times are scaled by
@@ -139,22 +139,33 @@ class GuardStepHook:
                  peer_jitter: float = 0.01, seed: int = 0,
                  warmup_windows: int = 1, baseline_alpha: float = 0.25,
                  detector_cfg: Optional[DetectorConfig] = None,
-                 trace=None, diagnose: bool = False,
+                 trace: Optional[TimingTrace] = None,
+                 diagnose: bool = False,
+                 own_split: Sequence[float] = (0.75, 0.15, 0.10),
                  step_deadline_s: Optional[float] = None,
                  step_deadline_mult: float = 8.0,
                  device: DeviceLike = "cuda"):
         """``device`` places the detector of a session the hook builds
         itself (a caller-supplied session keeps its own)."""
-        if diagnose or trace is not None:
-            raise NotImplementedError(
-                "the timing-trace feed (trace=, diagnose=True) needs the "
-                "diagnose package, which is not ported yet")
         owns_session = session is None
         if owns_session:
             control = LocalHostControl()
+            diagnoser = None
+            if diagnose:
+                trace = trace or TimingTrace()
+                diagnoser = Diagnoser(trace, Topology.single(1 + n_peers))
             session = GuardSession.from_tier(
                 Tier.ONLINE, control, LocalSweepBackend(),
-                detector_cfg=detector_cfg, device=device)
+                detector_cfg=detector_cfg, diagnoser=diagnoser,
+                device=device)
+        elif diagnose:
+            # a caller-supplied session owns its own wiring: silently
+            # dropping the flag would run WITHOUT victim-holding while
+            # the caller believes it is on
+            raise ValueError(
+                "diagnose=True only applies to a hook-owned session; "
+                "build a Diagnoser on your GuardSession and pass its "
+                "TimingTrace via trace= instead")
         self.session = session
         self.control = session.control
         self.node_id = node_id
@@ -184,14 +195,20 @@ class GuardStepHook:
         # step, so it never produces a Frame and the detector never sees
         # it. A watchdog (timer thread, sibling process) calls
         # ``check_liveness`` on wall-clock cadence instead; the deadline
-        # adapts to the healthy step baseline via the reference ccltrace
-        # barrier watchdog's rule.
+        # adapts to the healthy step baseline via the same rule the
+        # ccltrace barrier watchdog uses.
         self.step_deadline_floor_s = (300.0 if step_deadline_s is None
                                       else float(step_deadline_s))
         self.step_deadline_mult = float(step_deadline_mult)
         self._last_step_t = self.control.now()
         self._last_step = 0
         self.hangs_detected = 0
+        # timing-trace feed (repro_torch.diagnose): measured wall split
+        # into compute/comm/host via trainer-supplied component seconds
+        # ("compute_s"/"comm_s"/"host_s" metric keys) or ``own_split``
+        self.trace = trace
+        self.own_split = tuple(own_split)
+        self._comp_sums = np.zeros(3)
         # hardware telemetry accumulated from the trainer's metrics dict
         # (HARDWARE_METRICS keys): window sums + per-metric sample counts
         # (exporters often report at a lower cadence than the step loop)
@@ -241,6 +258,7 @@ class GuardStepHook:
 
     def _reset_window(self) -> None:
         self._n_walls = 0
+        self._comp_sums[:] = 0.0
         self._hw_sums.clear()
         self._hw_counts.clear()
 
@@ -263,6 +281,17 @@ class GuardStepHook:
             if v is not None:
                 self._hw_sums[m] = self._hw_sums.get(m, 0.0) + float(v)
                 self._hw_counts[m] = self._hw_counts.get(m, 0) + 1
+        # own-time decomposition for the timing trace: measured component
+        # seconds when the trainer reports them, the configured split of
+        # the (stall-scaled) wall otherwise
+        if "compute_s" in metrics:
+            self._comp_sums[0] += float(metrics["compute_s"])
+            self._comp_sums[1] += float(metrics.get("comm_s", 0.0))
+            self._comp_sums[2] += float(metrics.get("host_s", 0.0))
+        else:
+            self._comp_sums[0] += wall * self.own_split[0]
+            self._comp_sums[1] += wall * self.own_split[1]
+            self._comp_sums[2] += wall * self.own_split[2]
         if isinstance(self.control, LocalHostControl):
             # the local control has no other clock source; a real
             # substrate (e.g. the simulator) advances its own time
@@ -379,6 +408,7 @@ class GuardStepHook:
 
     def _make_frame(self, step: int) -> Frame:
         walls = self._walls[:self._n_walls]
+        n_steps = self._n_walls
         mine = float(walls.mean())
         med = float(np.median(walls))
         latched = self.session.monitor.detector.is_latched(self.node_id)
@@ -416,6 +446,17 @@ class GuardStepHook:
             pv = base * (1.0 + self.rng.normal(0.0, 0.005,
                                                len(self.peer_ids)))
             metrics[m] = np.concatenate([[v], pv])
+        if self.trace is not None:
+            # own-time decomposition: measured for this host, the
+            # baseline scaled by the same split for synthetic peers
+            comp = self._comp_sums / n_steps
+            split = comp / max(float(comp.sum()), 1e-9)
+            self.trace.push(WindowTiming(
+                t=self.control.now(), step=step, node_ids=node_ids,
+                compute=np.concatenate([[comp[0]], peers * split[0]]),
+                comm=np.concatenate([[comp[1]], peers * split[1]]),
+                host=np.concatenate([[comp[2]], peers * split[2]]),
+                stall=np.zeros(len(node_ids))))
         self.frames_fed += 1
         return Frame(t=self.control.now(), step=step, node_ids=node_ids,
                      metrics=metrics,

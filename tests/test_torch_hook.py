@@ -13,6 +13,11 @@ stall, as ``examples/train_with_guard.py`` does: the stall must be caught
 and the job must resume from the peer tier (a hot spare). There the hook
 sees a steady host step time, so that the CPU's load while the tests run
 cannot move the synthetic peers' baseline past the stall.
+
+With ``diagnose=True`` the same drive also compares the timing trace
+each hook feeds, row by row, with the configured split and with the
+trainer's own ``compute_s``/``comm_s``/``host_s``; a caller's session
+takes ``trace=`` and refuses ``diagnose=True`` in both packages.
 """
 import tempfile
 from pathlib import Path
@@ -21,20 +26,31 @@ import numpy as np
 import pytest
 import torch
 
+from repro.diagnose import Diagnoser as JaxDiagnoser
+from repro.diagnose import TimingTrace as JaxTimingTrace
+from repro.diagnose import Topology as JaxTopology
+from repro.guard import GuardSession as JaxGuardSession
 from repro.guard import GuardStepHook as JaxGuardStepHook
 from repro.guard import JsonlSink as JaxJsonlSink
+from repro.guard import Tier as JaxTier
+from repro.guard.hook import LocalHostControl as JaxLocalHostControl
+from repro.guard.hook import LocalSweepBackend as JaxLocalSweepBackend
 from repro.train import TieredCheckpointManager as JaxTiered
 from repro_torch.configs import get_config, reduced
-from repro_torch.guard import (GuardStepHook, JsonlSink, NodeSwapped,
-                               RecoveryEvent)
+from repro_torch.diagnose import Diagnoser, TimingTrace, Topology
+from repro_torch.guard import (GuardSession, GuardStepHook, JsonlSink,
+                               LocalHostControl, LocalSweepBackend,
+                               NodeSwapped, RecoveryEvent, Tier)
 from repro_torch.models.model import Model
 from repro_torch.train import (AdamWConfig, DataConfig, SyntheticLM,
                                TieredCheckpointManager, TrainConfig, Trainer)
 
 
-def drive(hook, n_steps: int = 72, ckpt_every: int = 10):
+def drive(hook, n_steps: int = 72, ckpt_every: int = 10,
+          components: bool = False):
     """The trainer's side of the protocol on a synthetic wall sequence;
-    returns every answer the hook gave."""
+    returns every answer the hook gave. ``components`` adds the trainer's
+    own compute/comm/host seconds to every step's metrics."""
     rng = np.random.RandomState(11)
     answers = []
     step = 0
@@ -42,6 +58,9 @@ def drive(hook, n_steps: int = 72, ckpt_every: int = 10):
         step += 1
         wall = 0.5 * (1.0 + 0.004 * rng.standard_normal())
         metrics = {"loss": 2.0}
+        if components:
+            metrics.update(compute_s=0.3 * wall, comm_s=0.15 * wall,
+                           host_s=0.05 + 0.001 * rng.rand())
         if step % 3 == 0:                  # a slower hardware exporter
             metrics.update(gpu_temp=61.0 + rng.rand(), nic_errors=0.0,
                            gpu_power=300.0 + rng.rand())
@@ -94,11 +113,64 @@ def test_hook_matches_reference_step_by_step(tmp_path):
     assert port.node_id == ref.node_id != 0           # swapped out
 
 
-def test_hook_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="diagnose"):
-        GuardStepHook(device="cpu", diagnose=True)
-    with pytest.raises(NotImplementedError, match="diagnose"):
-        GuardStepHook(device="cpu", trace=object())
+def trace_rows(trace):
+    return [[trace.rows(ch).tolist() for ch in ("compute", "comm", "host",
+                                                 "stall")],
+            trace.node_ids.tolist(), trace.pushes, trace.last().step]
+
+
+@pytest.mark.parametrize("components", [False, True])
+def test_diagnose_hook_matches_reference_step_by_step(tmp_path, components):
+    kw = dict(n_peers=15, window_steps=4, seed=3, diagnose=True)
+    ref, port = JaxGuardStepHook(**kw), GuardStepHook(device="cpu", **kw)
+    out = []
+    for hook, sink_cls, name in ((ref, JaxJsonlSink, "ref"),
+                                 (port, JsonlSink, "port")):
+        hook.inject_stall(at_step=30, factor=8.0, steps=4)
+        sink = sink_cls(str(tmp_path / f"{name}.jsonl"))
+        hook.session.add_sink(sink)
+        answers = drive(hook, components=components)
+        sink.close()
+        out.append((answers, (tmp_path / f"{name}.jsonl").read_text(),
+                    trace_rows(hook.trace), hook.frames_fed,
+                    hook.restarts_requested, hook.node_id))
+    assert out[1] == out[0]
+    assert sum(1 for _, r in out[1][0] if r is True) >= 1
+    assert '"kind": "diagnosis"' in out[1][1]
+
+
+def test_hook_refuses_what_is_not_ported(tmp_path):
+    """A caller's session keeps its own wiring: it takes the trace its
+    diagnoser reads (``trace=``) and refuses ``diagnose=True``, in both
+    packages, with the same answers and event stream."""
+    out = []
+    for (hook_cls, session_cls, tier, diag_cls, trace_cls, topo_cls,
+         control_cls, backend_cls, sink_cls, name, kw) in (
+            (JaxGuardStepHook, JaxGuardSession, JaxTier, JaxDiagnoser,
+             JaxTimingTrace, JaxTopology, JaxLocalHostControl,
+             JaxLocalSweepBackend, JaxJsonlSink, "ref", {}),
+            (GuardStepHook, GuardSession, Tier, Diagnoser, TimingTrace,
+             Topology, LocalHostControl, LocalSweepBackend, JsonlSink,
+             "port", {"device": "cpu"})):
+        trace = trace_cls()
+        session = session_cls.from_tier(
+            tier.ONLINE, control_cls(), backend_cls(),
+            diagnoser=diag_cls(trace, topo_cls.single(8)), **kw)
+        session.register_active(list(range(8)))
+        session.register_spares([8, 9])
+        with pytest.raises(ValueError, match="diagnose=True"):
+            hook_cls(session=session, n_peers=7, diagnose=True)
+        hook = hook_cls(session=session, n_peers=7, window_steps=4,
+                        trace=trace, seed=5)
+        hook.inject_stall(at_step=30, factor=8.0, steps=4)
+        sink = sink_cls(str(tmp_path / f"{name}.jsonl"))
+        session.add_sink(sink)
+        answers = drive(hook)
+        sink.close()
+        out.append((answers, (tmp_path / f"{name}.jsonl").read_text(),
+                    trace_rows(trace)))
+    assert out[1] == out[0]
+    assert '"kind": "diagnosis"' in out[1][1]
 
 
 def test_hook_defaults_to_the_card():

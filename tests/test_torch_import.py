@@ -59,7 +59,13 @@ def test_every_module_is_covered():
                  "repro_torch.train", "repro_torch.train.optimizer",
                  "repro_torch.train.data", "repro_torch.train.checkpoint",
                  "repro_torch.train.trainer", "repro_torch.guard.hook",
-                 "repro_torch.guard.goodput"):
+                 "repro_torch.guard.goodput", "repro_torch.ccltrace.spans",
+                 "repro_torch.ccltrace.watchdog",
+                 "repro_torch.diagnose.rootcause",
+                 "repro_torch.diagnose.whatif", "repro_torch.diagnose.trace",
+                 "repro_torch.simcluster.cluster",
+                 "repro_torch.simcluster.runtime",
+                 "repro_torch.simcluster.scenarios"):
         assert want in names
 
 
