@@ -69,7 +69,28 @@ order, it
      ``SimCluster`` with a ``Diagnoser`` at 16,384 and 131,072 nodes,
      split into the detector's update, the diagnosis and the rest, and
      the feed's own time;
- 12. prints one JSON line of per-kernel numbers, then
+ 12. drives Guard's fleet control plane: ``simulate_fleet`` of
+     bench_fleet's quick mix (16 jobs of 256 nodes, 2 simulated hours)
+     and of the same mix at 1,024 nodes a job (16,384 nodes), each on the
+     card and with every detector on the CPU: every ``FleetRunResult``
+     field but the wall clocks equal, the fleet JSONL (``JsonlStreamSink``)
+     equal line for line, the census conserved, no starvation, and
+     fleet_score once an observed window; prints the walls, the
+     controller's overhead (bench_fleet gates it at 5 %; not gated here)
+     and the p50 of ``session.observe``;
+ 13. holds the WKV6 backward kernel against its plain version on the card
+     at rwkv6-7b's training shape (bfloat16 and float32) and at the other
+     ``K4B_CASES`` (head dims 16/32/128, B = 2, a state gradient, one chunk
+     of 1,000 tokens past the clamp), checks that two calls are bit-equal
+     and times it; then trains rwkv6-7b at full width (8 of its 32 layers,
+     one 4,096-token sequence, bf16, remat "full"): one bf16 step on the
+     kernel path against the plain path (WKV6 16 and its backward 8
+     launches a step; the loss, and every WKV6 and WKV6-backward call of
+     the step against its plain version on the inputs the step gave it;
+     the gradient and update gaps printed beside a noise twin's, see
+     ``NOISE_EPS``), the same step in float32 held to phase 10's limits,
+     then a ``Trainer`` of 12 steps with a ``GuardStepHook``;
+ 14. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -149,29 +170,18 @@ def max_abs_err(a, b) -> float:
 # of its first few milliseconds on the card (seen on an H100: up to ~3 ms
 # of them). A session that reads kernel names or times starts with a spin
 # of LEAD_CYCLES clock cycles (torch.cuda._sleep, ~20 ms), which takes
-# that loss instead.
+# that loss instead, and splits the calls at marker kernels
+# (``call_segments``), so that a lossy session is seen and taken again.
 LEAD_CYCLES = 40_000_000
 
 
-def kernel_device_ms(torch, fn, name: str, reps: int = 20):
-    """Device ms per call of ``fn`` in the kernels whose name holds
-    ``name``, from ``torch.profiler`` over ``reps`` calls after the lead-in
-    spin: the sum over those kernels of each one's mean time per launch,
-    so a launch the tracer loses does not lower it; None when the trace
-    holds no such kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(LEAD_CYCLES)
-        torch.cuda.synchronize()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e.self_device_time_total / e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name in e.key
-            and e.count]
-    return sum(rows) / 1e3 if rows else None
+def kernel_device_ms(torch, fn, name: str, calls: int = 3):
+    """Device ms per call of ``fn`` in its kernels whose base name holds
+    ``name``: the sum of their ``kernel_split_ms``; None when no whole call
+    was traced or none of its kernels has such a name."""
+    rows = [ms for n, ms in kernel_split_ms(torch, fn, calls).items()
+            if name in n]
+    return sum(rows) if rows else None
 
 
 def fmt_ms(ms) -> str:
@@ -252,14 +262,15 @@ def phase_k1(torch, np, dirs):
 
 # ------------------------------------------------------------ phase 3: K2
 
-def kernels_in(torch, fn, calls: int = 3, tries: int = 3) -> list:
-    """Names of the device kernels one call of ``fn`` runs, from the
-    profiler over ``calls`` calls, each followed by a marker kernel
-    (``torch.cuda._sleep``'s ``spin_kernel``), after the lead-in spin. What
-    comes before the first marker is dropped, and a session whose calls
-    between markers are empty or disagree is taken again, up to ``tries``
-    sessions; after that every kernel of the last trace but the markers
-    is returned."""
+def call_segments(torch, fn, calls: int = 3, tries: int = 3):
+    """The device kernels of each call of ``fn``, as (name, ms) lists, from
+    the profiler over ``calls`` calls, each followed by a marker kernel
+    (``torch.cuda._sleep``'s ``spin_kernel``), after the lead-in spin; ms
+    is each kernel's own start-to-end time in the trace. What comes before
+    the first marker is dropped, and a session whose calls between markers
+    are empty or disagree in their kernels is taken again, up to ``tries``
+    sessions; None when none of them agreed (the last one's kernels are
+    printed)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(tries):
@@ -278,19 +289,46 @@ def kernels_in(torch, fn, calls: int = 3, tries: int = 3) -> list:
             if "spin_kernel" in e.name:
                 segments.append([])
             else:
-                segments[-1].append(e.name)
+                segments[-1].append((e.name, (e.time_range.end -
+                                              e.time_range.start) / 1e3))
         whole = segments[1:-1]           # each between two markers
-        if whole and whole[0] and all(seg == whole[0] for seg in whole):
-            return whole[0]
-    return [n for seg in segments for n in seg]
+        names = [[basename(n) for n, _ in seg] for seg in whole]
+        if names and names[0] and all(n == names[0] for n in names):
+            return whole
+    print(f"  no whole call traced in {tries} sessions; the last one's "
+          f"kernels between markers: {names}", flush=True)
+    return None
+
+
+def kernels_in(torch, fn, calls: int = 3, tries: int = 3) -> list:
+    """Names of the device kernels one call of ``fn`` runs
+    (``call_segments``); empty when no whole call was traced."""
+    segs = call_segments(torch, fn, calls, tries)
+    return [] if segs is None else [n for n, _ in segs[0]]
+
+
+def basename(name: str) -> str:
+    """A kernel's name cut to its function's own name: no return type,
+    namespaces, template arguments or parameters."""
+    return name.replace("(anonymous namespace)::", "").split("<")[0] \
+        .split("(")[0].split("::")[-1].split()[-1]
+
+
+def kernel_split_ms(torch, fn, calls: int = 3) -> dict:
+    """Device ms of each kernel of one call of ``fn``, by its base name,
+    the mean over the whole calls of one profiler session
+    (``call_segments``); empty when no whole call was traced."""
+    segs = call_segments(torch, fn, calls) or []
+    out = {}
+    for seg in segs:
+        for n, ms in seg:
+            out[basename(n)] = out.get(basename(n), 0.0) + ms / len(segs)
+    return out
 
 
 def kernel_basenames(torch, fn) -> list:
-    """``kernels_in`` with each name cut to its function's own name: no
-    return type, namespaces, template arguments or parameters."""
-    return [n.replace("(anonymous namespace)::", "").split("<")[0]
-            .split("(")[0].split("::")[-1].split()[-1]
-            for n in kernels_in(torch, fn)]
+    """``kernels_in`` with each name cut to its ``basename``."""
+    return [basename(n) for n in kernels_in(torch, fn)]
 
 
 def phase_k2(torch, np):
@@ -640,9 +678,9 @@ def phase_k4(torch, np):
                      f"state carried over two calls of {half} tokens "
                      f"within {carry:.3e}")
         ms = time_ms(lambda: wkv6_chunked(r, k, v, logw, u, s0, chunk=c))
-        split = {n: kernel_device_ms(torch, lambda: wkv6_chunked(
-            r, k, v, logw, u, s0, chunk=c), n, reps=10)
-            for n in ("wkv6_state", "wkv6_out")}
+        split = kernel_split_ms(torch, lambda: wkv6_chunked(
+            r, k, v, logw, u, s0, chunk=c))
+        split = {n: split.get(n) for n in ("wkv6_state", "wkv6_out")}
         dev_ms = (None if None in split.values()
                   else split["wkv6_state"] + split["wkv6_out"])
         plain = time_ms(lambda: wkv6_ref(r, k, v, logw, u, s0, chunk=c),
@@ -684,25 +722,22 @@ FIRST_REL_TOL = {"dense": 2e-2, "ssm": 1e-3}
 @contextlib.contextmanager
 def plain_paths():
     """Send the models' attention and WKV calls to the plain versions on
-    the card, for the comparison run; nothing of the port changes."""
+    the card (the WKV6 backward too), for the comparison run; nothing of
+    the port changes."""
     from unittest import mock
     import repro_torch.models.attention as attention_mod
     import repro_torch.models.rwkv6 as rwkv6_mod
     from repro_torch.kernels.flash_attention import attention_ref
-    from repro_torch.kernels.wkv6 import wkv6_ref
+    from repro_torch.kernels.wkv6 import wkv6_plain
 
     def attn(q, k, v, *, causal, q_offset=0, kv_len=0):
         return attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
                              causal=causal, q_offset=q_offset,
                              kv_len=kv_len).transpose(1, 2)
 
-    def wkv(r, k, v, logw, u, s0, *, chunk):
-        y, st = wkv6_ref(*(t.transpose(1, 2) for t in (r, k, v, logw)), u,
-                         s0, chunk=chunk)
-        return y.transpose(1, 2), st
-
+    # wkv6_plain: wkv6_ref, differentiated by wkv6_bwd_ref when training
     with mock.patch.object(attention_mod, "flash", attn), \
-            mock.patch.object(rwkv6_mod, "wkv6", wkv):
+            mock.patch.object(rwkv6_mod, "wkv6", wkv6_plain):
         yield
 
 
@@ -971,7 +1006,7 @@ def phase_k3_bwd(torch, np):
         ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
                      reps=5, warm=1)
         dev_ms = kernel_device_ms(torch, lambda: flash_attention_bwd(
-            q, k, v, o, lse, do, **kw), "fa_bwd", reps=3)
+            q, k, v, o, lse, do, **kw), "fa_bwd")
         flops = attention_bwd_flops(b, hq, s, kvl or t, hd, causal=causal,
                                     q_offset=qo)
         nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * \
@@ -1001,8 +1036,9 @@ def phase_k3_bwd(torch, np):
             del out, qq, kk, vv
             line += f"; plain {plain:.4f} ms, sdpa backward {lib:.4f} ms"
         if i == 0:
-            split = {n: kernel_device_ms(torch, lambda: flash_attention_bwd(
-                q, k, v, o, lse, do, **kw), n, reps=3) for n in names}
+            split = kernel_split_ms(torch, lambda: flash_attention_bwd(
+                q, k, v, o, lse, do, **kw))
+            split = {n: split.get(n) for n in names}
             check(None not in split.values(), f"{tag}: the device split "
                   f"{split} lacks a kernel")
             # the dK/dV kernel does four of the five products (S, dP, dV,
@@ -1085,22 +1121,15 @@ def update_agreement(master, a, b):
     return flips / total, dot / max((na * nb) ** 0.5, 1e-300)
 
 
-def phase_train(torch, np, counters: dict):
-    """Phase 10: qwen3-4b training at full width, then the train_with_guard
-    scenario. Returns (launches of the Trainer run, numbers)."""
+def train_setup(torch, arch: str, layers: int):
+    """``arch`` at its published widths, ``layers`` deep, seeded weights,
+    remat "full", and one TRAIN_SEQ-token ``SyntheticLM`` sequence ->
+    (model, data, batch, AdamW config, tag)."""
     import dataclasses
-    import gc
-    import tempfile
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.guard import (GuardStepHook, NodeSwapped, RecoveryEvent,
-                                   StragglerFlagged)
+    from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticLM,
-                                   TieredCheckpointManager, TrainConfig,
-                                   Trainer)
-    from repro_torch.train.trainer import decay_mask, master_params
-    cfg = dataclasses.replace(get_config("qwen3-4b"),
-                              num_layers=TRAIN_LAYERS)
+    from repro_torch.train import AdamWConfig, DataConfig, SyntheticLM
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda", seed=0, remat="full")
@@ -1109,59 +1138,107 @@ def phase_train(torch, np, counters: dict):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, 1, seed=0))
-    batch = data.batch_at(0)
     opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
-    tag = f"qwen3-4b train ({TRAIN_LAYERS} layers, 1 x {TRAIN_SEQ} tokens)"
+    tag = f"{arch} train ({layers} layers, 1 x {TRAIN_SEQ} tokens)"
     print(f"{tag}: {n_params / 1e9:.3f} B parameters, init "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return model, data, data.batch_at(0), opt, tag
 
-    # (a) one step, kernel path against plain path
+
+def step_vs_plain(torch, counters: dict, per_step: dict, model, batch,
+                  tag: str):
+    """One step of ``model`` on the kernel path, then on the plain path.
+    Fails unless the kernel path launched each kernel ``per_step`` times
+    and the plain path none, and the loss and gradients are finite.
+    Returns (loss_k, grads_k, loss_p, grads_p, launches)."""
     for c in counters.values():
         c.reset()
     loss_k, grads_k = train_step_grads(torch, model, batch)
     launches = {n: c.launches for n, c in counters.items()}
-    check(launches["flash_attention"] == 2 * TRAIN_LAYERS
-          and launches["flash_attention_bwd"] == TRAIN_LAYERS,
-          f"{tag}: a kernel-path step launched {launches} (flash_attention "
-          f"{2 * TRAIN_LAYERS}: forward and remat; its backward "
-          f"{TRAIN_LAYERS})")
+    check(launches == {n: per_step.get(n, 0) for n in counters},
+          f"{tag}: a kernel-path step launched {launches}, not {per_step} "
+          f"(forward and remat, one backward a layer)")
     with plain_paths():
         loss_p, grads_p = train_step_grads(torch, model, batch)
     check(all(c.launches == launches[n] for n, c in counters.items()),
           f"{tag}: the plain path launched a kernel")
     check(bool(torch.isfinite(loss_k)), f"{tag}: non-finite loss")
-    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    gerr = {n: rel_err(grads_k[n], grads_p[n]) for n in grads_k}
-    worst = max(gerr, key=gerr.get)
     check(all(bool(torch.isfinite(g).all()) for g in grads_k.values()),
           f"{tag}: non-finite gradients")
-    check(loss_err <= LOSS_REL_TOL, f"{tag}: loss {float(loss_k)} vs plain "
-                                    f"{float(loss_p)} ({loss_err:.3e})")
-    check(gerr[worst] <= GRAD_REL_TOL,
-          f"{tag}: gradient {worst} differs from the plain path by "
-          f"{gerr[worst]:.3e} of its largest magnitude")
+    return loss_k, grads_k, loss_p, grads_p, launches
+
+
+def step_gaps(torch, model, loss_a, grads_a, loss_b, grads_b, opt):
+    """How far step a is from step b on ``model``'s weights: the loss's
+    relative gap, each gradient's largest |a - b| over its largest |b|,
+    and one AdamW update from zero moments of each (the share of entries
+    whose update changes sign, the cosine)."""
+    from repro_torch.train.trainer import decay_mask, master_params
+    loss_err = abs(float(loss_a) - float(loss_b)) / abs(float(loss_b))
+    gerr = {n: rel_err(grads_a[n].cuda(), grads_b[n].cuda())
+            for n in grads_a}
     master = master_params(model)
     decay = decay_mask(model)
-    upd_k, lr1 = adamw_from_zero(master, grads_k, opt, decay)
-    upd_p, _ = adamw_from_zero(master, grads_p, opt, decay)
-    flip, cos = update_agreement(master, upd_k, upd_p)
-    check(cos >= UPDATE_COS and flip <= UPDATE_FLIP,
-          f"{tag}: AdamW updates' cosine {cos:.5f} (< {UPDATE_COS}?) or "
-          f"share of entries whose update changes sign {flip:.3e} "
-          f"(> {UPDATE_FLIP}?)")
-    print(f"{tag} step, kernel vs plain path: loss {float(loss_k):.6f} vs "
-          f"{float(loss_p):.6f} ({loss_err:.3e}); gradients within "
-          f"{gerr[worst]:.3e} of their largest magnitude (worst {worst}); "
-          f"AdamW updates (lr {lr1:.3e}): cosine {cos:.6f} (limit "
-          f"{UPDATE_COS}), {flip:.3e} of entries change sign (limit "
-          f"{UPDATE_FLIP}); launches {launches}",
-          flush=True)
-    del grads_k, grads_p, upd_k, upd_p, master
+    upd_a, lr1 = adamw_from_zero(master, grads_a, opt, decay)
+    upd_b, _ = adamw_from_zero(master, grads_b, opt, decay)
+    flip, cos = update_agreement(master, upd_a, upd_b)
+    worst = max(gerr, key=gerr.get)
+    return dict(loss_err=loss_err, grad_err=gerr[worst], worst=worst,
+                update_cos=cos, update_flip=flip, lr=lr1, gaps=gerr)
+
+
+def hold_step(g: dict, loss_k, loss_p, tag: str, what: str,
+              launches: dict) -> dict:
+    """Phase 10's limits on ``step_gaps`` of the kernel path against the
+    plain path; prints them. Returns the numbers."""
+    check(g["loss_err"] <= LOSS_REL_TOL, f"{tag}: loss {float(loss_k)} vs "
+          f"plain {float(loss_p)} ({g['loss_err']:.3e})")
+    check(g["grad_err"] <= GRAD_REL_TOL,
+          f"{tag}: gradient {g['worst']} differs from the plain path by "
+          f"{g['grad_err']:.3e} of its largest magnitude")
+    check(g["update_cos"] >= UPDATE_COS and g["update_flip"] <= UPDATE_FLIP,
+          f"{tag}: AdamW updates' cosine {g['update_cos']:.5f} (< "
+          f"{UPDATE_COS}?) or share of entries whose update changes sign "
+          f"{g['update_flip']:.3e} (> {UPDATE_FLIP}?)")
+    print(f"{tag} step {what}, kernel vs plain path: loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f} ({g['loss_err']:.3e});"
+          f" gradients within {g['grad_err']:.3e} of their largest magnitude "
+          f"(worst {g['worst']}); AdamW updates (lr {g['lr']:.3e}): cosine "
+          f"{g['update_cos']:.6f} (limit {UPDATE_COS}), {g['update_flip']:.3e}"
+          f" of entries change sign (limit {UPDATE_FLIP}); launches "
+          f"{launches}", flush=True)
+    return {k: v for k, v in g.items() if k not in ("gaps", "lr")}
+
+
+def train_full_width(torch, np, counters: dict, arch: str, layers: int,
+                     per_step: dict):
+    """(a) one bf16 step of ``arch`` (``train_setup``) on the kernel path
+    against the plain path, held to phase 10's limits; (b) ``trainer_run``.
+    ``per_step`` is each kernel's launches in one step. Returns (launches
+    of the Trainer run, numbers)."""
+    import gc
+    model, data, batch, opt, tag = train_setup(torch, arch, layers)
+    loss_k, grads_k, loss_p, grads_p, launches = step_vs_plain(
+        torch, counters, per_step, model, batch, tag)
+    g = step_gaps(torch, model, loss_k, grads_k, loss_p, grads_p, opt)
+    step_nums = hold_step(g, loss_k, loss_p, tag, "in bfloat16", launches)
+    del grads_k, grads_p, g
     gc.collect()
     torch.cuda.empty_cache()
+    return trainer_run(torch, np, counters, per_step, model, data, batch,
+                       opt, tag, step_nums)
 
-    # (b) the Trainer with Guard on the card, no durable checkpoint (a
-    # save at this size is ~25 GB: fp32 master weights and two moments)
+
+def trainer_run(torch, np, counters: dict, per_step: dict, model, data,
+                batch, opt, tag: str, step_nums: dict):
+    """A ``Trainer`` of TRAIN_STEPS bf16 steps of ``model`` with a
+    ``GuardStepHook`` on the card. Returns (its launches, numbers)."""
+    import gc
+    from repro_torch.guard import GuardStepHook
+    from repro_torch.train import TrainConfig, Trainer
+    # no durable checkpoint (a save at this size is ~25 GB: fp32 master
+    # weights and two moments)
+    n_params = sum(p.numel() for p in model.parameters())
     hook = GuardStepHook(window_steps=4, device="cuda")
     model_gb = torch.cuda.memory_allocated() / 1e9
     trainer = Trainer(model, data, TrainConfig(steps=TRAIN_STEPS,
@@ -1183,9 +1260,8 @@ def phase_train(torch, np, counters: dict):
           f"{tag}: trainer stopped at {out['final_step']}")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"{tag}: losses {losses} not finite and falling")
-    want = {"fleet_score": hook.frames_fed, "sweep_burn": 0,
-            "flash_attention": 2 * TRAIN_LAYERS * TRAIN_STEPS,
-            "flash_attention_bwd": TRAIN_LAYERS * TRAIN_STEPS, "wkv6": 0}
+    want = {n: per_step.get(n, 0) * TRAIN_STEPS for n in counters}
+    want["fleet_score"] = hook.frames_fed
     check(hook.frames_fed >= 1 and launches == want,
           f"{tag}: the Trainer run launched {launches}, expected {want}")
     step_ms = float(np.median(walls[1:])) * 1e3
@@ -1193,6 +1269,7 @@ def phase_train(torch, np, counters: dict):
         torch, lambda: trainer._step_fn(trainer.params, trainer.opt_state,
                                         batch), reps=2)
     nums = dict(params=n_params, step_ms=step_ms, first_step_s=walls[0],
+                **step_nums,
                 tok_per_s=TRAIN_SEQ / (step_ms / 1e3), peak_gb=peak_gb,
                 state_gb=state_gb, model_gb=model_gb, trainer_gb=init_gb,
                 busy_ms=s_busy, profiled_step_ms=s_wall,
@@ -1205,16 +1282,34 @@ def phase_train(torch, np, counters: dict):
           f"({state_gb:.2f} GB held between steps; {model_gb:.2f} GB before "
           f"the Trainer, {init_gb:.2f} GB after its master weights and "
           f"moments); "
-          f"launches per step: flash_attention "
-          f"{launches['flash_attention'] / TRAIN_STEPS:.0f}, its backward "
-          f"{launches['flash_attention_bwd'] / TRAIN_STEPS:.0f}; "
-          f"fleet_score {launches['fleet_score']} in {hook.frames_fed} Guard "
+          f"launches per step: " + ", ".join(
+              f"{n} {launches[n] / TRAIN_STEPS:.0f}" for n in per_step)
+          + f"; fleet_score {launches['fleet_score']} in {hook.frames_fed} Guard "
           f"windows; profiled step {s_wall:.1f} ms wall, card busy "
           f"{s_busy:.1f} ms ({s_busy / s_wall:.0%}); top kernels (ms per "
           f"step): {s_top}", flush=True)
     del trainer, model, hook
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, nums
+
+
+def phase_train(torch, np, counters: dict):
+    """Phase 10: qwen3-4b training at full width, then the train_with_guard
+    scenario. Returns (launches of the Trainer run, numbers)."""
+    import gc
+    import tempfile
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.guard import (GuardStepHook, NodeSwapped, RecoveryEvent,
+                                   StragglerFlagged)
+    from repro_torch.models.model import Model
+    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticLM,
+                                   TieredCheckpointManager, TrainConfig,
+                                   Trainer)
+    launches, nums = train_full_width(
+        torch, np, counters, "qwen3-4b", TRAIN_LAYERS,
+        {"flash_attention": 2 * TRAIN_LAYERS,
+         "flash_attention_bwd": TRAIN_LAYERS})
 
     # (c) examples/train_with_guard.py at that example's reduced size
     steps = 200
@@ -1660,6 +1755,455 @@ def phase_sim(torch, np, counters: dict):
     return k1_sim, nums
 
 
+# ------------------------------------------- phase 12: the fleet control plane
+
+# benchmarks/bench_fleet.py's quick mix (fleet_config(True)), copied: 16
+# jobs, ENHANCED and ONLINE in turn, priorities 1-4, 2 private spares each,
+# 2 simulated hours, 8 bench slots, healthscan every 1,800 s in batches of
+# 8, a global spare target of 24 and one homed spare a job, seed 11; at
+# 256 nodes a job (the benchmark's own), then at 1,024 (16,384 in all,
+# phase 4's fleet size).
+FLEET_JOBS = 16
+FLEET_NODES = (256, 1024)
+FLEET_HOURS = 2.0
+FLEET_WALL_FIELDS = ("overhead_s", "wall_s", "overhead_frac")
+
+
+def fleet_config(sim, per_job: int, device: str):
+    tiers = (sim.Tier.ENHANCED, sim.Tier.ONLINE)
+    jobs = tuple(sim.FleetJobSpec(name=f"job{i:02d}", tier=tiers[i % 2],
+                                  n_nodes=per_job, n_spare=2,
+                                  priority=1 + i % 4, seed=i)
+                 for i in range(FLEET_JOBS))
+    return sim.FleetRunConfig(jobs=jobs, duration_h=FLEET_HOURS,
+                              bench_slots=8, healthscan_period_s=1800.0,
+                              healthscan_batch=8, starvation_age_s=3600.0,
+                              floor_frac=0.5, spare_target=24, home_min=1,
+                              seed=11, device=device)
+
+
+@contextlib.contextmanager
+def fleet_jsonl(path: Path):
+    """Every ``FleetController`` built meanwhile writes its fleet log to
+    ``path`` through ``JsonlStreamSink`` (``simulate_fleet`` builds one)."""
+    import repro_torch.fleet as fleet
+    base = fleet.FleetController
+    sinks = []
+
+    class Logged(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            sinks.append(fleet.JsonlStreamSink(str(path)))
+            self.log.attach(sinks[-1])
+
+    fleet.FleetController = Logged
+    try:
+        yield
+    finally:
+        fleet.FleetController = base
+        for sink in sinks:
+            sink.close()
+
+
+@contextlib.contextmanager
+def timed_observe(torch, card: bool):
+    """Host ms of every ``GuardSession.observe`` meanwhile (ending in a
+    synchronize on the card): one entry an observed window."""
+    from repro_torch.guard import GuardSession
+    ms = []
+    observe = GuardSession.observe
+
+    def timed(self, frame):
+        t0 = time.perf_counter()
+        out = observe(self, frame)
+        if card:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    GuardSession.observe = timed
+    try:
+        yield ms
+    finally:
+        GuardSession.observe = observe
+
+
+def phase_fleet(torch, np, counters: dict):
+    """Phase 12: ``simulate_fleet`` on the card and on the CPU, at 256 and
+    1,024 nodes a job. Returns (K1 launches, numbers)."""
+    import repro_torch.simcluster as sim
+    out = ROOT / "build" / "repro_torch" / "smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    k1, nums = 0, {}
+    for per_job in FLEET_NODES:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            path = out / f"fleet_{per_job}_{device}.jsonl"
+            path.unlink(missing_ok=True)        # the sink appends
+            for c in counters.values():
+                c.reset()
+            card = device == "cuda"
+            with fleet_jsonl(path), timed_observe(torch, card) as ms:
+                t0 = time.perf_counter()
+                res = sim.simulate_fleet(fleet_config(sim, per_job, device))
+                if card:
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            runs[device] = dict(res=res, wall=wall, ms=ms,
+                                launches={n: c.launches
+                                          for n, c in counters.items()},
+                                log=path.read_text().splitlines())
+        card, cpu = runs["cuda"], runs["cpu"]
+        tag = (f"fleet (phase 12) {FLEET_JOBS} jobs x {per_job} nodes, "
+               f"{FLEET_HOURS} h")
+        res = card["res"]
+        diff = [f.name for f in dataclasses.fields(res)
+                if f.name not in FLEET_WALL_FIELDS
+                and getattr(res, f.name) != getattr(cpu["res"], f.name)]
+        check(not diff, f"{tag}: the card's FleetRunResult differs from the "
+                        f"CPU run in {diff}")
+        check(card["log"] == cpu["log"] and len(card["log"]) ==
+              res.events_logged > 0, f"{tag}: the fleet JSONL of the card "
+              f"({len(card['log'])} lines) differs from the CPU's "
+              f"({len(cpu['log'])})")
+        check(res.census_ok and res.starvation_events == 0,
+              f"{tag}: census_ok {res.census_ok}, "
+              f"{res.starvation_events} starvation events")
+        windows = len(card["ms"])
+        check(windows > 0 and only_k1(card["launches"], windows),
+              f"{tag}: launched {card['launches']} in {windows} observed "
+              f"windows (fleet_score once a window, nothing else)")
+        check(not any(cpu["launches"].values()),
+              f"{tag}: the CPU run launched {cpu['launches']}")
+        k1 += windows
+        p50 = {d: float(np.median(r["ms"])) for d, r in runs.items()}
+        row = dict(nodes=per_job * FLEET_JOBS, windows=windows,
+                   events=res.events_logged, steps=sum(
+                       j["steps"] for j in res.jobs), **res.pool,
+                   healthscan=res.healthscan,
+                   card_wall_s=card["wall"], cpu_wall_s=cpu["wall"],
+                   card_overhead_s=res.overhead_s,
+                   card_overhead_frac=res.overhead_frac,
+                   cpu_overhead_s=cpu["res"].overhead_s,
+                   cpu_overhead_frac=cpu["res"].overhead_frac,
+                   observe_p50_ms_card=p50["cuda"],
+                   observe_p50_ms_cpu=p50["cpu"])
+        nums[str(per_job)] = row
+        print(f"{tag}: every FleetRunResult field but the wall clocks equal "
+              f"to the CPU run, fleet JSONL equal line for line "
+              f"({res.events_logged} events), census conserved, 0 "
+              f"starvation events; {res.pool['grants']} grants, "
+              f"{res.pool['transfers']} transfers, {res.pool['provisions']} "
+              f"provisions, healthscan {res.healthscan}; fleet_score "
+              f"launched {windows} times in {windows} observed windows; "
+              f"wall {card['wall']:.2f} s on the card, {cpu['wall']:.2f} s "
+              f"on the CPU; controller overhead {res.overhead_s:.3f} s = "
+              f"{res.overhead_frac:.2%} of the wall on the card "
+              f"({cpu['res'].overhead_s:.3f} s = "
+              f"{cpu['res'].overhead_frac:.2%} on the CPU; bench_fleet's "
+              f"gate is 5 %, not applied here); session.observe p50 "
+              f"{p50['cuda']:.3f} ms a window on the card, {p50['cpu']:.3f}"
+              f" ms on the CPU", flush=True)
+    return k1, nums
+
+
+# ------------------------------------------ phase 13: K4' and ssm training
+
+# K4' cases: B, S, H, hd, C, dtype, decay (the mean of log(-logw): -2 is
+# about -0.14 a token; 0.5 about -1.9, so a chunk's exponents pass the
+# +-25 clamp), with a nonzero d(state) and s0. The first is rwkv6-7b's
+# training shape at 4,096 tokens, the main path's; then float32 there,
+# head dims 16, 32 and 128, B = 2, a state gradient, and one chunk of
+# 1,000 tokens (C = S, which 32 does not divide) past the clamp.
+K4B_CASES = [
+    (1, 4096, 64, 64, 32, "bfloat16", -2.0, False),
+    (1, 4096, 64, 64, 32, "float32", -2.0, False),
+    (1, 1024, 8, 16, 32, "bfloat16", -2.0, False),
+    (1, 1024, 8, 32, 32, "bfloat16", -2.0, False),
+    (1, 1024, 8, 128, 32, "bfloat16", -2.0, False),
+    (2, 1024, 8, 64, 32, "bfloat16", -2.0, False),
+    (1, 1024, 8, 64, 32, "bfloat16", -2.0, True),
+    (1, 1000, 4, 64, 1000, "bfloat16", 0.5, True),
+]
+# Each gradient's largest |kernel - plain| over its largest magnitude.
+# Both run the same float32 equations on the same inputs and the same
+# chunk-start states, in another order of sums and with e^x as ex2 in the
+# kernel: float32 outputs (all of them in float32, dlogw, du and ds0 in
+# both) differ by a few float32 roundings, up to 1.8e-6 measured on an
+# H100, so 1e-4. In bfloat16, dr, dk and dv are rounded once to bfloat16
+# by both, from float32 values a few roundings apart: at most one
+# bfloat16 step, 2^-8 of the element's magnitude (up to 3.7e-3 of the
+# largest measured on an H100), so 8e-3.
+K4B_TOL = {"bfloat16": 8e-3, "float32": 1e-4}
+K4B_KERNELS = ["wkv6_bwd_state", "wkv6_bwd_out", "wkv6_bwd_du"]
+
+
+def phase_k4_bwd(torch, np):
+    from repro_torch.kernels.wkv6 import (wkv6_bwd_bytes, wkv6_bwd_flops,
+                                          wkv6_bwd_ref, wkv6_chunked,
+                                          wkv6_chunked_bwd)
+    main = None
+    for i, (b, s, h, hd, c, dname, decay, full) in enumerate(K4B_CASES):
+        dt = getattr(torch, dname)
+        rng = np.random.default_rng(400 + i)
+
+        def mk(*shape, scale=0.5):
+            x = rng.standard_normal(shape, dtype=np.float32) * scale
+            return torch.from_numpy(x).cuda()
+        r, k, v = (mk(b, s, h, hd).to(dt).transpose(1, 2) for _ in range(3))
+        logw = (-torch.exp(mk(b, s, h, hd) + decay)).transpose(1, 2)
+        u = mk(h, hd, scale=0.15)
+        s0 = mk(b, h, hd, hd, scale=0.05 if full else 0.0)
+        dy = mk(b, s, h, hd, scale=1.0).transpose(1, 2)
+        ds = mk(b, h, hd, hd, scale=1.0) if full else None
+        _, _, starts = wkv6_chunked(r, k, v, logw, u, s0, chunk=c,
+                                    keep_states=True)
+
+        def call():
+            return wkv6_chunked_bwd(r, k, v, logw, u, starts, dy, ds,
+                                    chunk=c)
+        got, again = call(), call()
+        want = wkv6_bwd_ref(r, k, v, logw, u, s0, dy, ds, chunk=c)
+        torch.cuda.synchronize()
+        tag = (f"K4' wkv6_bwd B,S,H,hd={b},{s},{h},{hd} chunk {c} {dname}"
+               f"{' past the clamp' if decay > 0 else ''}"
+               f"{', d(state) and s0 nonzero' if full else ''}")
+        errs, abs_err = {}, 0.0
+        for n, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got,
+                           want):
+            tol = K4B_TOL[dname if g.dtype == dt else "float32"]
+            errs[n] = rel_err(g, w)
+            abs_err = max(abs_err, max_abs_err(g, w))
+            check(bool(torch.isfinite(g).all()) and errs[n] <= tol,
+                  f"{tag}: {n} differs from plain by {errs[n]:.3e} of its "
+                  f"largest magnitude (> {tol})")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"{tag}: two calls are not bit-equal")
+        del got, again, want
+        names = kernel_basenames(torch, call)
+        kinds = K4B_KERNELS[:2] + (["wkv6_bwd_fix"] if c > 32 else []) + \
+            K4B_KERNELS[2:]
+        check(names == kinds, f"{tag}: one call ran {names}, not {kinds}")
+        ms = time_ms(call, reps=5, warm=1)
+        split = kernel_split_ms(torch, call)
+        check(sorted(split) == sorted(names), f"{tag}: the device split "
+              f"{split} is not of the kernels {names}")
+        dev_ms = sum(split.values())
+        flops = wkv6_bwd_flops(b, h, s, hd, c)
+        nbytes = wkv6_bwd_bytes(b, h, s, hd, r.element_size())
+        bnd, by = bound(flops, FP32_SIMT_FLOPS, nbytes)
+        line = (f"{tag}: max err / max abs " + ", ".join(
+            f"{n} {e:.3e}" for n, e in errs.items()) + f" (tol "
+            f"{K4B_TOL[dname]} for {dname} outputs, 1e-4 float32), two "
+            f"calls bit-equal; kernel {ms:.4f} ms a call ({dev_ms:.4f} ms "
+            f"on the device, {len(names)} kernels: "
+            f"{', '.join(names)}), {bnd / ms:.2%} of bound, bound "
+            f"{bnd:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP fp32, "
+            f"{nbytes / 1e6:.2f} MB)")
+        plain = None
+        if i < 2:                    # the plain version at the main shape
+            plain = time_ms(lambda: wkv6_bwd_ref(r, k, v, logw, u, s0, dy,
+                                                 ds, chunk=c), reps=3,
+                            warm=1)
+            line += f"; plain {plain:.4f} ms, library none"
+        if i == 0:
+            line += "; device split " + ", ".join(
+                f"{n} {m:.4f} ms" for n, m in split.items())
+        print(line, flush=True)
+        if main is None:
+            main = dict(max_abs_err=abs_err, max_rel_err=max(errs.values()),
+                        ms=ms, device_ms=dev_ms, plain_ms=plain,
+                        bound_ms=bnd, bound_by=by, library_ms=None,
+                        shape=[b, s, h, hd, c], kernels_per_call=len(names))
+        del r, k, v, logw, dy, starts
+        torch.cuda.empty_cache()
+    return main
+
+
+TRAIN_SSM_LAYERS = 8       # of rwkv6-7b's 32: ~2.3 B parameters
+# What the bf16 step can be held to. The random-weight rwkv6-7b's bf16
+# gradients at this width depend on the last float32 bit of the WKV
+# output: K4's y differs from wkv6_ref's on the same inputs by ~5e-7 of
+# its largest magnitude (a different order of float32 sums), which flips
+# ~3,500 of layer 0's 16.8 M bf16 roundings; the flips spread (at layer 7
+# most r/k/v elements differ between the paths), and where a head's
+# first-token output y_0 = (r_0 . u k_0) v_0 comes out nearly zero, its
+# variance falls below the group norm's eps (1e-5) and the norm's slope,
+# 1/sqrt(eps), puts a spike into dy there and into u's gradient. Which
+# head that is depends on the rounding history. Measured on an H100
+# (tools/ssm_bf16_step.py): kernel vs plain path 37x a leaf's largest
+# magnitude (layers.7.tm.u), the plain path with its WKV output times
+# (1 + 1e-7 N(0, 1)) 0.9x against itself, the plain bf16 path 5.8x from
+# the plain float32 one; K4 forward with the plain backward reproduces
+# the kernel path's gradients, the plain forward with K4' the plain
+# path's. So no gradient or update limit holds between two bf16 paths
+# that differ in that last bit. The bf16 step is held to phase 10's loss
+# limit, and every K4 and K4' call in it to its plain version on the
+# inputs the step gave it (K4B_TOL; K4's float32 y like K4''s float32
+# outputs); its gradient and update gaps are printed beside those of the
+# noise twin (NOISE_EPS). The same step in float32, on the bf16 weights
+# widened, is held to all of phase 10's limits.
+NOISE_EPS = 1e-7
+
+
+@contextlib.contextmanager
+def kept_wkv6_bwd_calls(log: list):
+    """Keep in ``log``, for every K4' call of the kernel path, its inputs
+    (the forward's r, k, v, logw, u and chunk-start states, dy, d(state),
+    the chunk) and its outputs, each a copy."""
+    from unittest import mock
+    from repro_torch.kernels.wkv6 import ops
+    bwd = ops.wkv6_chunked_bwd
+
+    def kept(r, k, v, logw, u, starts, dy, ds=None, *, chunk):
+        out = bwd(r, k, v, logw, u, starts, dy, ds, chunk=chunk)
+        log.append(dict(
+            args=[t.detach().clone() for t in (r, k, v, logw, u, starts,
+                                               dy)],
+            ds=None if ds is None else ds.detach().clone(), chunk=chunk,
+            out=[t.detach().clone() for t in out]))
+        return out
+    with mock.patch.object(ops, "wkv6_chunked_bwd", kept):
+        yield
+
+
+def hold_wkv6_calls(torch, calls: list, tag: str) -> dict:
+    """Every kept K4' call (``kept_wkv6_bwd_calls``) against
+    ``wkv6_bwd_ref`` on its own inputs, and K4 on those inputs against
+    ``wkv6_ref``; fails outside K4B_TOL, or when K4 does not give the
+    chunk-start states the step kept bit for bit. Prints the first call's
+    (the last layer's) largest |dy| and the variance of its head's y
+    there. Returns the worst gaps."""
+    from repro_torch.kernels.wkv6 import (wkv6_bwd_ref, wkv6_chunked,
+                                          wkv6_ref)
+    fwd = bwd = 0.0
+    for i, c in enumerate(calls):
+        r, k, v, logw, u, starts, dy = c["args"]
+        s0 = starts[:, :, 0]                 # the first chunk-start state
+        y, _, again = wkv6_chunked(r, k, v, logw, u, s0, chunk=c["chunk"],
+                                   keep_states=True)
+        check(torch.equal(again, starts), f"{tag}: K4 on the inputs of "
+              f"backward call {i} gave other chunk-start states than the "
+              f"step kept")
+        e = rel_err(y, wkv6_ref(r, k, v, logw, u, s0, chunk=c["chunk"])[0])
+        check(e <= K4B_TOL["float32"], f"{tag}: K4's y on the inputs of "
+              f"backward call {i} differs from wkv6_ref by {e:.3e}")
+        fwd = max(fwd, e)
+        want = wkv6_bwd_ref(r, k, v, logw, u, s0, dy, c["ds"],
+                            chunk=c["chunk"])
+        for n, got, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"),
+                             c["out"], want):
+            tol = K4B_TOL["bfloat16" if got.dtype == torch.bfloat16
+                          else "float32"]
+            e = rel_err(got, w)
+            check(e <= tol, f"{tag}: K4' call {i} differs from "
+                  f"wkv6_bwd_ref in {n} by {e:.3e} (> {tol})")
+            bwd = max(bwd, e / tol)
+        if i == 0:
+            b, h, t, j = (int(x) for x in torch.unravel_index(
+                dy.abs().argmax(), dy.shape))
+            var = float(y[b, h, t].bfloat16().float().var(unbiased=False))
+            spike = dict(dy=float(dy[b, h, t, j].abs()), token=t, head=h,
+                         y_var=var)
+        del y, again, want
+    print(f"{tag} step in bfloat16: each of its {len(calls)} K4' calls "
+          f"within {bwd:.3f} of K4B_TOL of wkv6_bwd_ref on its own inputs, "
+          f"K4 on them within {fwd:.3e} of wkv6_ref (tol "
+          f"{K4B_TOL['float32']}), chunk-start states bit-equal to the "
+          f"step's; last layer's largest |dy| {spike['dy']:.3e} at token "
+          f"{spike['token']}, head {spike['head']}, where y's variance is "
+          f"{spike['y_var']:.3e} (group norm eps 1e-5)", flush=True)
+    return dict(k4_vs_ref=fwd, k4b_of_tol=bwd, last_dy=spike)
+
+
+def phase_train_ssm(torch, np, counters: dict):
+    """Phase 13(b): rwkv6-7b training at full width, K4 and K4' on the
+    path: (a) one bf16 step against the plain path (see NOISE_EPS), then
+    the same step in float32 held to phase 10's limits; (b)
+    ``trainer_run``. Returns (launches of the Trainer run, numbers)."""
+    import gc
+    from unittest import mock
+    import repro_torch.models.rwkv6 as rwkv6_mod
+    from repro_torch.kernels.wkv6 import wkv6_plain
+    from repro_torch.models.common import Policy
+    from repro_torch.models.model import Model
+    per_step = {"wkv6": 2 * TRAIN_SSM_LAYERS, "wkv6_bwd": TRAIN_SSM_LAYERS}
+    model, data, batch, opt, tag = train_setup(torch, "rwkv6-7b",
+                                               TRAIN_SSM_LAYERS)
+    calls = []
+    with kept_wkv6_bwd_calls(calls):
+        loss_k, grads_k, loss_p, grads_p, launches = step_vs_plain(
+            torch, counters, per_step, model, batch, tag)
+    check(len(calls) == TRAIN_SSM_LAYERS, f"{tag}: {len(calls)} K4' calls "
+          f"kept, not one a layer")
+    held = hold_wkv6_calls(torch, calls, tag)
+    del calls
+    g16 = step_gaps(torch, model, loss_k, grads_k, loss_p, grads_p, opt)
+    check(g16["loss_err"] <= LOSS_REL_TOL, f"{tag}: bf16 loss "
+          f"{float(loss_k)} vs plain {float(loss_p)} ({g16['loss_err']:.3e})")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def noisy(r, k, v, logw, u, s0, *, chunk=64):
+        y, s = wkv6_plain(r, k, v, logw, u, s0, chunk=chunk)
+        n = torch.randn(y.shape, generator=gen, device=y.device)
+        return y * (1 + NOISE_EPS * n), s
+    with plain_paths(), mock.patch.object(rwkv6_mod, "wkv6", noisy):
+        loss_n, grads_n = train_step_grads(torch, model, batch)
+    gn = step_gaps(torch, model, loss_n, grads_n, loss_p, grads_p, opt)
+    del grads_n
+    print(f"{tag} step in bfloat16, kernel vs plain path: loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f} ({g16['loss_err']:.3e},"
+          f" limit {LOSS_REL_TOL}); not gated (see NOISE_EPS): gradients "
+          f"within {g16['grad_err']:.3e} of their largest magnitude (worst "
+          f"{g16['worst']}), AdamW updates' cosine {g16['update_cos']:.6f}, "
+          f"{g16['update_flip']:.3e} of entries change sign; the plain path "
+          f"with y x (1 + {NOISE_EPS:g} N(0, 1)) against itself: gradients "
+          f"{gn['grad_err']:.3e} (worst {gn['worst']}), cosine "
+          f"{gn['update_cos']:.6f}, {gn['update_flip']:.3e} change sign; "
+          f"launches {launches}", flush=True)
+    grads_k = {n: t.cpu() for n, t in grads_k.items()}
+    grads_p = {n: t.cpu() for n, t in grads_p.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    f32 = Model(model.cfg, Policy(compute_dtype=torch.float32),
+                device="cuda", seed=None, remat="full")
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(f32.named_parameters(),
+                                  model.named_parameters()):
+            a.copy_(b)
+    for p in f32.parameters():
+        p.requires_grad_(True)
+    lk, gk, lp, gp, l32 = step_vs_plain(torch, counters, per_step, f32,
+                                        batch, tag)
+    step_nums = hold_step(step_gaps(torch, f32, lk, gk, lp, gp, opt), lk,
+                          lp, tag, "in float32 (the bf16 weights widened)",
+                          l32)
+    del gk
+    kf = {n: rel_err(grads_k[n].cuda(), gp[n]) for n in gp}
+    pf = {n: rel_err(grads_p[n].cuda(), gp[n]) for n in gp}
+    top = sorted(kf, key=kf.get, reverse=True)[:5]
+    print(f"{tag}: each gradient's gap to the float32 plain step, bf16 "
+          f"kernel path | bf16 plain path (the five largest kernel gaps): "
+          + ", ".join(f"{n} {kf[n]:.3e} | {pf[n]:.3e}" for n in top)
+          + f"; largest plain gap {max(pf.values()):.3e} "
+          f"({max(pf, key=pf.get)})", flush=True)
+    step_nums.update(
+        bf16_loss_err=g16["loss_err"], bf16_grad_err=g16["grad_err"],
+        bf16_worst=g16["worst"], bf16_update_cos=g16["update_cos"],
+        bf16_update_flip=g16["update_flip"], noise_grad_err=gn["grad_err"],
+        noise_update_cos=gn["update_cos"],
+        noise_update_flip=gn["update_flip"],
+        bf16_kernel_vs_fp32=max(kf.values()),
+        bf16_plain_vs_fp32=max(pf.values()), **held)
+    del f32, gp, grads_k, grads_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return trainer_run(torch, np, counters, per_step, model, data, batch,
+                       opt, tag, step_nums)
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> None:
@@ -1703,33 +2247,38 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import BWD_COUNTER as C3B
     from repro_torch.kernels.flash_attention import COUNTER as C3
     from repro_torch.kernels.sweep_burn import COUNTER as C2
+    from repro_torch.kernels.wkv6 import BWD_COUNTER as C4B
     from repro_torch.kernels.wkv6 import COUNTER as C4
     counters = {"fleet_score": C1, "sweep_burn": C2, "flash_attention": C3,
-                "flash_attention_bwd": C3B, "wkv6": C4}
+                "flash_attention_bwd": C3B, "wkv6": C4, "wkv6_bwd": C4B}
+
+    def only(**want):
+        return {n: want.get(n, 0) for n in counters}
     dense, _ = phase_serve(torch, np, "qwen3-4b", 4096, counters)
-    check(dense == {"fleet_score": 0, "sweep_burn": 0, "flash_attention": 36,
-                    "flash_attention_bwd": 0, "wkv6": 0},
+    check(dense == only(flash_attention=36),
           f"qwen3-4b prefill launched {dense} (flash_attention once per "
           f"layer, 36)")
     ssm, nums = phase_serve(torch, np, "rwkv6-7b", 2048, counters,
                             ragged=1000)
     for n, got in ((2048, ssm), (1000, nums["ragged_launches"])):
-        check(got == {"fleet_score": 0, "sweep_burn": 0,
-                      "flash_attention": 0, "flash_attention_bwd": 0,
-                      "wkv6": 32},
+        check(got == only(wkv6=32),
               f"rwkv6-7b prefill of {n} tokens launched {got} (wkv6 once "
               f"per layer, 32)")
     n3, n4 = dense["flash_attention"], ssm["wkv6"]
     k3b = phase_k3_bwd(torch, np)
     train, tnums = phase_train(torch, np, counters)
     k1_sim, snums = phase_sim(torch, np, counters)
+    k1_fleet, fnums = phase_fleet(torch, np, counters)
+    k4b = phase_k4_bwd(torch, np)
+    train_ssm, ssm_nums = phase_train_ssm(torch, np, counters)
 
     kernels = [
         {"name": "fleet_score", "route": "cuda",
          "source": "src/repro_torch/csrc/fleet_score.cu",
          "replaces": "src/repro/kernels/fleet_score/fleet_score.py:146",
-         "launches": n1 + k1_sim, "launches_loop": n1,
-         "launches_sim": k1_sim, "max_abs_err": k1["max_abs_err"],
+         "launches": n1 + k1_sim + k1_fleet, "launches_loop": n1,
+         "launches_sim": k1_sim, "launches_fleet": k1_fleet,
+         "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"],
          "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "bytes", "library_ms": None,
@@ -1768,11 +2317,24 @@ def main() -> None:
          "device_kernels_per_call": k4["kernels_per_call"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": None,
-         "shape": k4["shape"]},
+         "shape": k4["shape"], "launches_train": train_ssm["wkv6"]},
+        {"name": "wkv6_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/wkv6_bwd.cu",
+         "replaces": "src/repro/models/rwkv6.py:82",
+         "launches": train_ssm["wkv6_bwd"],
+         "max_abs_err": k4b["max_abs_err"],
+         "max_rel_err": k4b["max_rel_err"], "ms": k4b["ms"],
+         "device_ms": k4b["device_ms"],
+         "device_kernels_per_call": k4b["kernels_per_call"],
+         "plain_ms": k4b["plain_ms"], "bound_ms": k4b["bound_ms"],
+         "bound_by": k4b["bound_by"], "library_ms": None,
+         "shape": k4b["shape"]},
     ]
     print(f"training (phase 10): {json.dumps(tnums)}", flush=True)
     print(f"attribution and simulation (phase 11): {json.dumps(snums)}",
           flush=True)
+    print(f"fleet control plane (phase 12): {json.dumps(fnums)}", flush=True)
+    print(f"ssm training (phase 13): {json.dumps(ssm_nums)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,10 @@ moves both across without importing ``repro``:
       ``FaultRates`` / ``WorkloadProfile`` / ``RecoveryModel`` /
       ``RootCauseConfig`` / ``WatchdogConfig`` and scenarios (by registry
       name and fields) included; each nested converter is public too.
+  fleet_job_spec(spec) / fleet_run_config(cfg, device=...)
+      the port's ``FleetJobSpec`` and ``FleetRunConfig`` (every job spec,
+      ``FaultRates`` and ``WorkloadProfile`` included) from the
+      reference's.
   topology(topo) / timing_trace(trace)
       the port's ``Topology`` and ``TimingTrace`` holding a copy of a
       reference one's state, so two diagnosers start from one mid-run
@@ -57,8 +61,9 @@ from repro_torch.diagnose import (RootCauseConfig, TimingTrace, Topology,
 from repro_torch.guard import RecoveryModel, Tier
 from repro_torch.models.common import Policy
 from repro_torch.models.model import Model
-from repro_torch.simcluster import (FaultRates, RunConfig, WorkloadProfile,
-                                    scenario)
+from repro_torch.simcluster import (FaultRates, FleetJobSpec,
+                                    FleetRunConfig, RunConfig,
+                                    WorkloadProfile, scenario)
 
 
 def _fields_of(cls, obj, **override) -> dict:
@@ -337,6 +342,22 @@ def run_config(cfg, device: DeviceLike = "cuda") -> RunConfig:
     return RunConfig(**kw)
 
 
+def fleet_job_spec(spec) -> FleetJobSpec:
+    """The port's ``FleetJobSpec`` of the reference's ``spec``."""
+    return FleetJobSpec(**_fields_of(FleetJobSpec, spec,
+                                     tier=Tier(int(spec.tier))))
+
+
+def fleet_run_config(cfg, device: DeviceLike = "cuda") -> FleetRunConfig:
+    """The port's ``FleetRunConfig`` of the reference's ``cfg``; ``device``
+    places every job's detector."""
+    return FleetRunConfig(**_fields_of(
+        FleetRunConfig, cfg, device=str(device),
+        jobs=tuple(fleet_job_spec(j) for j in cfg.jobs),
+        workload=workload_profile(cfg.workload),
+        rates=fault_rates(cfg.rates)))
+
+
 def topology(topo) -> Topology:
     """The port's ``Topology`` over the same row -> group map."""
     return Topology(np.array(topo.stage_of, copy=True))
@@ -368,8 +389,9 @@ def timing_trace(trace) -> TimingTrace:
 
 
 __all__ = ["detector_config", "detector_state_to_numpy", "fault_rates",
-           "load_detector_state", "model_params", "named_params",
-           "opt_state", "policy_config", "recovery_model",
-           "reference_tree", "rootcause_config", "run_config",
-           "scenario_spec", "sweep_config", "timing_trace", "topology",
-           "triage_config", "watchdog_config", "workload_profile"]
+           "fleet_job_spec", "fleet_run_config", "load_detector_state",
+           "model_params", "named_params", "opt_state", "policy_config",
+           "recovery_model", "reference_tree", "rootcause_config",
+           "run_config", "scenario_spec", "sweep_config", "timing_trace",
+           "topology", "triage_config", "watchdog_config",
+           "workload_profile"]

@@ -41,6 +41,7 @@ FLAGS: Dict[str, Tuple[str, ...]] = {
     "flash_attention": _COMMON,
     "flash_attention_bwd": _COMMON,
     "wkv6": _COMMON,
+    "wkv6_bwd": _COMMON,
 }
 
 

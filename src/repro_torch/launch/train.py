@@ -4,7 +4,9 @@ The port of ``repro.launch.train``. By default it trains a REDUCED config
 end to end on ``--device`` (``cuda`` unless asked otherwise); ``--full``
 trains the published config, at ~16 bytes a parameter (working weights,
 gradients, float32 master weights and the two moments: ~70 GB for
-qwen3-4b before activations). Guard is wired in as the per-step
+qwen3-4b before activations). ``--arch`` takes the dense family
+(qwen3-4b, phi3-mini-3.8b, ...) and the ssm family (rwkv6-7b, whose WKV6
+runs through the forward and backward kernels on the card). Guard is wired in as the per-step
 hook: step times stream into the online monitor, and an IMMEDIATE-tier
 event restarts from the last checkpoint, the closed loop of Fig. 1 at
 single-host scale.

@@ -3,7 +3,7 @@ KV-cache (or state) decode, the port of ``repro.models.model.Model``.
 
   Model(cfg, policy, device=..., seed=..., remat=...)   parameters drawn
                              on the device
-  train_loss(batch)          -> (loss, metrics)   [dense family]
+  train_loss(batch)          -> (loss, metrics)
   prefill(tokens)            -> (last-token logits (B, Vp), cache)
   init_cache(batch, length)  -> zero cache
   decode_step(tokens, cache) -> (logits (B, Vp), cache)
@@ -16,9 +16,8 @@ returns the same dict with ``pos`` advanced; the JAX package returns a new
 cache. ``train_loss`` runs with gradients through the working weights (see
 ``models.common``); with ``remat="full"`` (the reference's default) each
 layer is ``torch.utils.checkpoint``-ed, so its forward, flash attention
-included, runs again in the backward. The ssm family does not train yet:
-its WKV kernel has no backward. The moe, hybrid, audio and vlm families
-come with their slices.
+or the WKV6 kernel included, runs again in the backward. The moe,
+hybrid, audio and vlm families come with their slices.
 """
 from __future__ import annotations
 
@@ -127,29 +126,32 @@ class Model(nn.Module):
                                          Dict[str, torch.Tensor]]:
         """batch {"tokens", "labels"} (B, S) -> (loss, {"loss", "ce",
         "aux"}), the loss a scalar float32 tensor with a graph back to the
-        working weights. Dense family only."""
+        working weights. The ssm family runs the reference's
+        ``_forward_rwkv`` (``ln0``, then each block from a zero WKV
+        state), whose WKV6 call differentiates through K4' on the card."""
         cfg = self.cfg
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"training the {cfg.family!r} family ({cfg.name}) needs a "
-                f"backward of the WKV6 kernel (repro_torch.kernels.wkv6), "
-                f"which is not written yet")
         tokens = self._tokens(batch["tokens"])
         labels = self._tokens(batch["labels"])
         B, S = tokens.shape
         x = embed_tokens(self.embed, tokens)
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=self.device)[None].expand(B, S)
-        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        if cfg.family == "ssm":
+            x = layer_norm(x, 1.0 + self.ln0, torch.zeros_like(self.ln0),
+                           cfg.norm_eps)
+            layer, extra = self._train_rwkv_layer, ()
+        else:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=self.device)[None].expand(B, S)
+            layer = self._train_layer
+            extra = (rope_tables(positions, cfg.resolved_head_dim,
+                                 cfg.rope_theta),)
         for lp in self.layers:
             if self.remat == "full" and torch.is_grad_enabled():
                 # no randomness inside a layer: the RNG state need not be
                 # saved for the recompute
-                x = checkpoint(self._train_layer, lp, x, rope,
-                               use_reentrant=False,
+                x = checkpoint(layer, lp, x, *extra, use_reentrant=False,
                                preserve_rng_state=False)
             else:
-                x = self._train_layer(lp, x, rope)
+                x = layer(lp, x, *extra)
         x = rms_norm(x, self.ln_f.to(x.dtype), cfg.norm_eps)
         logits = logits_from_hidden(self.embed, x, cfg.vocab_size,
                                     cfg.tie_embeddings)
@@ -159,6 +161,13 @@ class Model(nn.Module):
 
     def _train_layer(self, lp, x: torch.Tensor, rope) -> torch.Tensor:
         return tfm.decoder_layer(lp, self.cfg, x, rope)[0]
+
+    def _train_rwkv_layer(self, lp, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        s0 = torch.zeros((x.shape[0], H, hd, hd), dtype=torch.float32,
+                         device=self.device)
+        return rwkv6.block(lp, cfg, x, s0)[0]
 
     def _final_logits(self, x_last: torch.Tensor) -> torch.Tensor:
         x_last = rms_norm(x_last, self.ln_f.to(x_last.dtype),

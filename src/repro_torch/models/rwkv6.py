@@ -1,10 +1,12 @@
 """RWKV6 (Finch): attention-free linear recurrence with data-dependent decay.
 
-Prefill runs the chunked WKV recurrence through the WKV6 kernel on the
-card (its plain version on the CPU), with the model's chunking: 32 tokens
-when the sequence is a multiple of 32, else one chunk of the whole
-sequence. Decode is one O(1) state update in plain PyTorch, as in the JAX
-package, where it is no Pallas kernel either.
+Training and prefill run the chunked WKV recurrence through the WKV6
+kernel on the card (its plain version on the CPU), with the model's
+chunking: 32 tokens when the sequence is a multiple of 32, else one chunk
+of the whole sequence. With gradients on, the call is differentiated by
+the WKV6 backward kernel (``kernels.wkv6.ops``). Decode is one O(1) state
+update in plain PyTorch, as in the JAX package, where it is no Pallas
+kernel either.
 """
 from __future__ import annotations
 
@@ -89,7 +91,9 @@ def wkv_chunked(r, k, v, logw, u, state):
     """Chunked WKV6. r/k/v (B, S, H, hd) compute dtype; logw (B, S, H, hd)
     float32; u (H, hd); state (B, H, hd, hd) float32 -> (y (B, S, H, hd)
     float32, state). The exponent clamp makes the result depend on the
-    chunk, so the kernel gets the model's chunk, not its own default."""
+    chunk, so the kernel gets the model's chunk, not its own default. When
+    gradients are on, ``wkv6`` returns through its autograd function (K4
+    forward, K4' backward on the card)."""
     S = r.shape[1]
     return wkv6(r, k, v, logw, u, state,
                 chunk=CHUNK if S % CHUNK == 0 else S)

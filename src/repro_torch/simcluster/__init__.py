@@ -1,6 +1,7 @@
 """Simulated fleet: hardware dynamics, event-driven fault injection, the
 window-granular synchronous step engine, the declarative correlated-fault
-scenario layer, and the multi-week run simulator; the port's own copy of
+scenario layer, the multi-week run simulator and its multi-tenant fleet
+mode (``simulate_fleet``); the port's own copy of
 the JAX package's ``repro.simcluster``.
 
 The simulator is host NumPy, as in the reference: its keyed SFC64 streams
@@ -18,7 +19,9 @@ from repro_torch.simcluster.faults import (BROWNOUT_HANG_SEV, GREY_KINDS,
 from repro_torch.simcluster.node import (THROTTLE_CURVE_C,
                                          THROTTLE_CURVE_GHZ, Fleet, HWConfig,
                                          freq_at_temp)
-from repro_torch.simcluster.runtime import (RunConfig, RunResult, Tier,
+from repro_torch.simcluster.runtime import (FleetJobSpec, FleetRunConfig,
+                                            FleetRunResult, RunConfig,
+                                            RunResult, Tier, simulate_fleet,
                                             simulate_run)
 from repro_torch.simcluster.scenarios import (CongestionStorm,
                                               DeadlockedCollective,
@@ -34,7 +37,8 @@ from repro_torch.simcluster.scenarios import (CongestionStorm,
 __all__ = [
     "BROWNOUT_HANG_SEV",
     "CongestionStorm", "DeadlockedCollective", "FaultInjector", "FaultKind",
-    "FaultRates", "Fleet",
+    "FaultRates", "Fleet", "FleetJobSpec", "FleetRunConfig",
+    "FleetRunResult",
     "GREY_KINDS", "HANG_KINDS", "HWConfig", "InitialGreyPopulation",
     "MaintenanceWindow",
     "PartialNicBrownout",
@@ -43,5 +47,6 @@ __all__ = [
     "SwitchFailure", "THROTTLE_CURVE_C",
     "THROTTLE_CURVE_GHZ",
     "Tier", "WorkloadProfile", "arm_all", "builtin_scenarios",
-    "freq_at_temp", "register_scenario", "scenario", "simulate_run",
+    "freq_at_temp", "register_scenario", "scenario", "simulate_fleet",
+    "simulate_run",
 ]

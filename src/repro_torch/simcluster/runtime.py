@@ -33,12 +33,16 @@ for bit; ``RunConfig.device`` places the session's detector, whose
 fleet_score kernel scores every window's frame on the card (the tests
 pass ``"cpu"``, which runs the kernel's plain version).
 
-The reference's multi-tenant ``simulate_fleet`` drives the fleet control
-plane (``repro.fleet``) and comes with the port of that package.
+``simulate_fleet`` drives N concurrent jobs through one
+``repro_torch.fleet.FleetController`` (global spare pool, shared sweep
+bench, healthscan, fleet event log); ``FleetRunConfig.device`` places
+every job's detector, so each job's observed windows run fleet_score on
+the card.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -544,3 +548,263 @@ def simulate_run(cfg: RunConfig) -> RunResult:
         goodput_tflop_h=goodput_tflop_h(
             good_steps, cfg.workload.step_tflops, elapsed_h),
         recovery=recovery_summary, pools=pools)
+
+
+# --------------------------------------------------------------------------
+# Fleet mode: N concurrent jobs through one FleetController
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FleetJobSpec:
+    """One tenant of the fleet control plane."""
+    name: str
+    tier: Tier = Tier.ONLINE
+    n_nodes: int = 128
+    n_spare: int = 4          # private spares adopted into the pool at t=0
+    priority: Optional[int] = None    # defaults to the tier value
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetRunConfig:
+    """The multi-tenant sim: every job shares the controller's global
+    spare pool, sweep bench, healthscan and event log."""
+    jobs: Tuple[FleetJobSpec, ...] = ()
+    duration_h: float = 24.0
+    window_steps: int = 6
+    checkpoint_interval_steps: int = 90
+    crash_detect_s: float = 120.0
+    crash_recovery_s: float = 600.0
+    restart_overhead_s: float = 600.0
+    provision_delay_s: float = 1800.0
+    ccl_timeout_s: float = 600.0
+    initial_grey_p: float = 0.05
+    auto_human_h: float = 0.5
+    # fleet control plane
+    bench_slots: int = 4
+    healthscan_period_s: Optional[float] = 6 * 3600.0
+    healthscan_batch: int = 16
+    starvation_age_s: float = 3600.0
+    floor_frac: float = 0.5
+    spare_target: int = 16            # global free-pool floor
+    home_min: int = 2                 # per-job sweep-buddy floor
+    log_capacity: int = 65536
+    workload: WorkloadProfile = dataclasses.field(
+        default_factory=WorkloadProfile)
+    rates: FaultRates = dataclasses.field(default_factory=FaultRates)
+    seed: int = 0
+    # where every job's session keeps its detector and scores its windows
+    # (no silent CPU fall back: "cuda" without a card raises)
+    device: DeviceLike = "cuda"
+
+
+@dataclasses.dataclass
+class FleetRunResult:
+    jobs: List[dict]                  # per-job summaries
+    elapsed_h: float                  # sim-time horizon reached
+    starvation_events: int
+    max_wait_s: float
+    census: Dict[str, object]         # FleetController.census()
+    census_ok: bool
+    pool: Dict[str, int]              # grants / transfers / provisions
+    healthscan: Dict[str, int]
+    events_logged: int
+    overhead_s: float                 # control-plane self-time
+    wall_s: float                     # total sim wall time
+    overhead_frac: float              # overhead_s / wall_s (<5% gated)
+
+
+@dataclasses.dataclass
+class _FleetJobState:
+    spec: FleetJobSpec
+    cluster: SimCluster
+    session: GuardSession
+    last_ckpt_step: int = 0
+    win_accum: int = 0
+    crashes: int = 0
+    restarts: int = 0
+    total_steps: int = 0
+    human_hours: float = 0.0
+
+
+def _fleet_restart(job: "_FleetJobState", cfg: FleetRunConfig,
+                   reason: str, rewind: bool) -> None:
+    """Cold-restore restart for the fleet driver (the tiered-checkpoint
+    ladder lives in ``simulate_run``; fleet mode keeps recovery lean)."""
+    cluster = job.cluster
+    cluster.advance_idle(cfg.restart_overhead_s)
+    lost = 0
+    if rewind:
+        target = min(job.last_ckpt_step, cluster.step)
+        lost = cluster.step - target
+        cluster.step = target
+    cluster.restart_job(reason)
+    job.restarts += 1
+    job.session.publish(JobRestart(t=cluster.t, step=cluster.step,
+                                   reason=reason, lost_steps=lost,
+                                   rewind=rewind))
+
+
+def _fleet_window(job: "_FleetJobState", cfg: FleetRunConfig,
+                  controller) -> None:
+    """Advance one job by (up to) one evaluation window — the fleet
+    driver's unit of interleaving."""
+    cluster, session = job.cluster, job.session
+    ckpt_every = cfg.checkpoint_interval_steps
+    to_ckpt = ckpt_every - (cluster.step % ckpt_every)
+    win = cluster.run_window(min(cfg.window_steps - job.win_accum, to_ckpt))
+    job.total_steps += win["steps_run"]
+
+    if win["crashed"]:
+        job.crashes += 1
+        cluster.advance_idle(cfg.crash_detect_s + cfg.crash_recovery_s)
+        job.human_hours += cfg.auto_human_h
+        while cluster.crashed_nodes():
+            dead = cluster.crashed_nodes()
+            missing = max(0, len(dead) - session.spares_free)
+            if missing:
+                # global pool dry mid-incident: the job waits for the
+                # controller to materialize capacity
+                cluster.advance_idle(missing * cfg.provision_delay_s)
+            session.handle_crash(dead,
+                                 lost_steps=cluster.step -
+                                 job.last_ckpt_step,
+                                 step=cluster.step)
+            for bad in dead:
+                cluster.injector.clear_node(bad)
+        _fleet_restart(job, cfg, "fail-stop crash", rewind=True)
+        job.win_accum = 0
+        return
+
+    if win["hung"]:
+        # lean hang handling: wait out the framework CCL abort, evict
+        # nothing (no ccltrace layer in fleet mode), restart blind
+        cluster.advance_idle(cfg.ccl_timeout_s)
+        job.crashes += 1
+        job.human_hours += cfg.auto_human_h
+        session.mttf.observe_failure(cluster.t)
+        _fleet_restart(job, cfg, "collective hang (CCL timeout)",
+                       rewind=True)
+        job.win_accum = 0
+        return
+
+    job.win_accum += win["steps_run"]
+    session.advance(cluster.t, step=cluster.step)
+
+    if session.online_monitoring and job.win_accum >= cfg.window_steps:
+        job.win_accum = 0
+        frame = cluster.collect()
+        if frame is not None:
+            outcome = session.observe(frame)
+            for reason in outcome.restarts:
+                job.human_hours += cfg.auto_human_h
+                _fleet_restart(job, cfg, reason, rewind=True)
+    elif job.win_accum >= cfg.window_steps:
+        job.win_accum = 0
+
+    if cluster.step > 0 and cluster.step % ckpt_every == 0:
+        job.last_ckpt_step = cluster.step
+        ck = session.on_checkpoint(now=cluster.t, step=cluster.step)
+        if ck.applied_swaps:
+            job.human_hours += ck.applied_swaps * cfg.auto_human_h
+            _fleet_restart(job, cfg, "deferred swaps", rewind=False)
+            job.win_accum = 0
+        job.human_hours += session.drain_human_hours()
+        # warm-pool maintenance is a CONTROLLER duty in fleet mode: the
+        # global floor + per-job buddy floor replace per-job n_spare
+        controller.top_up(cfg.spare_target, home_min=cfg.home_min)
+
+
+def simulate_fleet(cfg: FleetRunConfig) -> FleetRunResult:
+    """Drive N concurrent jobs through one ``FleetController``.
+
+    Jobs advance in global event order (the job with the smallest sim
+    clock steps next), so cross-job contention on the pool and bench is
+    resolved in the same order a real shared control plane would see
+    the requests. Control-plane overhead is the controller's self-timed
+    entry points as a fraction of total sim wall time."""
+    from repro_torch.fleet import FleetController
+
+    assert cfg.jobs, "FleetRunConfig needs at least one job"
+    wall0 = time.perf_counter()
+    controller = FleetController(
+        bench_slots=cfg.bench_slots,
+        starvation_age_s=cfg.starvation_age_s,
+        floor_frac=cfg.floor_frac,
+        log_capacity=cfg.log_capacity,
+        healthscan_period_s=cfg.healthscan_period_s,
+        healthscan_batch=cfg.healthscan_batch)
+    rng = np.random.RandomState(cfg.seed + 17)
+    jobs: List[_FleetJobState] = []
+    for spec in cfg.jobs:
+        cluster = SimCluster(spec.n_nodes, spec.n_spare,
+                             workload=cfg.workload, rates=cfg.rates,
+                             window_steps=cfg.window_steps,
+                             seed=cfg.seed + spec.seed)
+        # no inline admission in fleet mode: spares live in the shared
+        # pool and the healthscan orchestrator is the line of defense
+        # against admission greys (the cluster-service model)
+        session = GuardSession.from_tier(Tier(spec.tier), control=cluster,
+                                         sweep_backend=cluster,
+                                         sweep_cfg=SweepConfig(),
+                                         device=cfg.device)
+        session.register_active(cluster.active)
+        session.register_spares(cluster.spares)
+        controller.register_job(spec.name, session,
+                                priority=spec.priority)
+        if cfg.initial_grey_p > 0:
+            arm_all([InitialGreyPopulation(p=cfg.initial_grey_p)],
+                    cluster, rng)
+        cluster.fleet.advance_thermals(3600.0)
+        jobs.append(_FleetJobState(spec, cluster, session))
+    controller.top_up(cfg.spare_target, home_min=cfg.home_min)
+
+    duration_s = cfg.duration_h * 3600.0
+    while True:
+        pending = [j for j in jobs if j.cluster.t < duration_s]
+        if not pending:
+            break
+        job = min(pending, key=lambda j: j.cluster.t)
+        _fleet_window(job, cfg, controller)
+        controller.tick(job.cluster.t)
+
+    for job in jobs:
+        job.session.scheduler.drain(job.cluster.t, step=job.cluster.step)
+        job.human_hours += job.session.drain_human_hours()
+
+    census = controller.census()
+    wall_s = time.perf_counter() - wall0
+    fj = controller.jobs
+    return FleetRunResult(
+        jobs=[{
+            "name": j.spec.name,
+            "tier": int(j.spec.tier),
+            "priority": fj[j.spec.name].priority,
+            "n_nodes": j.spec.n_nodes,
+            "steps": j.total_steps,
+            "good_steps": int(j.cluster.step),
+            "crashes": j.crashes,
+            "restarts": j.restarts,
+            "leases": fj[j.spec.name].leases,
+            "transfers": fj[j.spec.name].transfer_grants,
+            "provision_grants": fj[j.spec.name].provision_grants,
+            "human_hours": j.human_hours,
+            "elapsed_h": j.cluster.t / 3600.0,
+        } for j in jobs],
+        elapsed_h=max(j.cluster.t for j in jobs) / 3600.0,
+        starvation_events=controller.starvation_events(),
+        max_wait_s=controller.pool.stats.max_wait_s,
+        census=census,
+        census_ok=bool(census["conserved"]),
+        pool={"grants": controller.pool.stats.grants,
+              "transfers": controller.pool.stats.transfers,
+              "provisions": controller.pool.stats.provisions},
+        healthscan={
+            "campaigns": controller.healthscan.campaigns,
+            "scanned": controller.healthscan.scanned,
+            "failed": len(controller.healthscan.failed),
+        } if controller.healthscan is not None else {},
+        events_logged=controller.log.head,
+        overhead_s=controller.overhead_s,
+        wall_s=wall_s,
+        overhead_frac=controller.overhead_s / max(wall_s, 1e-9))

@@ -1,5 +1,6 @@
-"""Parity of the port's WKV6 recurrence with the JAX package's Pallas
-kernel and token-by-token oracle.
+"""Parity of the port's WKV6 recurrence and its backward with the JAX
+package's Pallas kernel, token-by-token oracle and differentiated model
+recurrence.
 
 The plain PyTorch versions are held against the reference ``wkv6``
 (Pallas in interpret mode) and ``wkv6_naive`` on the shapes and with the
@@ -10,9 +11,15 @@ chunk-start state materialised first, then y formed chunk by chunk in
 32-token query and key tiles) is held to the same oracles at chunk lengths
 that are no multiple of 32, single chunks of the whole sequence among
 them; the shape rule is pinned against the lengths the reference model
-takes. The CUDA kernels are held against the plain version on the card
-(marked ``cuda``: skips here).
+takes. The explicit backward ``wkv6_bwd_ref`` is held to ``jax.vjp`` of
+the reference model's ``wkv_chunked`` and to autograd of ``wkv6_ref`` in
+float32 within 1e-5 of each gradient's largest magnitude (measured: 2e-6
+and 2e-7), at C = 32 and at one chunk of a length 32 does not divide,
+with exponents driven past the +-25 clamp and a nonzero state gradient.
+The CUDA kernels are held against the plain versions on the card (marked
+``cuda``: skips here).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,9 +27,13 @@ import torch
 
 from repro.kernels.wkv6 import wkv6 as jax_wkv6
 from repro.kernels.wkv6 import wkv6_naive as jax_wkv6_naive
-from repro_torch.kernels.wkv6 import (COUNTER, scratch_bytes, supports,
-                                      wkv6, wkv6_bytes, wkv6_chunked,
-                                      wkv6_naive, wkv6_ref)
+from repro.models.rwkv6 import wkv_chunked as jax_wkv_chunked
+from repro_torch.kernels.wkv6 import (BWD_COUNTER, COUNTER, scratch_bytes,
+                                      supports, wkv6, wkv6_bwd_bytes,
+                                      wkv6_bwd_flops, wkv6_bwd_ref,
+                                      wkv6_bytes, wkv6_chunked,
+                                      wkv6_chunked_bwd, wkv6_naive,
+                                      wkv6_plain, wkv6_ref)
 from repro_torch.models.rwkv6 import CHUNK, wkv_chunked
 
 SHAPES = [(2, 128, 2, 64, 32), (1, 64, 4, 32, 64), (2, 96, 1, 16, 32),
@@ -34,12 +45,14 @@ TILED = [(1, 48, 2, 16, 48), (2, 100, 1, 32, 100), (1, 7, 2, 64, 7),
          (1, 70, 1, 16, 35), (1, 96, 2, 32, 32), (1, 130, 1, 128, 130)]
 
 
-def _inputs(B, S, H, hd, seed):
-    """Model layout (B, S, H, hd), as tests/test_kernels.py draws them."""
+def _inputs(B, S, H, hd, seed, decay=-2.0):
+    """Model layout (B, S, H, hd), as tests/test_kernels.py draws them;
+    ``decay`` the mean of log(-logw) (-2: about -0.14 a token; 0.5: about
+    -1.9, so a chunk of 32 tokens drives clw far past the -25 clamp)."""
     rng = np.random.default_rng(seed)
     mk = lambda *s: (rng.standard_normal(s) * 0.5).astype(np.float32)
     r, k, v = mk(B, S, H, hd), mk(B, S, H, hd), mk(B, S, H, hd)
-    logw = -np.exp(rng.standard_normal((B, S, H, hd)) * 0.5 - 2.0
+    logw = -np.exp(rng.standard_normal((B, S, H, hd)) * 0.5 + decay
                    ).astype(np.float32)
     u = mk(H, hd) * 0.3
     s0 = mk(B, H, hd, hd) * 0.1
@@ -225,6 +238,104 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert COUNTER.launches == before
 
 
+# the backward: B, S, H, hd, decay, with a state gradient. The model's
+# chunk: 32 for S = 64 and 96, one chunk of S for S = 40, 100 and 7.
+BWD = [(2, 64, 2, 16, -2.0, True), (1, 40, 2, 32, -2.0, True),
+       (1, 64, 2, 16, 0.5, True), (1, 100, 1, 32, 0.5, True),
+       (1, 96, 1, 64, 0.5, False), (2, 7, 1, 16, -2.0, True)]
+
+
+def _cotangents(B, S, H, hd, seed, with_ds):
+    rng = np.random.default_rng(seed)
+    dy = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    ds = rng.standard_normal((B, H, hd, hd)).astype(np.float32) \
+        if with_ds else np.zeros((B, H, hd, hd), np.float32)
+    return dy, ds
+
+
+def _bwd_close(got, want, what, tol=1e-5):
+    for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got,
+                          want):
+        g, w = np.asarray(g, np.float32), np.asarray(w, np.float32)
+        assert g.shape == w.shape, (what, name)
+        err = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
+        assert err <= tol, f"{what} {name}: {err:.2e}"
+
+
+@pytest.mark.parametrize("B,S,H,hd,decay,with_ds", BWD)
+def test_bwd_ref_matches_jax_vjp_and_autograd(B, S, H, hd, decay, with_ds):
+    xs = _inputs(B, S, H, hd, seed=S + hd, decay=decay)
+    dy, ds = _cotangents(B, S, H, hd, seed=S, with_ds=with_ds)
+    C = CHUNK if S % CHUNK == 0 else S
+    if decay > 0:                        # the clamp really cuts
+        clw = np.cumsum(xs[3][:, :min(C, 32)], axis=1)
+        assert (clw < -25).mean() > 0.2
+    _, vjp = jax.vjp(jax_wkv_chunked, *(jnp.asarray(x) for x in xs))
+    jg = vjp((jnp.asarray(dy), jnp.asarray(ds)))
+    r, k, v, logw, u, s0 = _t(xs)
+    kl = [t.transpose(1, 2) for t in (r, k, v, logw)]
+    got = wkv6_bwd_ref(*kl, u, s0, torch.from_numpy(dy).transpose(1, 2),
+                       torch.from_numpy(ds) if with_ds else None, chunk=C)
+    got = [g.transpose(1, 2) if i < 4 else g for i, g in enumerate(got)]
+    _bwd_close(got, [np.asarray(g) for g in jg], "vs jax.vjp")
+    ts = [x.clone().requires_grad_(True) for x in _t(xs)]
+    y, st = wkv6_ref(*(t.transpose(1, 2) for t in ts[:4]), ts[4], ts[5],
+                     chunk=C)
+    torch.autograd.backward([y, st], [torch.from_numpy(dy).transpose(1, 2),
+                                      torch.from_numpy(ds)])
+    _bwd_close(got, [t.grad for t in ts], "vs autograd")
+
+
+def test_plain_function_differentiates_through_bwd_ref(monkeypatch):
+    """On the CPU ``wkv6`` (and ``wkv6_plain``) with gradients on runs the
+    autograd function whose backward is ``wkv6_bwd_ref``: one call each,
+    the same gradients as autograd through ``wkv6_ref`` (1e-5)."""
+    import repro_torch.kernels.wkv6.ops as ops
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(kw["chunk"])
+        return wkv6_bwd_ref(*a, **kw)
+
+    monkeypatch.setattr(ops, "wkv6_bwd_ref", counted)
+    xs = _inputs(1, 40, 2, 16, seed=11)
+    dy, _ = _cotangents(1, 40, 2, 16, seed=12, with_ds=False)
+    grads = []
+    for fn in (wkv6, wkv6_plain, None):
+        ts = [x.clone().requires_grad_(True) for x in _t(xs)]
+        if fn is None:
+            y, _ = wkv6_ref(*(t.transpose(1, 2) for t in ts[:4]), ts[4],
+                            ts[5], chunk=40)
+            y = y.transpose(1, 2)
+        else:
+            y, _ = fn(*ts, chunk=40)
+        (y * torch.from_numpy(dy)).sum().backward()
+        grads.append([t.grad for t in ts])
+    assert calls == [40, 40]
+    for got in grads[:2]:
+        _bwd_close(got, grads[2], "function vs autograd")
+    with torch.no_grad():
+        y, _ = wkv6(*_t(xs), chunk=40)
+    assert calls == [40, 40] and not y.requires_grad
+
+
+def test_bwd_bound_of_the_training_shape():
+    # rwkv6-7b training, one 4,096-token sequence in chunks of 32, bf16
+    # r/k/v: ~11.8 GFLOP float32 and ~405 MB to move
+    assert 11.7e9 < wkv6_bwd_flops(1, 64, 4096, 64, 32) < 11.8e9
+    assert 404e6 < wkv6_bwd_bytes(1, 64, 4096, 64, 2) < 405e6
+
+
+def test_bwd_kernel_wrapper_refuses_cpu_tensors():
+    r, k, v, logw, u, s0 = _t(_inputs(1, 32, 1, 16, seed=13))
+    kl = [x.transpose(1, 2) for x in (r, k, v, logw)]
+    starts = torch.zeros((1, 1, 1, 16, 16))
+    before = BWD_COUNTER.launches
+    with pytest.raises(ValueError):
+        wkv6_chunked_bwd(*kl, u, starts, kl[0].float(), chunk=32)
+    assert BWD_COUNTER.launches == before
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -264,3 +375,37 @@ def test_kernel_refuses_unaligned_rows_on_card(cuda):
         wkv6_chunked(*(t.transpose(1, 2) for t in (odd, k, v, logw)), u, s0,
                      chunk=32)
     assert COUNTER.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,decay,with_ds",
+                         BWD + [(1, 4096, 4, 64, -2.0, True),
+                                (1, 1000, 1, 128, 0.5, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_matches_plain_on_card(cuda, B, S, H, hd, decay, with_ds,
+                                          dtype):
+    xs = [x.to(cuda) for x in _t(_inputs(B, S, H, hd, seed=14,
+                                          decay=decay))]
+    dy, ds = (torch.from_numpy(x).to(cuda) for x in _cotangents(
+        B, S, H, hd, seed=15, with_ds=with_ds))
+    r, k, v = (x.to(dtype).transpose(1, 2) for x in xs[:3])
+    logw, u, s0 = xs[3].transpose(1, 2), xs[4], xs[5]
+    C = CHUNK if S % CHUNK == 0 else S
+    _, _, starts = wkv6_chunked(r, k, v, logw, u, s0, chunk=C,
+                                keep_states=True)
+    dy = dy.transpose(1, 2)
+    before = BWD_COUNTER.launches
+    got = wkv6_chunked_bwd(r, k, v, logw, u, starts, dy, ds, chunk=C)
+    again = wkv6_chunked_bwd(r, k, v, logw, u, starts, dy, ds, chunk=C)
+    assert BWD_COUNTER.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = wkv6_bwd_ref(r, k, v, logw, u, s0, dy, ds, chunk=C)
+    # float32 outputs differ by summation order and ex2 (1e-4); bfloat16
+    # dr, dk, dv are each rounded once from float32 values a few roundings
+    # apart: at most one bfloat16 step, 2^-8 of the element (8e-3)
+    for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got,
+                          want):
+        tol = 8e-3 if g.dtype == torch.bfloat16 else 1e-4
+        g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
+        err = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
+        assert err <= tol, f"kernel vs plain {name}: {err:.2e}"
