@@ -112,6 +112,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_SIMT_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
+TF32_TENSOR_FLOPS = 495e12
 
 N_MAIN = 16_384            # nodes on the main path
 N_SPARES = 64
@@ -1926,38 +1927,50 @@ K4B_CASES = [
     (1, 1000, 4, 64, 1000, "bfloat16", 0.5, True),
 ]
 # Each gradient's largest |kernel - plain| over its largest magnitude.
-# Both run the same float32 equations on the same inputs and the same
-# chunk-start states, in another order of sums and with e^x as ex2 in the
-# kernel: float32 outputs (all of them in float32, dlogw, du and ds0 in
-# both) differ by a few float32 roundings, up to 1.8e-6 measured on an
-# H100, so 1e-4. In bfloat16, dr, dk and dv are rounded once to bfloat16
-# by both, from float32 values a few roundings apart: at most one
-# bfloat16 step, 2^-8 of the element's magnitude (up to 3.7e-3 of the
-# largest measured on an H100), so 8e-3.
+# Both run the same equations on the same inputs and the same chunk-start
+# states, in another order of sums, with e^x as ex2 and the products on
+# the tensor cores in TF32 split three ways (3xTF32: ~21 bits a product,
+# float32 keeps 24): float32 outputs (all of them in float32, dlogw, du
+# and ds0 in both) differ by a few float32 roundings, up to 1.0e-5
+# measured on an H100 (dlogw of the 1,000-token chunk past the clamp;
+# <= 2e-6 elsewhere), so 1e-4. In bfloat16, dr, dk and dv are rounded
+# once to bfloat16 by both, from float32 values a few roundings apart: at
+# most one bfloat16 step, 2^-8 of the element's magnitude (up to 3.7e-3
+# of the largest measured on an H100), so 8e-3.
 K4B_TOL = {"bfloat16": 8e-3, "float32": 1e-4}
 K4B_KERNELS = ["wkv6_bwd_state", "wkv6_bwd_out", "wkv6_bwd_du"]
 
 
+def k4b_inputs(torch, np, i: int):
+    """Seeded inputs of ``K4B_CASES[i]`` on the card, in the kernel's
+    (B, H, S, hd) layout: r, k, v, logw, u, s0, dy, ds (None unless the
+    case has a state gradient) and the chunk-start states K4 keeps."""
+    from repro_torch.kernels.wkv6 import wkv6_chunked
+    b, s, h, hd, c, dname, decay, full = K4B_CASES[i]
+    dt = getattr(torch, dname)
+    rng = np.random.default_rng(400 + i)
+
+    def mk(*shape, scale=0.5):
+        x = rng.standard_normal(shape, dtype=np.float32) * scale
+        return torch.from_numpy(x).cuda()
+    r, k, v = (mk(b, s, h, hd).to(dt).transpose(1, 2) for _ in range(3))
+    logw = (-torch.exp(mk(b, s, h, hd) + decay)).transpose(1, 2)
+    u = mk(h, hd, scale=0.15)
+    s0 = mk(b, h, hd, hd, scale=0.05 if full else 0.0)
+    dy = mk(b, s, h, hd, scale=1.0).transpose(1, 2)
+    ds = mk(b, h, hd, hd, scale=1.0) if full else None
+    _, _, starts = wkv6_chunked(r, k, v, logw, u, s0, chunk=c,
+                                keep_states=True)
+    return r, k, v, logw, u, s0, dy, ds, starts
+
+
 def phase_k4_bwd(torch, np):
     from repro_torch.kernels.wkv6 import (wkv6_bwd_bytes, wkv6_bwd_flops,
-                                          wkv6_bwd_ref, wkv6_chunked,
-                                          wkv6_chunked_bwd)
+                                          wkv6_bwd_ref, wkv6_chunked_bwd)
     main = None
     for i, (b, s, h, hd, c, dname, decay, full) in enumerate(K4B_CASES):
         dt = getattr(torch, dname)
-        rng = np.random.default_rng(400 + i)
-
-        def mk(*shape, scale=0.5):
-            x = rng.standard_normal(shape, dtype=np.float32) * scale
-            return torch.from_numpy(x).cuda()
-        r, k, v = (mk(b, s, h, hd).to(dt).transpose(1, 2) for _ in range(3))
-        logw = (-torch.exp(mk(b, s, h, hd) + decay)).transpose(1, 2)
-        u = mk(h, hd, scale=0.15)
-        s0 = mk(b, h, hd, hd, scale=0.05 if full else 0.0)
-        dy = mk(b, s, h, hd, scale=1.0).transpose(1, 2)
-        ds = mk(b, h, hd, hd, scale=1.0) if full else None
-        _, _, starts = wkv6_chunked(r, k, v, logw, u, s0, chunk=c,
-                                    keep_states=True)
+        r, k, v, logw, u, s0, dy, ds, starts = k4b_inputs(torch, np, i)
 
         def call():
             return wkv6_chunked_bwd(r, k, v, logw, u, starts, dy, ds,
@@ -1991,15 +2004,21 @@ def phase_k4_bwd(torch, np):
         dev_ms = sum(split.values())
         flops = wkv6_bwd_flops(b, h, s, hd, c)
         nbytes = wkv6_bwd_bytes(b, h, s, hd, r.element_size())
-        bnd, by = bound(flops, FP32_SIMT_FLOPS, nbytes)
+        # the products run on the tensor cores in TF32 (three per product:
+        # the 3xTF32 split); the CUDA cores' bound is printed beside it
+        bnd, by = bound(flops, TF32_TENSOR_FLOPS, nbytes)
+        simt = flops / FP32_SIMT_FLOPS * 1e3
+        tf32 = flops / TF32_TENSOR_FLOPS * 1e3
         line = (f"{tag}: max err / max abs " + ", ".join(
             f"{n} {e:.3e}" for n, e in errs.items()) + f" (tol "
             f"{K4B_TOL[dname]} for {dname} outputs, 1e-4 float32), two "
             f"calls bit-equal; kernel {ms:.4f} ms a call ({dev_ms:.4f} ms "
             f"on the device, {len(names)} kernels: "
             f"{', '.join(names)}), {bnd / ms:.2%} of bound, bound "
-            f"{bnd:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP fp32, "
-            f"{nbytes / 1e6:.2f} MB)")
+            f"{bnd:.4f} ms ({by}; {nbytes / 1e6:.2f} MB; "
+            f"{flops / 1e9:.3f} GFLOP: {tf32:.4f} ms at 495 TFLOP/s TF32, "
+            f"{3 * tf32:.4f} ms for the split's three products; the CUDA "
+            f"cores' bound {simt:.4f} ms)")
         plain = None
         if i < 2:                    # the plain version at the main shape
             plain = time_ms(lambda: wkv6_bwd_ref(r, k, v, logw, u, s0, dy,

@@ -11,9 +11,12 @@ scratch too, for the backward.
 
 Backward (``csrc/wkv6_bwd.cu``, K4'): dr, dk, dv, dlogw, du and ds0 from
 dy, d(final state) and the forward's chunk-start states, at the same
-chunk; three device kernels a call (four when C > 32), float32 sums in a
-fixed order with no atomics, so two calls are bit-equal. ``BWD_COUNTER``
-counts its calls.
+chunk; three device kernels a call (four when C > 32): a reverse pass for
+the state gradient of every chunk (a cp.async ring, as K4's state pass),
+then one block per 32-token tile whose products run on the tensor cores
+in TF32 with the 3xTF32 split (float32 accuracy), sums in a fixed order
+with no atomics, so two calls are bit-equal. ``BWD_COUNTER`` counts its
+calls.
 
 The libraries are built with ``nvcc`` at the first launch (see
 ``repro_torch.kernels._build``). The wrappers check their inputs,
@@ -173,7 +176,7 @@ def wkv6_chunked_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, hd, hd) float32): ``ref.wkv6_bwd_ref`` on the card. The four
     sequence gradients are (B, H, S, hd) views of (B, S, H, hd) buffers,
     as y is; dy and the inputs need 16-byte aligned bases and strides, as
-    the forward's inputs do."""
+    the forward's inputs do (both passes read them in 16-byte pieces)."""
     _check_sequences("wkv6 backward", r, (("k", k), ("v", v),
                                           ("logw", logw), ("u", u),
                                           ("starts", starts), ("dy", dy)))

@@ -16,8 +16,12 @@ the reference model's ``wkv_chunked`` and to autograd of ``wkv6_ref`` in
 float32 within 1e-5 of each gradient's largest magnitude (measured: 2e-6
 and 2e-7), at C = 32 and at one chunk of a length 32 does not divide,
 with exponents driven past the +-25 clamp and a nonzero state gradient.
-The CUDA kernels are held against the plain versions on the card (marked
-``cuda``: skips here).
+The backward kernel's products run on the tensor cores in TF32 with the
+3xTF32 split; an emulation of TF32 rounding holds that split of a tile's
+32 x 64 x 64 product to the float32 product (1e-5 of its max) and shows
+that one TF32 pass does not hold the kernel's 1e-4. The CUDA kernels are
+held against the plain versions on the card (marked ``cuda``: skips
+here).
 """
 import jax
 import jax.numpy as jnp
@@ -324,6 +328,49 @@ def test_bwd_bound_of_the_training_shape():
     # r/k/v: ~11.8 GFLOP float32 and ~405 MB to move
     assert 11.7e9 < wkv6_bwd_flops(1, 64, 4096, 64, 32) < 11.8e9
     assert 404e6 < wkv6_bwd_bytes(1, 64, 4096, 64, 2) < 405e6
+
+
+def _tf32(x: torch.Tensor, nearest: bool = True) -> torch.Tensor:
+    """x as TF32 (its 13 low mantissa bits cleared): rounded to nearest,
+    ties away from zero, as the kernel rounds its hi part (and
+    ``cvt.rna.tf32.f32``), or truncated, as the tensor core reads a float32
+    register (the kernel's lo part)."""
+    bits = x.contiguous().view(torch.int32)
+    if nearest:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tf32_split_holds_a_tile_product(seed):
+    """dq_ = dy S_{c-1}^T of one 32-token tile at hd 64, with dy ~ N(0, 1)
+    and S the state K4 carries at phase 13(a)'s input scales: the kernel's
+    3xTF32 split (hi = x to nearest TF32, lo = x - hi read truncated;
+    lo.hi + hi.lo + hi.hi, each product exact) is within 1e-5 of the
+    float32 product's max (measured: ~3e-7, float32's own rounding), one
+    TF32 pass is not within 1e-4 (measured: 2.5-3e-4)."""
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape, scale=0.5):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32))
+    S, hd = 256, 64
+    r, k, v = (mk(1, 1, S, hd) for _ in range(3))
+    logw = -torch.exp(mk(1, 1, S, hd) - 2.0)
+    _, state = wkv6_ref(r, k, v, logw, torch.zeros(1, hd),
+                        torch.zeros(1, 1, hd, hd), chunk=32)
+    dy, st = mk(32, hd, scale=1.0), state[0, 0].T.contiguous()
+    want = dy @ st
+    a_hi, b_hi = _tf32(dy), _tf32(st)
+    a_lo, b_lo = _tf32(dy - a_hi, False), _tf32(st - b_hi, False)
+    assert torch.equal(_tf32(a_hi), a_hi) and torch.equal(_tf32(b_lo), b_lo)
+    d = torch.float64
+    split = (a_lo.to(d) @ b_hi.to(d) + a_hi.to(d) @ b_lo.to(d)
+             + a_hi.to(d) @ b_hi.to(d)).float()
+    one = (a_hi.to(d) @ b_hi.to(d)).float()
+    top = want.abs().max()
+    assert float((split - want).abs().max() / top) <= 1e-5
+    assert float((one - want).abs().max() / top) > 1e-4
 
 
 def test_bwd_kernel_wrapper_refuses_cpu_tensors():

@@ -1,0 +1,12 @@
+#pragma once
+#include "cuda_runtime.h"
+struct __nv_bfloat16 { uint16_t x; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline float __bfloat162float(__nv_bfloat16 h) { return __uint_as_float((uint32_t)h.x << 16); }
+inline __nv_bfloat16 __float2bfloat16(float f) {
+  uint32_t u = __float_as_uint(f);
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return {(uint16_t)(u >> 16)};
+}
+inline float2 __bfloat1622float2(__nv_bfloat162 v) { return {__bfloat162float(v.x), __bfloat162float(v.y)}; }
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2bfloat16(a), __float2bfloat16(b)}; }

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time an earlier design of the fleet_score (K1) and flash-attention
-backward (K3') kernels beside this tree's, in turns, on one card.
+"""Time an earlier design of the fleet_score (K1), flash-attention
+backward (K3') and WKV6 backward (K4') kernels beside this tree's, in
+turns, on one card.
 
 Run from the repository root:
 
@@ -15,7 +16,11 @@ the order earlier, this tree, this tree, earlier (median of CUDA-event
 timings each). Their outputs are held against each other: K1 bit for bit,
 K3' (qwen3-4b's training shape, causal, bfloat16) each of dq, dk, dv
 within 2e-2 of its largest magnitude (a redesign may sum in another
-order). A kernel is compared only when the earlier tree holds its
+order), K4' (rwkv6-7b's training shape, bfloat16 and float32, the inputs
+of ``chip_smoke.py`` phase 13(a)) each of its six gradients within
+``chip_smoke.K4B_TOL`` of its largest magnitude. K4' is timed by its C
+entry point on both sides, into buffers allocated once, so the times are
+the device's. A kernel is compared only when the earlier tree holds its
 source and that source differs from this tree's. Prints the card's name
 and power limit, one line per shape, and a JSON line of all times.
 """
@@ -34,6 +39,7 @@ sys.path.insert(0, str(ROOT))
 
 K1_SHAPES = [(1, 8, 16_384), (6, 8, 16_384), (1, 8, 131_072)]
 K3B_SHAPES = [(1, 32, 8, 4096, 128)]      # B, Hq, Hkv, S = T, hd; causal
+K4B_CASES = [0, 1]        # chip_smoke.K4B_CASES: the training shape, bf16, fp32
 
 
 def build_parent(parent: Path, names) -> dict:
@@ -63,6 +69,9 @@ def build_parent(parent: Path, names) -> dict:
     if "flash_attention_bwd" in libs:
         libs["flash_attention_bwd"].flash_attention_bwd_launch.argtypes = (
             [p] * 10 + [i] * 10 + [f, ctypes.POINTER(ll), p])
+    if "wkv6_bwd" in libs:
+        libs["wkv6_bwd"].wkv6_bwd_launch.argtypes = (
+            [p] * 18 + [i] * 6 + [ctypes.POINTER(ll), p])
     return libs
 
 
@@ -170,6 +179,75 @@ def k3b_ab(torch, np, lib, time_ms) -> list:
     return rows
 
 
+def k4b_ab(torch, np, lib, time_ms) -> list:
+    from chip_smoke import K4B_CASES as CASES
+    from chip_smoke import K4B_TOL, k4b_inputs
+    from repro_torch.kernels.wkv6.wkv6 import _bwd_lib
+    current_lib = _bwd_lib()
+    rows = []
+    for i in K4B_CASES:
+        b, s, h, hd, c, dname, _, _ = CASES[i]
+        r, k, v, logw, u, _, dy, ds, starts = k4b_inputs(torch, np, i)
+        nc, tpc = s // c, -(-c // 32)
+
+        def outputs():
+            f32 = dict(dtype=torch.float32, device="cuda")
+            seq = [torch.empty((b, s, h, hd), dtype=r.dtype, device="cuda")
+                   .transpose(1, 2) for _ in range(3)]
+            seq.append(torch.empty((b, s, h, hd), **f32).transpose(1, 2))
+            rest = [torch.empty((h, hd), **f32),
+                    torch.empty((b, h, hd, hd), **f32),
+                    torch.empty((b, h, nc, hd, hd), **f32),
+                    torch.empty((b, h, nc * tpc, hd), **f32)]
+            return seq + rest              # dr dk dv dw du ds0 gscratch dupart
+        strides = (ctypes.c_longlong * 27)(*[
+            x for t in (r, k, v, logw, dy) for x in t.stride()[:3]],
+            *[x for _ in range(4) for x in
+              (s * h * hd, hd, h * hd)])
+
+        def launcher(which, out):
+            def run():
+                err = which.wkv6_bwd_launch(
+                    r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+                    dy.data_ptr(), u.data_ptr(), starts.data_ptr(),
+                    None if ds is None else ds.data_ptr(),
+                    *[t.data_ptr() for t in out], None, None,
+                    1 if r.dtype == torch.bfloat16 else 0, b, h, s, hd, c,
+                    strides, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"wkv6_bwd launch failed: {err}")
+            return run
+        got, want = outputs(), outputs()
+        earlier, current = launcher(lib, want), launcher(current_lib, got)
+        earlier()
+        current()
+        torch.cuda.synchronize()
+        errs = {}
+        for n, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got,
+                           want):
+            tol = K4B_TOL[dname if g.dtype == r.dtype else "float32"]
+            g, w = g.float(), w.float()
+            errs[n] = float((g - w).abs().max() / w.abs().max())
+            if not (bool(torch.isfinite(g).all()) and errs[n] <= tol):
+                raise RuntimeError(f"K4' designs disagree at "
+                                   f"{(b, s, h, hd, c, dname)}: {n} "
+                                   f"{errs[n]}")
+        row = {"kernel": "wkv6_bwd", "shape": [b, s, h, hd, c],
+               "dtype": dname, "max_rel_diff": errs,
+               **turns(time_ms, earlier, current)}
+        ratio = sum(row["earlier_ms"]) / sum(row["ms"])
+        row["earlier_over_this"] = ratio
+        print(f"K4' wkv6_bwd B,S,H,hd={b},{s},{h},{hd} chunk {c} {dname}: "
+              f"agree within K4B_TOL (largest difference over largest "
+              f"magnitude " + ", ".join(f"{n} {e:.2e}" for n, e in
+                                         errs.items())
+              + f"); earlier {row['earlier_ms']} ms, this tree "
+              f"{row['ms']} ms, earlier / this tree {ratio:.2f}x",
+              flush=True)
+        rows.append(row)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, required=True,
@@ -183,11 +261,12 @@ def main() -> None:
     from chip_smoke import k1_inputs, time_ms
     from repro_torch.kernels import _build
     csrc = Path("src") / "repro_torch" / "csrc"
-    names = [n for n in ("fleet_score", "flash_attention_bwd")
+    names = [n for n in ("fleet_score", "flash_attention_bwd", "wkv6_bwd")
              if (args.parent / csrc / f"{n}.cu").exists()
              and (args.parent / csrc / f"{n}.cu").read_bytes()
              != (ROOT / csrc / f"{n}.cu").read_bytes()]
-    _build.build_all(["flash_attention", *names])
+    forwards = {"flash_attention_bwd": "flash_attention", "wkv6_bwd": "wkv6"}
+    _build.build_all([forwards[n] for n in names if n in forwards] + names)
     libs = build_parent(args.parent, names)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -198,6 +277,8 @@ def main() -> None:
         rows += k1_ab(torch, libs["fleet_score"], time_ms, k1_inputs)
     if "flash_attention_bwd" in libs:
         rows += k3b_ab(torch, np, libs["flash_attention_bwd"], time_ms)
+    if "wkv6_bwd" in libs:
+        rows += k4b_ab(torch, np, libs["wkv6_bwd"], time_ms)
     print(json.dumps({"card": smi, "ab": rows}), flush=True)
 
 
