@@ -90,7 +90,19 @@ order, it
      the gradient and update gaps printed beside a noise twin's, see
      ``NOISE_EPS``), the same step in float32 held to phase 10's limits,
      then a ``Trainer`` of 12 steps with a ``GuardStepHook``;
- 14. prints one JSON line of per-kernel numbers, then
+ 14. trains phase 10's qwen3-4b cell under a one-rank NCCL mesh (a
+     ``FileStore`` process group of world size 1, the port's ``make_mesh``
+     of (1, 1) on the card, ``use_mesh``): the ZeRO-3 step of
+     ``repro_torch.dist`` (DTensor master weights and moments placed by
+     ``param_sharding``; each unit's working weights gathered in one flat
+     all-gather, its gradients reduced in one flat reduce-scatter); the
+     premise of bit-equality first (the float32 norm of a bfloat16 tensor
+     is that of its float32 widening at every parameter shape), then after
+     two steps the loss, every master weight and both moments bit-equal to
+     the same two steps without a mesh, flash attention 16 and its
+     backward 8 launches a step, then the step time and peak memory beside
+     phase 10's;
+ 15. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -1392,6 +1404,167 @@ def phase_train(torch, np, counters: dict):
     return launches, nums
 
 
+# ------------------------------------------ phase 14: training under a mesh
+
+MESH_CHECK_STEP = 2        # the state compared with the unsharded steps'
+
+
+def train_state(torch, params, opt_state) -> dict:
+    """Host copies of a trainer's master weights and moments (DTensors in
+    full), keyed "p/<name>", "mu/<name>", "nu/<name>"."""
+    from torch.distributed.tensor import DTensor
+
+    def host(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).cpu()
+    out = {f"p/{k}": host(v) for k, v in params.items()}
+    for m in ("mu", "nu"):
+        out.update({f"{m}/{k}": host(v) for k, v in opt_state[m].items()})
+    return out
+
+
+def norm_orders_differ(torch, model) -> list:
+    """The parameter shapes of ``model`` at which the float32 norm of a
+    seeded bfloat16 tensor differs from the norm of its float32 widening.
+    The unsharded step's clip reads bfloat16 gradients and the mesh step's
+    float32 ones: their bit-equality rests on there being none."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    differ = []
+    for shape in sorted({tuple(p.shape) for p in model.parameters()}):
+        x = (torch.randn(shape, device="cuda", generator=gen) * 1e-3).to(
+            torch.bfloat16)
+        if not torch.equal(
+                torch.linalg.vector_norm(x, dtype=torch.float32),
+                torch.linalg.vector_norm(x.float(), dtype=torch.float32)):
+            differ.append(shape)
+    return differ
+
+
+def phase_train_mesh(torch, np, counters: dict, tnums: dict, card: str):
+    """Phase 14: phase 10's qwen3-4b cell, two steps without a mesh, then
+    TRAIN_STEPS under a one-rank NCCL mesh, the state after
+    MESH_CHECK_STEP steps held bit-equal. Returns (launches of the mesh
+    run, numbers)."""
+    import gc
+    import os
+    import tempfile
+    import torch.distributed as tdist
+    from repro_torch.dist import api as dist
+    from repro_torch.guard import GuardStepHook
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import TrainConfig, Trainer
+    per_step = {"flash_attention": 2 * TRAIN_LAYERS,
+                "flash_attention_bwd": TRAIN_LAYERS}
+    # (a) the unsharded steps
+    model, data, _, opt, tag = train_setup(torch, "qwen3-4b", TRAIN_LAYERS)
+    differ = norm_orders_differ(torch, model)
+    check(not differ, f"{tag}: the float32 norms of a bfloat16 tensor and "
+          f"of its float32 widening differ at shapes {differ}")
+    trainer = Trainer(model, data, TrainConfig(
+        steps=MESH_CHECK_STEP, ckpt_interval=10 ** 9, opt=opt))
+    plain_hist = trainer.run()["history"]
+    want = train_state(torch, trainer.params, trainer.opt_state)
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the same cell under a one-rank mesh
+    tmp = tempfile.TemporaryDirectory(prefix="mesh_store_")
+    tdist.init_process_group(
+        "nccl", store=tdist.FileStore(os.path.join(tmp.name, "store"), 1),
+        rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        model, data, _, opt, tag = train_setup(torch, "qwen3-4b",
+                                               TRAIN_LAYERS)
+        tag += " under a one-rank NCCL mesh"
+        mesh = make_mesh("cuda")
+        held = {}
+
+        def hold(step, metrics):
+            if step != MESH_CHECK_STEP:
+                return
+            got = train_state(torch, trainer.params, trainer.opt_state)
+            held["differ"] = sorted(k for k in want
+                                    if not torch.equal(got[k], want[k]))
+            held["leaves"] = len(want)
+            del got
+        with dist.use_mesh(mesh) as ctx:
+            hook = GuardStepHook(window_steps=4, device="cuda")
+            trainer = Trainer(model, data, TrainConfig(
+                steps=TRAIN_STEPS, ckpt_interval=10 ** 9, opt=opt),
+                hook=hook)
+            sharding = dist.param_sharding(model.param_axes(),
+                                           trainer.params, ctx)
+            check(all(list(trainer.params[n].placements) == sharding[n] and
+                      list(trainer.opt_state[m][n].placements) == sharding[n]
+                      for n in sharding for m in ("mu", "nu")),
+                  f"{tag}: master or moment placements differ from "
+                  f"param_sharding's")
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.reset()
+            out = trainer.run(on_metrics=hold)
+            launches = {n: c.launches for n, c in counters.items()}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            state_gb = torch.cuda.memory_allocated() / 1e9
+        hist = out["history"]
+        check(out["final_step"] == TRAIN_STEPS,
+              f"{tag}: trainer stopped at {out['final_step']}")
+        check([h["loss"] for h in hist[:MESH_CHECK_STEP]] ==
+              [h["loss"] for h in plain_hist],
+              f"{tag}: losses {[h['loss'] for h in hist[:MESH_CHECK_STEP]]}"
+              f" are not the unsharded steps' "
+              f"{[h['loss'] for h in plain_hist]}")
+        check(held.get("differ") == [],
+              f"{tag}: after {MESH_CHECK_STEP} steps these of "
+              f"{held.get('leaves')} master weights and moments differ from "
+              f"the unsharded steps': {held.get('differ', 'not held')[:8]}")
+        want_l = {n: per_step.get(n, 0) * TRAIN_STEPS for n in counters}
+        want_l["fleet_score"] = hook.frames_fed
+        check(launches == want_l,
+              f"{tag}: the Trainer run launched {launches}, expected "
+              f"{want_l}")
+        losses = [h["loss"] for h in hist]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{tag}: losses {losses} not finite and falling")
+        walls = [h["wall_s"] for h in hist]
+        step_ms = float(np.median(walls[1:])) * 1e3
+        batch = data.batch_at(0, *trainer.batch_shard)
+        s_wall, s_busy, s_top = device_profile(
+            torch, lambda: trainer._step_fn(trainer.params, trainer.opt_state,
+                                            batch), reps=2)
+        nums = dict(step_ms=step_ms, first_step_s=walls[0],
+                    tok_per_s=TRAIN_SEQ / (step_ms / 1e3), peak_gb=peak_gb,
+                    state_gb=state_gb, leaves_bit_equal=held["leaves"],
+                    busy_ms=s_busy, profiled_step_ms=s_wall,
+                    losses=[round(x, 4) for x in losses],
+                    frames=hook.frames_fed)
+        print(f"{tag} ({card}): float32 norms of bfloat16 tensors and of "
+              f"their widening equal at every parameter shape; after "
+              f"{MESH_CHECK_STEP} steps the loss and "
+              f"all {held['leaves']} master weights and moments bit-equal to "
+              f"the unsharded steps'; placements param_sharding's; "
+              f"{TRAIN_STEPS} steps, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; step median {step_ms:.1f} ms (phase 10: "
+              f"{tnums['step_ms']:.1f}), {nums['tok_per_s']:.0f} tokens/s "
+              f"(phase 10: {tnums['tok_per_s']:.0f}); peak memory "
+              f"{peak_gb:.2f} GB (phase 10: {tnums['peak_gb']:.2f}), "
+              f"{state_gb:.2f} GB held between steps (phase 10: "
+              f"{tnums['state_gb']:.2f}); launches per step: " + ", ".join(
+                  f"{n} {launches[n] / TRAIN_STEPS:.0f}" for n in per_step)
+              + f"; fleet_score {launches['fleet_score']} in "
+              f"{hook.frames_fed} Guard windows; profiled step {s_wall:.1f} "
+              f"ms wall, card busy {s_busy:.1f} ms ({s_busy / s_wall:.0%}; "
+              f"phase 10: {tnums['busy_ms'] / tnums['profiled_step_ms']:.0%})"
+              f"; top kernels (ms per step): {s_top}", flush=True)
+        del trainer, model, hook, want
+    finally:
+        tdist.destroy_process_group()
+        tmp.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, nums
+
+
 # ------------------------------------ phase 11: attribution and simulation
 
 SIM_NODES = 16_384         # bench_diagnose's scenarios placed at fleet size
@@ -2253,7 +2426,8 @@ def main() -> None:
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"  ptxas {name}: {line.strip()}")
-    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    card = smi[0] if smi else "nvidia-smi: no output"
+    print(card, flush=True)
 
     dirs = [1.0, 1.0, -1.0, -1.0, -1.0, 1.0, -1.0, -1.0]
     k1 = phase_k1(torch, np, dirs)
@@ -2290,6 +2464,8 @@ def main() -> None:
     k1_fleet, fnums = phase_fleet(torch, np, counters)
     k4b = phase_k4_bwd(torch, np)
     train_ssm, ssm_nums = phase_train_ssm(torch, np, counters)
+    train_mesh, mesh_nums = phase_train_mesh(torch, np, counters, tnums,
+                                             card)
 
     kernels = [
         {"name": "fleet_score", "route": "cuda",
@@ -2316,11 +2492,13 @@ def main() -> None:
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "shape": k3["shape"],
-         "launches_train": train["flash_attention"]},
+         "launches_train": train["flash_attention"],
+         "launches_mesh": train_mesh["flash_attention"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention/ops.py:42",
          "launches": train["flash_attention_bwd"],
+         "launches_mesh": train_mesh["flash_attention_bwd"],
          "max_abs_err": k3b["max_abs_err"],
          "max_rel_err": k3b["max_rel_err"], "ms": k3b["ms"],
          "device_ms": k3b["device_ms"],
@@ -2354,6 +2532,8 @@ def main() -> None:
           flush=True)
     print(f"fleet control plane (phase 12): {json.dumps(fnums)}", flush=True)
     print(f"ssm training (phase 13): {json.dumps(ssm_nums)}", flush=True)
+    print(f"training under a one-rank mesh (phase 14): "
+          f"{json.dumps(mesh_nums)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,10 @@ each TPU kernel on the ported path has a hand-written Hopper kernel in
   kernels   fleet_score, sweep_burn, flash_attention and wkv6 (CUDA
             kernels + plain versions)
   configs   the architecture configs (the port's own copy)
-  models    dense and ssm serving models: prefill and decode
-  launch    serve: the batched decode server
+  models    dense and ssm models: training loss, prefill and decode
+  dist      logical-axis sharding over a DeviceMesh (ZeRO-3 over "data")
+  train     AdamW, data, checkpoints, the (sharded) train step, Trainer
+  launch    serve, train, and mesh construction
   convert   reference configs, detector and timing-trace state, run
             configs and model parameters into the port
 """

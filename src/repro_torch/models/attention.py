@@ -24,6 +24,11 @@ class Attention(nn.Module):
     """``wq`` (D, Hq hd), ``wk``/``wv`` (D, Hkv hd), ``wo`` (Hq hd, D);
     optional q/k/v biases and per-head q/k RMS norms."""
 
+    AXES = {"wq": ("fsdp", "heads"), "wk": ("fsdp", "kv_heads"),
+            "wv": ("fsdp", "kv_heads"), "wo": ("heads", "fsdp"),
+            "bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",),
+            "q_norm": (None,), "k_norm": (None,)}
+
     def __init__(self, init: Init, cfg):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim

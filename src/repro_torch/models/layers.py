@@ -84,6 +84,9 @@ class MLP(nn.Module):
     ``wo``; every matrix is stored (in, out) as in the JAX package. The
     geglu and gelu activations come with the families that use them."""
 
+    AXES = {"wg": ("fsdp", "ff"), "wu": ("fsdp", "ff"),
+            "wi": ("fsdp", "ff"), "wo": ("ff", "fsdp")}
+
     def __init__(self, init: Init, d_model: int, d_ff: int, act: str):
         super().__init__()
         if act not in ("swiglu", "relu_sq"):
@@ -111,6 +114,8 @@ class MLP(nn.Module):
 
 class Embed(nn.Module):
     """Token table ``tok`` (Vp, D) and, unless tied, the head (D, Vp)."""
+
+    AXES = {"tok": ("vocab", "fsdp"), "head": ("fsdp", "vocab")}
 
     def __init__(self, init: Init, vocab_padded: int, d_model: int,
                  tie: bool):

@@ -18,16 +18,31 @@ cache. ``train_loss`` runs with gradients through the working weights (see
 layer is ``torch.utils.checkpoint``-ed, so its forward, flash attention
 or the WKV6 kernel included, runs again in the backward. The moe,
 hybrid, audio and vlm families come with their slices.
+
+  param_axes()               -> {parameter name: logical axes}, the
+                                reference's ``Model.param_axes()`` without
+                                its stacked "layer" axis
+
+Under a mesh (``repro_torch.dist``), ``train_loss`` constrains the
+activations at the reference's sites, and a sharded training step sets
+``zero3`` (``repro_torch.train.trainer``) to gather each unit of
+``zero3_units`` just in time: "in" (the token table, ``ln0``) before the
+embedding, each layer at its start, inside the checkpointed function so
+that the recompute gathers again, and "out" (``ln_f``, the head) after
+the layers. After such a step the working weights hold no storage
+(``weights_released``) and every entry point raises until
+``repro_torch.train.load_working`` brings them back.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.dist import api as dist
 from repro_torch.models import rwkv6
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import Init, Policy, pad_vocab
@@ -42,6 +57,8 @@ Cache = Dict[str, Any]
 
 
 class Model(nn.Module):
+    AXES = {"ln_f": (None,), "ln0": (None,)}
+
     def __init__(self, cfg, policy: Optional[Policy] = None, *,
                  device: DeviceLike = "cuda", seed: Optional[int] = 0,
                  remat: str = "full"):
@@ -74,6 +91,46 @@ class Model(nn.Module):
         else:
             self.layers = nn.ModuleList(tfm.DecoderLayer(init, cfg)
                                         for _ in range(cfg.num_layers))
+        # the sharded step's ZeRO-3 gather (an object with ``gather(unit)``
+        # and ``release(unit)`` of the units of ``zero3_units``), None
+        # outside one; set when such a step has released the weights
+        self.zero3 = None
+        self.weights_released = False
+
+    def param_axes(self) -> Dict[str, dist.Axes]:
+        """``{parameter name: logical axes}`` from each module's ``AXES``
+        table (the axes the reference initializes each parameter with);
+        the port's layers are not stacked, so no axis is "layer"."""
+        return {f"{mod}.{name}" if mod else name: type(m).AXES[name]
+                for mod, m in self.named_modules()
+                for name, _ in m.named_parameters(recurse=False)}
+
+    def zero3_units(self) -> Dict[str, List[str]]:
+        """The sharded step's units, each gathered as one, in the order
+        the forward reads them: {unit: parameter names}. "in" is what it
+        reads before the layers, "layers.<i>" each layer, "out" what it
+        reads after them (``ln_f`` and an untied head)."""
+        names = [n for n, _ in self.named_parameters()]
+        late = ("ln_f", "embed.head")
+        units = {"in": [n for n in names
+                        if not n.startswith("layers.") and n not in late]}
+        for i in range(len(self.layers)):
+            units[f"layers.{i}"] = [n for n in names
+                                    if n.startswith(f"layers.{i}.")]
+        units["out"] = [n for n in names if n in late]
+        return units
+
+    def _gather(self, unit: str) -> None:
+        if self.zero3 is not None:
+            self.zero3.gather(unit)
+
+    def require_weights(self) -> None:
+        """Raises where a sharded step left the working weights empty."""
+        if self.weights_released and self.zero3 is None:
+            raise RuntimeError(
+                "the working weights were released by a sharded training "
+                "step; load them from the master weights first "
+                "(repro_torch.train.load_working(model, trainer.params))")
 
     # ------------------------------------------------------------ forward
 
@@ -133,7 +190,10 @@ class Model(nn.Module):
         tokens = self._tokens(batch["tokens"])
         labels = self._tokens(batch["labels"])
         B, S = tokens.shape
-        x = embed_tokens(self.embed, tokens)
+        self.require_weights()
+        self._gather("in")
+        x = dist.constraint(embed_tokens(self.embed, tokens), "act_batch",
+                            "act_seq", "act_embed")
         if cfg.family == "ssm":
             x = layer_norm(x, 1.0 + self.ln0, torch.zeros_like(self.ln0),
                            cfg.norm_eps)
@@ -144,25 +204,34 @@ class Model(nn.Module):
             layer = self._train_layer
             extra = (rope_tables(positions, cfg.resolved_head_dim,
                                  cfg.rope_theta),)
-        for lp in self.layers:
+        for i, lp in enumerate(self.layers):
             if self.remat == "full" and torch.is_grad_enabled():
                 # no randomness inside a layer: the RNG state need not be
                 # saved for the recompute
-                x = checkpoint(layer, lp, x, *extra, use_reentrant=False,
+                x = checkpoint(layer, i, lp, x, *extra, use_reentrant=False,
                                preserve_rng_state=False)
+                if self.zero3 is not None:
+                    # the recompute gathers again
+                    self.zero3.release(f"layers.{i}")
             else:
-                x = layer(lp, x, *extra)
+                x = layer(i, lp, x, *extra)
+        self._gather("out")
         x = rms_norm(x, self.ln_f.to(x.dtype), cfg.norm_eps)
+        x = dist.constraint(x, "act_batch", "act_seq", "act_embed")
         logits = logits_from_hidden(self.embed, x, cfg.vocab_size,
                                     cfg.tie_embeddings)
+        logits = dist.constraint(logits, "act_batch", "act_seq", "act_vocab")
         ce = cross_entropy(logits, labels, cfg.vocab_size)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return ce, {"loss": ce, "ce": ce, "aux": aux}
 
-    def _train_layer(self, lp, x: torch.Tensor, rope) -> torch.Tensor:
+    def _train_layer(self, i: int, lp, x: torch.Tensor,
+                     rope) -> torch.Tensor:
+        self._gather(f"layers.{i}")
         return tfm.decoder_layer(lp, self.cfg, x, rope)[0]
 
-    def _train_rwkv_layer(self, lp, x: torch.Tensor) -> torch.Tensor:
+    def _train_rwkv_layer(self, i: int, lp, x: torch.Tensor) -> torch.Tensor:
+        self._gather(f"layers.{i}")
         cfg = self.cfg
         H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
         s0 = torch.zeros((x.shape[0], H, hd, hd), dtype=torch.float32,
@@ -178,6 +247,7 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens) -> Tuple[torch.Tensor, Cache]:
         """tokens (B, S) -> (last-token logits (B, Vp), cache)."""
+        self.require_weights()
         tokens = self._tokens(tokens)
         x, cache = self._forward(tokens)
         cache["pos"] = int(tokens.shape[1])
@@ -206,9 +276,11 @@ class Model(nn.Module):
         """tokens (B,) -> (logits (B, Vp), cache), the cache updated in
         place. The ssm family, as in the JAX package, embeds the token
         without the ``ln0`` norm that prefill applies."""
+        self.require_weights()
         cfg = self.cfg
         pos = int(cache["pos"])
-        x = embed_tokens(self.embed, self._tokens(tokens))
+        x = dist.constraint(embed_tokens(self.embed, self._tokens(tokens)),
+                            "act_batch", "act_embed")
         if cfg.family == "ssm":
             for i, lp in enumerate(self.layers):
                 st = {name: cache[name][i] for name in ("wkv", "x_tm",

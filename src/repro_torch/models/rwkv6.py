@@ -26,6 +26,14 @@ LORA_DECAY = 64
 
 
 class TimeMix(nn.Module):
+    AXES = {"mu_x": (None,), "mu_rkvgw": (None, None), "w1": ("fsdp", None),
+            "w2": (None, None, "fsdp"), "dw0": (None,),
+            "dw1": ("fsdp", None), "dw2": (None, "fsdp"),
+            "u": ("heads", None), "wr": ("fsdp", "heads"),
+            "wk": ("fsdp", "heads"), "wv": ("fsdp", "heads"),
+            "wg": ("fsdp", "heads"), "wo": ("heads", "fsdp"),
+            "ln_x_s": (None,), "ln_x_b": (None,)}
+
     def __init__(self, init: Init, cfg):
         super().__init__()
         d = cfg.d_model
@@ -48,6 +56,9 @@ class TimeMix(nn.Module):
 
 
 class ChannelMix(nn.Module):
+    AXES = {"mu_k": (None,), "mu_r": (None,), "wk": ("fsdp", "ff"),
+            "wv": ("ff", "fsdp"), "wr": ("fsdp", None)}
+
     def __init__(self, init: Init, cfg):
         super().__init__()
         d = cfg.d_model
@@ -60,6 +71,8 @@ class ChannelMix(nn.Module):
 
 class Block(nn.Module):
     """``ln1``, ``ln2``, ``tm`` (time mix), ``cm`` (channel mix)."""
+
+    AXES = {"ln1": (None,), "ln2": (None,)}
 
     def __init__(self, init: Init, cfg):
         super().__init__()

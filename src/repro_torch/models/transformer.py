@@ -16,6 +16,8 @@ from repro_torch.models.layers import MLP, rms_norm
 class DecoderLayer(nn.Module):
     """``ln_attn``, ``attn``, ``ln_mlp``, ``mlp`` as in the JAX tree."""
 
+    AXES = {"ln_attn": (None,), "ln_mlp": (None,)}
+
     def __init__(self, init: Init, cfg):
         super().__init__()
         self.ln_attn = init.zeros((cfg.d_model,))

@@ -3,8 +3,9 @@
   optimizer   AdamW with global-norm clipping, warmup + cosine schedule
   data        the deterministic synthetic LM stream (numpy, bit-equal)
   checkpoint  atomic async durable checkpoints + peer/local fast tiers
-  trainer     train step (float32 master weights, bf16 working weights),
-              Guard step hook protocol, the fault-tolerant Trainer loop
+  trainer     train step (float32 master weights, bf16 working weights;
+              ZeRO-3 over "data" under a mesh), Guard step hook
+              protocol, the fault-tolerant Trainer loop
 """
 from repro_torch.train.checkpoint import (CheckpointManager,
                                           TieredCheckpointManager)

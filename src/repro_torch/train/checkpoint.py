@@ -29,12 +29,27 @@ names (``layers.0.attn.wq``) are not the JAX package's tree paths
 (``layers/attn/wq``, stacked over layers), so neither package reads the
 other's checkpoints. A restore rebuilds the structure of the templates it
 is given: tensors on the template's device and dtype, numpy arrays for
-numpy templates. The data-parallel width is 1 unless given: the port has
-no device mesh yet.
+numpy templates.
+
+Sharded state (the DTensor master weights and moments of a step under a
+mesh, one process per rank) goes to the durable tier as the same files as
+unsharded state: every rank sends its shards of each leaf to rank 0 (one
+gather a leaf), and rank 0 alone holds the leaf in full and writes it. A
+restore into DTensor templates reads the full leaves on every rank and
+keeps each rank's shards, so a job saved under a mesh restores without
+one and the other way round. The fast tiers hold each rank's own shards
+and nothing more: the PEER replica in its memory and the LOCAL file in
+its own directory (``local/rank<r>/``), written with no collective, and
+they restore only into the same placements. Whether a fast snapshot is
+due and the step of a COLD restore are rank 0's (the latter read after
+its ``wait()``, so a save still on its writer thread is published before
+any rank reads it); the fast tier to restore from is the fastest one that
+holds the same snapshot on every rank.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import threading
@@ -43,43 +58,114 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.dist import api as dist
 from repro_torch.guard.goodput import (CheckpointTier, RecoveryModel,
                                        replica_partner, young_daly_interval)
 
 
 def _host(leaf) -> np.ndarray:
-    """A private host copy of one leaf."""
+    """A private host copy of one plain leaf."""
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf, copy=True)
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    flat: Dict[str, np.ndarray] = {}
+def _sharded(tree: Mapping) -> bool:
+    """Whether ``tree`` holds DTensors: state of a step under a mesh."""
+    return any(_sharded(v) if isinstance(v, Mapping)
+               else isinstance(v, DTensor) for v in tree.values())
+
+
+def _to_rank0(x: DTensor) -> Optional[np.ndarray]:
+    """Rank 0's host copy of ``x`` in full, None on the other ranks. Each
+    rank sends its local shard to rank 0 (one gather), which places the
+    shards by the ranks' mesh coordinates; a split that is not even (which
+    ``param_sharding`` never makes) is gathered by ``full_tensor()``."""
+    mesh = x.device_mesh
+    rank = tdist.get_rank()
+    splits: Dict[int, List[int]] = {}     # tensor dim -> mesh dims, in order
+    even = mesh.size() == tdist.get_world_size()
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard):
+            splits.setdefault(pl.dim, []).append(i)
+        elif not isinstance(pl, Replicate):
+            even = False                  # a pending reduction
+    even = even and all(x.shape[d] % math.prod(mesh.size(i) for i in dims)
+                        == 0 for d, dims in splits.items())
+    if not even:
+        full = x.full_tensor()
+        return _host(full) if rank == 0 else None
+    local = x.to_local().contiguous()
+    pieces = [torch.empty_like(local) for _ in range(mesh.size())] \
+        if rank == 0 else None
+    tdist.gather(local, pieces, dst=0)
+    if rank != 0:
+        return None
+    full = torch.empty(tuple(x.shape), dtype=x.dtype)
+    layout = mesh.mesh
+    for r, piece in enumerate(pieces):
+        coord = (layout == r).nonzero()[0].tolist()
+        index = [slice(None)] * x.dim()
+        for d, dims in splits.items():
+            k, n = 0, 1
+            for i in dims:
+                k, n = k * mesh.size(i) + coord[i], n * mesh.size(i)
+            size = x.shape[d] // n
+            index[d] = slice(k * size, (k + 1) * size)
+        full[tuple(index)] = piece.cpu()
+    return full.numpy()
+
+
+def _to_rank0_leaf(x) -> Optional[np.ndarray]:
+    if isinstance(x, DTensor):
+        return _to_rank0(x)
+    return _host(x) if tdist.get_rank() == 0 else None
+
+
+def _flatten(tree: Mapping, leaf_fn, prefix: str = "") -> Dict[str, Any]:
+    flat: Dict[str, Any] = {}
     for key, val in tree.items():
         name = f"{prefix}{key}"
         if isinstance(val, Mapping):
-            flat.update(_flatten(val, f"{name}/"))
+            flat.update(_flatten(val, leaf_fn, f"{name}/"))
         else:
-            flat[name] = _host(val)
+            flat[name] = leaf_fn(val)
     return flat
 
 
-def _rebuild(data: Mapping[str, np.ndarray], prefix: str, like: Mapping):
+def _rebuild(data: Mapping[str, np.ndarray], prefix: str, like: Mapping,
+             local: bool = False):
     """Unflatten ``data[prefix + <dict path>]`` into the structure of
-    ``like``; each leaf takes its template's kind, device and dtype."""
+    ``like``; each leaf takes its template's kind, device and dtype. With
+    ``local`` the data holds each DTensor leaf's local shard (a fast
+    tier's), which must have the template's placements."""
     out = {}
     for key, leaf in like.items():
         name = f"{prefix}{key}"
         if isinstance(leaf, Mapping):
-            out[key] = _rebuild(data, f"{name}/", leaf)
+            out[key] = _rebuild(data, f"{name}/", leaf, local)
             continue
         arr = data[name]
-        if arr.shape != tuple(np.shape(leaf)):
+        want = tuple(leaf.to_local().shape) \
+            if local and isinstance(leaf, DTensor) else tuple(np.shape(leaf))
+        if arr.shape != want:
             raise ValueError(f"checkpoint leaf {name} has shape {arr.shape}, "
-                             f"the template {tuple(np.shape(leaf))}")
-        if isinstance(leaf, torch.Tensor):
+                             f"the template {want}")
+        if isinstance(leaf, DTensor) and local:
+            out[key] = DTensor.from_local(
+                torch.from_numpy(np.array(arr, copy=True)).to(
+                    device=leaf.device, dtype=leaf.dtype),
+                leaf.device_mesh, leaf.placements, shape=leaf.shape,
+                stride=leaf.stride())
+        elif isinstance(leaf, DTensor):         # this rank's shards, copied
+            out[key] = dist.distribute(
+                torch.from_numpy(arr).to(device=leaf.device,
+                                         dtype=leaf.dtype),
+                leaf.device_mesh, leaf.placements)
+        elif isinstance(leaf, torch.Tensor):
             out[key] = torch.from_numpy(np.array(arr, copy=True)).to(
                 device=leaf.device, dtype=leaf.dtype)
         else:
@@ -87,10 +173,22 @@ def _rebuild(data: Mapping[str, np.ndarray], prefix: str, like: Mapping):
     return out
 
 
-def _snapshot(params, opt_state) -> Dict[str, np.ndarray]:
-    flat = {f"p/{k}": v for k, v in _flatten(params).items()}
-    flat.update({f"o/{k}": v for k, v in _flatten(opt_state).items()})
-    return flat
+def _snapshot(params, opt_state, leaf_fn=None) -> Optional[Dict[str, Any]]:
+    """Host copies of the flattened state. For sharded state (a DTensor
+    leaf anywhere), each leaf in full on rank 0 and None on the other
+    ranks (every rank must call it: a gather a leaf); with ``leaf_fn``,
+    that function of each leaf."""
+    if leaf_fn is None:
+        leaf_fn = _to_rank0_leaf if _sharded(params) else _host
+    flat = {f"p/{k}": v for k, v in _flatten(params, leaf_fn).items()}
+    flat.update({f"o/{k}": v
+                 for k, v in _flatten(opt_state, leaf_fn).items()})
+    return None if any(v is None for v in flat.values()) else flat
+
+
+def _local_shard(x) -> np.ndarray:
+    """A host copy of this rank's shard of ``x`` (of ``x`` if plain)."""
+    return _host(x.to_local() if isinstance(x, DTensor) else x)
 
 
 class CheckpointManager:
@@ -120,6 +218,8 @@ class CheckpointManager:
     def save(self, step: int, params, opt_state,
              extra: Optional[Dict[str, Any]] = None) -> None:
         flat = _snapshot(params, opt_state)       # host copies, now
+        if flat is None:                          # sharded: rank 0 writes
+            return
         manifest = {"step": int(step), "time": time.time(),
                     "extra": extra or {}}
         self.wait()
@@ -205,7 +305,12 @@ class CheckpointManager:
         """Restore into the structure of (params_like, opt_like)."""
         self.wait(raise_errors=False)
         step = step if step is not None else self.latest_step()
-        if step is None or not self._is_complete(step):
+        ok = step is not None and self._is_complete(step)
+        if _sharded(params_like):
+            # rank 0 alone writes, on its own writer thread: its answer,
+            # taken after its wait(), holds for every rank
+            step, ok = dist.rank0_value((step, ok))
+        if not ok:
             return None
         path = os.path.join(self.dir, f"ckpt-{step:08d}")
         with np.load(os.path.join(path, "arrays.npz")) as z:
@@ -234,11 +339,21 @@ class TieredCheckpointManager(CheckpointManager):
         super().__init__(directory, keep=keep, async_save=async_save)
         self.recovery = recovery or RecoveryModel()
         self.node_id = int(node_id)
-        self.dp_size = max(int(dp_size or 1), 1)
+        if dp_size is None:
+            # the reference's name "batch", which no rule maps (the batch
+            # rule is "act_batch"): 1 under every mesh, kept so that the
+            # peer replica is the reference's
+            ctx = dist.current()
+            dp_size = ctx.axis_size("batch") if ctx is not None else 1
+        self.dp_size = max(int(dp_size), 1)
         self.peer_rank = replica_partner(self.node_id % self.dp_size,
                                          self.dp_size)
         self.keep_local = keep_local
+        # node-local: one directory a rank where a process group runs
         self.local_dir = os.path.join(directory, "local")
+        if tdist.is_initialized():
+            self.local_dir = os.path.join(self.local_dir,
+                                          f"rank{tdist.get_rank()}")
         os.makedirs(self.local_dir, exist_ok=True)
         self._fixed_interval = fast_interval_s
         self._interval_s = (fast_interval_s
@@ -272,8 +387,11 @@ class TieredCheckpointManager(CheckpointManager):
         """Per-step driver: take a fast snapshot when one is due.
         Returns True when a snapshot was taken this call."""
         t = time.monotonic() if now is None else float(now)
-        if self._last_snap_t is not None and \
-                t - self._last_snap_t < self._interval_s:
+        due = self._last_snap_t is None or \
+            t - self._last_snap_t >= self._interval_s
+        if _sharded(params):
+            due = dist.rank0_value(due)
+        if not due:
             return False
         self.save_fast(step, params, opt_state)
         self._last_snap_t = t
@@ -282,18 +400,21 @@ class TieredCheckpointManager(CheckpointManager):
     def save_fast(self, step: int, params, opt_state) -> None:
         """Snapshot into both fast tiers: the in-memory peer replica and
         the node-local shard. Same flat layout as the durable tier, so a
-        restore from any tier is bit-identical."""
-        flat = _snapshot(params, opt_state)       # private host copies
+        restore from any tier is bit-identical. Sharded state: this rank's
+        shards of each leaf, with no collective."""
+        sharded = _sharded(params)
+        flat = _snapshot(params, opt_state,       # private host copies
+                         _local_shard if sharded else _host)
         # PEER: the replica handed to the DP partner
         self._peer = {"step": int(step), "holder": self.peer_rank,
-                      "flat": flat}
+                      "flat": flat, "local": sharded}
+        self.snapshots_taken += 1
         # LOCAL: synchronous atomic write of the node-local shard
         tmp = os.path.join(self.local_dir, f".tmp-fast-{step}")
         final = os.path.join(self.local_dir, f"fast-{step:08d}.npz")
         with open(tmp, "wb") as f:
             np.savez(f, **flat)
         os.replace(tmp, final)
-        self.snapshots_taken += 1
         self._gc_local()
 
     def _gc_local(self) -> None:
@@ -329,28 +450,43 @@ class TieredCheckpointManager(CheckpointManager):
         state came from alongside (params, opt_state, step). Pass
         ``step`` to demand an exact snapshot step (tiers that can't serve
         it are skipped)."""
-        if self._peer is not None and \
-                (step is None or self._peer["step"] == step):
+        sharded = _sharded(params_like)
+        tier, pick = self._fastest(step, sharded)
+        if tier is CheckpointTier.PEER:
             data = self._peer["flat"]
-            return (_rebuild(data, "p/", params_like),
-                    _rebuild(data, "o/", opt_like),
+            return (_rebuild(data, "p/", params_like, self._peer["local"]),
+                    _rebuild(data, "o/", opt_like, self._peer["local"]),
                     self._peer["step"], CheckpointTier.PEER)
-        local = self.local_steps()
-        pick = None
-        if local:
-            pick = local[-1] if step is None else \
-                (step if step in local else None)
-        if pick is not None:
+        if tier is CheckpointTier.LOCAL:
             path = os.path.join(self.local_dir, f"fast-{pick:08d}.npz")
             with np.load(path) as z:
                 data = {k: z[k] for k in z.files}
-            return (_rebuild(data, "p/", params_like),
-                    _rebuild(data, "o/", opt_like),
+            return (_rebuild(data, "p/", params_like, sharded),
+                    _rebuild(data, "o/", opt_like, sharded),
                     pick, CheckpointTier.LOCAL)
         out = self.restore(params_like, opt_like, step=step)
         if out is None:
             return None
         return out[0], out[1], out[2], CheckpointTier.COLD
+
+    def _fastest(self, step: Optional[int], sharded: bool = False
+                 ) -> Tuple[CheckpointTier, Optional[int]]:
+        """The fastest tier holding a snapshot (of ``step``, if given) and
+        that snapshot's step; COLD when no fast tier serves. For sharded
+        state, a fast tier serves where every rank holds the same step in
+        it (each rank holds only its own shards)."""
+        peer, local = self.peer_step(), self.local_steps()
+        if sharded:
+            views: List[Any] = [None] * tdist.get_world_size()
+            tdist.all_gather_object(views, (peer, local))
+            peers = {v[0] for v in views}
+            peer = peers.pop() if len(peers) == 1 else None
+            local = sorted(set.intersection(*(set(v[1]) for v in views)))
+        if peer is not None and (step is None or peer == step):
+            return CheckpointTier.PEER, peer
+        if local and (step is None or step in local):
+            return CheckpointTier.LOCAL, local[-1] if step is None else step
+        return CheckpointTier.COLD, step
 
 
 __all__ = ["CheckpointManager", "TieredCheckpointManager"]

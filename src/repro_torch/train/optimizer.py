@@ -11,6 +11,12 @@ passes the reference's answer as ``decay``; see
 functions), ``apply_adamw`` updates the parameters and moments in place,
 so that a step holds no second copy of them; ``grad_norm`` and ``lr``
 stay device tensors until the caller reads them.
+
+Under a mesh the parameters and moments are DTensors (ZeRO-3,
+``repro_torch.train.trainer``) and each gradient is a DTensor or this
+rank's local shard of its parameter's placement: the update runs on each
+rank's local shards, and ``global_norm`` is the norm of the whole
+gradient, one all-reduce of the ranks' sums of squares.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ import math
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as tdist
+from torch.distributed.tensor import DTensor, Replicate
 
 Params = Dict[str, torch.Tensor]
 
@@ -57,10 +65,37 @@ def init_opt_state(params: Mapping[str, torch.Tensor]) -> Dict:
             "count": torch.zeros((), dtype=torch.int32, device=first.device)}
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 sum of squares."""
-    return torch.sqrt(sum(torch.linalg.vector_norm(
-        x, dtype=torch.float32).square() for x in tree.values()))
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _replicas(x: torch.Tensor) -> int:
+    """How many ranks hold each element of ``x``: 1 for a plain tensor."""
+    if not isinstance(x, DTensor):
+        return 1
+    return math.prod(x.device_mesh.size(i)
+                     for i, pl in enumerate(x.placements)
+                     if isinstance(pl, Replicate))
+
+
+def global_norm(tree: Mapping[str, torch.Tensor],
+                placed: Optional[Mapping[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 sum of squares. Under a mesh
+    each leaf is a DTensor, or this rank's local shard of the DTensor of
+    its name in ``placed``: each rank sums its local shards (a leaf
+    replicated on r ranks counted 1/r on each), and one all-reduce over the
+    process group (the mesh's ranks) adds the ranks' sums."""
+    placed = tree if placed is None else placed
+    leaves = list(tree.values())
+    if not any(isinstance(placed[k], DTensor) for k in tree):
+        return torch.sqrt(sum(torch.linalg.vector_norm(
+            x, dtype=torch.float32).square() for x in leaves))
+    total = sum(torch.linalg.vector_norm(
+        _local(x), dtype=torch.float32).square() / _replicas(placed[k])
+        for k, x in tree.items())
+    tdist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -73,15 +108,16 @@ def apply_adamw(params: Params, grads: Mapping[str, torch.Tensor],
     those of two or more dimensions). Returns (params, state,
     {"grad_norm", "lr"})."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, params)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_at(cfg, count)
     b1c = 1 - torch.pow(cfg.b1, count.to(torch.float32))
     b2c = 1 - torch.pow(cfg.b2, count.to(torch.float32))
     for name, p in params.items():
-        mu, nu = state["mu"][name], state["nu"][name]
-        g = grads[name].float() * scale
+        mu, nu = _local(state["mu"][name]), _local(state["nu"][name])
+        p = _local(p)
+        g = _local(grads[name]).float() * scale
         mu.mul_(cfg.b1).add_(g * (1 - cfg.b1))
         nu.mul_(cfg.b2).add_(g.square_().mul_(1 - cfg.b2))
         step = (mu / b1c).div_((nu / b2c).sqrt_().add_(cfg.eps))

@@ -1,6 +1,6 @@
-"""Training loop with Guard hooks, fault-tolerant restart and optional
-gradient accumulation: the port of ``repro.train.trainer`` (single
-device; the sharded step comes with the port's ``dist``).
+"""Training loop with Guard hooks, sharded step construction,
+fault-tolerant restart and optional gradient accumulation: the port of
+``repro.train.trainer``.
 
 ``make_train_step`` builds the (params, opt_state, batch) -> (params,
 opt_state, metrics) step. ``params`` are the float32 master weights, a
@@ -10,6 +10,25 @@ even: the cast the JAX package applies to its tree on every call; nothing
 to copy under a float32 policy, where the two are one), takes the loss
 and its gradient through the working weights, and applies AdamW to the
 master weights and moments in place.
+
+Under a mesh context (``repro_torch.dist``; one process per rank) the
+step is the reference's ZeRO-3 step: the master weights and moments are
+DTensors placed by ``param_sharding`` ("fsdp" dims sharded over "data"),
+each rank takes its rows of the batch (``act_batch`` over "pod" and
+"data"), each unit's working weights (``Model.zero3_units``: the
+embedding, each layer, the head) are gathered from the cast masters just
+before it computes, as one flat all-gather over "data" (the reference's
+``gather_fsdp``), and released after; a unit's gradients are reduced
+into its masters' placements, as one flat reduce-scatter over "data" and
+an all-reduce over "pod", once autograd has accumulated the last of them,
+and divided by the batch ranks; the clip takes the norm of the whole
+gradient, and AdamW updates each rank's local shards. The metrics are the
+global means. Host decisions that steer collectives (a restart the hook
+asks for, the checkpoint to restore) are rank 0's. Without a context
+nothing of this runs. After a sharded step the model's working weights
+hold no storage: ``load_working(model, trainer.params)`` brings them back
+before the model serves or trains without a mesh, and the model raises
+until then.
 
 Guard integration: the trainer reports its per-step wall time to a
 ``StepHook``; when the hook requests a restart (Guard's IMMEDIATE tier),
@@ -21,12 +40,18 @@ the trainer restores the last checkpoint, notifies the hook via
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 import time
-from typing import Any, Callable, Dict, Mapping, Optional, Protocol
+import weakref
+from typing import Any, Callable, Dict, Mapping, Optional, Protocol, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
+from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch.dist import api as dist
 from repro_torch.models.model import Model
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import SyntheticLM
@@ -47,6 +72,7 @@ def master_params(model: Model) -> Dict[str, torch.Tensor]:
     """The float32 master weights of ``model``'s working weights: the
     parameters themselves when they are float32 (no second copy), else a
     float32 copy (exact: widening)."""
+    model.require_weights()
     return {name: p.detach() if p.dtype == torch.float32
             else p.detach().float()
             for name, p in model.named_parameters()}
@@ -55,11 +81,19 @@ def master_params(model: Model) -> Dict[str, torch.Tensor]:
 @torch.no_grad()
 def load_working(model: Model, params: Mapping[str, torch.Tensor]) -> None:
     """Copy the master weights into the model's working weights (a no-op
-    for a parameter that is its own master)."""
+    for a parameter that is its own master). DTensor masters (a sharded
+    step's) are gathered in full, a collective every rank joins: so a
+    model whose working weights a sharded step released can serve, or
+    train without a mesh, again."""
     for name, p in model.named_parameters():
         src = params[name]
+        if isinstance(src, DTensor):
+            src = src.full_tensor()
+        if p.shape != src.shape:            # released by a sharded step
+            p.data = torch.empty(src.shape, dtype=p.dtype, device=p.device)
         if src.data_ptr() != p.data_ptr():
             p.copy_(src)
+    model.weights_released = False
 
 
 def decay_mask(model: Model) -> Dict[str, bool]:
@@ -80,14 +114,323 @@ def _grads(model: Model) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _microbatches(batch, microbatch: int) -> list:
+    """``batch`` split along its batch dim into chunks of ``microbatch``."""
+    B = np.shape(batch["tokens"])[0]
+    if B % microbatch:
+        raise ValueError(f"batch of {B} is no multiple of the "
+                         f"microbatch {microbatch}")
+    return [{k: v[i:i + microbatch] for k, v in batch.items()}
+            for i in range(0, B, microbatch)]
+
+
+def shard_params(model: Model, ctx: dist.DistContext
+                 ) -> Dict[str, DTensor]:
+    """The float32 master weights of ``model``'s working weights (every
+    rank holds the same), each a DTensor placed by ``param_sharding`` on
+    ``ctx``'s mesh; a rank keeps only its shards."""
+    model.require_weights()
+    named = dict(model.named_parameters())
+    placements = dist.param_sharding(model.param_axes(), named, ctx)
+    return {name: dist.distribute(p.detach().float(), ctx.mesh,
+                                  placements[name])
+            for name, p in named.items()}
+
+
+# torch 2.13 renames these two (the old names then warn)
+_all_gather = getattr(tdist, "all_gather_single", None) \
+    or tdist.all_gather_into_tensor
+_reduce_scatter = getattr(tdist, "reduce_scatter_single", None) \
+    or tdist.reduce_scatter_tensor
+
+
+def _data_dim(ctx: dist.DistContext, placements, name: str) -> Optional[int]:
+    """The tensor dim a master splits over "data", None where it replicates
+    there. The ZeRO-3 step shards over "data" alone: a split on another
+    axis wider than 1 is not its layout."""
+    dim = None
+    for axis, pl in zip(ctx.sizes, placements):
+        if not isinstance(pl, Shard):
+            continue
+        if axis == "data":
+            dim = pl.dim
+        elif ctx.sizes[axis] > 1:
+            raise NotImplementedError(
+                f"{name} is split over {axis!r}: the sharded step splits "
+                f"parameters over 'data' only")
+    return dim
+
+
+class _Unit:
+    """The flat layout of one unit (``Model.zero3_units``): for each
+    parameter (name -> (dim, local shape, offset)) whose master splits over
+    "data" on ``dim``, its place in a flat local buffer of ``size``
+    elements; for each replicated one (dim None, its full shape), its place
+    in a flat buffer of ``rep_size``. Holds the step's gradient buffers."""
+
+    def __init__(self, names, working, dims, n: int):
+        self.names = list(names)
+        self.slot: Dict[str, Tuple[Optional[int], Tuple[int, ...], int]] = {}
+        self.size = self.rep_size = 0
+        for name in self.names:
+            shape, d = list(working[name].shape), dims[name]
+            if d is None:
+                self.slot[name] = (None, tuple(shape), self.rep_size)
+                self.rep_size += math.prod(shape)
+            else:
+                shape[d] //= n
+                self.slot[name] = (d, tuple(shape), self.size)
+                self.size += math.prod(shape)
+        self.shard = [(k, *v) for k, v in self.slot.items()
+                      if v[0] is not None]
+        self.rep = [k for k, v in self.slot.items() if v[0] is None]
+        self.grad = self.rep_grad = None    # float32, allocated on first use
+        self.seen: set = set()              # names whose gradient is in
+
+
+class _Zero3:
+    """The ZeRO-3 state of a sharded step, one flat buffer a unit of
+    ``Model.zero3_units``. ``gather`` casts the unit's local master shards
+    into its buffer and all-gathers that over "data", one collective a
+    unit (the reference's ``gather_fsdp`` of the cast masters: "fsdp"
+    dropped); each working weight is a view of the result at one data
+    rank and a copy of its rows otherwise; replicated parameters are cast
+    on each rank. ``release`` frees a unit's working weights. A post-accumulate-grad
+    hook moves each working gradient, widened to float32, into its unit's
+    gradient buffer (the data ranks' shards one after another) and frees
+    the weight; when the unit's last gradient is in, ``reduce``
+    reduce-scatters the buffer over "data", all-reduces the result over
+    "pod" (and the replicated parameters' buffer over every batch rank),
+    and divides by the number of batch ranks. A collective over one rank
+    is the identity and is skipped. Under ``accumulate`` the
+    buffers sum the microbatches and are reduced once, at the end. The
+    gradients handed on (``take``) are this rank's local shards, plain
+    tensors, in the parameters' order."""
+
+    def __init__(self, model: Model, ctx: dist.DistContext):
+        model.require_weights()
+        self.model = model
+        self.working = dict(model.named_parameters())
+        placements = dist.param_sharding(model.param_axes(), self.working,
+                                         ctx)
+        dims = {name: _data_dim(ctx, pl, name)
+                for name, pl in placements.items()}
+        self.n = ctx.sizes.get("data", 1)
+        self.data_group = ctx.mesh.get_group("data") \
+            if "data" in ctx.sizes else None
+        self.pod_group = ctx.mesh.get_group("pod") \
+            if "pod" in ctx.sizes else None
+        self.replicas = ctx.axis_size("act_batch")
+        self.units = {u: _Unit(names, self.working, dims, self.n)
+                      for u, names in model.zero3_units().items()}
+        self.unit_of = {name: u for u, unit in self.units.items()
+                        for name in unit.names}
+        self.local: Dict[str, torch.Tensor] = {}   # the masters' shards
+        self.grads: Dict[str, torch.Tensor] = {}
+        self.accumulate = False
+        self.active = False
+        self.handles = [p.register_post_accumulate_grad_hook(
+            functools.partial(self._on_grad, name))
+            for name, p in self.working.items()]
+
+    def begin(self, params: Mapping[str, DTensor]) -> None:
+        self.local = {name: m.to_local() for name, m in params.items()}
+        self.active, self.model.zero3 = True, self
+
+    def end(self) -> None:
+        """After the step's backward, or its failure: every working weight
+        released, the buffers dropped."""
+        self.active, self.model.zero3 = False, None
+        self.local, self.grads = {}, {}
+        for unit in self.units.values():
+            unit.grad = unit.rep_grad = None
+            unit.seen = set()
+        for p in self.working.values():
+            if p.numel():
+                self._release(p)
+        self.model.weights_released = True
+
+    @torch.no_grad()
+    def gather(self, name: str) -> None:
+        unit = self.units[name]
+        for pname in unit.rep:
+            p = self.working[pname]
+            p.data = self.local[pname].to(p.dtype, copy=True)
+        if not unit.shard:
+            return
+        first = self.local[unit.shard[0][0]]
+        dtype = self.working[unit.shard[0][0]].dtype
+        send = torch.empty(unit.size, dtype=dtype, device=first.device)
+        for pname, _, shape, off in unit.shard:
+            send[off:off + math.prod(shape)].view(shape).copy_(
+                self.local[pname])
+        recv = send
+        if self.n > 1:          # over one rank the identity: skipped
+            recv = torch.empty(self.n * unit.size, dtype=dtype,
+                               device=first.device)
+            _all_gather(recv, send, group=self.data_group)
+        rows = recv.view(self.n, unit.size)
+        for pname, d, shape, off in unit.shard:
+            piece = rows[:, off:off + math.prod(shape)].unflatten(1, shape)
+            self.working[pname].data = piece.movedim(0, d).flatten(d, d + 1)
+
+    def release(self, name: str) -> None:
+        for pname in self.units[name].names:
+            self._release(self.working[pname])
+
+    @staticmethod
+    def _release(p: torch.Tensor) -> None:
+        p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+
+    @torch.no_grad()
+    def _on_grad(self, name: str, p: torch.Tensor) -> None:
+        if not self.active:
+            return
+        g, p.grad = p.grad, None
+        self._release(p)
+        unit = self.units[self.unit_of[name]]
+        if unit.grad is None and unit.shard:
+            unit.grad = torch.empty(self.n * unit.size, dtype=torch.float32,
+                                    device=g.device)
+        if unit.rep_grad is None and unit.rep:
+            unit.rep_grad = torch.empty(unit.rep_size, dtype=torch.float32,
+                                        device=g.device)
+        d, shape, off = unit.slot[name]
+        if d is None:
+            dst = unit.rep_grad[off:off + g.numel()].view(shape)
+            src = g
+        else:
+            dst = unit.grad.view(self.n, unit.size)[
+                :, off:off + math.prod(shape)].unflatten(1, shape)
+            src = g.unflatten(d, (self.n, shape[d])).movedim(d, 0)
+        if name in unit.seen:           # a later microbatch
+            dst.add_(src)
+        else:
+            dst.copy_(src)              # widening: exact
+            unit.seen.add(name)
+        if not self.accumulate and len(unit.seen) == len(unit.names):
+            self.reduce(self.unit_of[name])
+
+    @torch.no_grad()
+    def reduce(self, name: str) -> None:
+        """The unit's float32 gradients summed over the batch ranks into
+        its masters' placements, over their number."""
+        unit = self.units[name]
+        if unit.shard:
+            out = unit.grad
+            if self.n > 1:
+                out = torch.empty(unit.size, dtype=torch.float32,
+                                  device=unit.grad.device)
+                _reduce_scatter(out, unit.grad, group=self.data_group)
+            self._sum(out, self.pod_group)
+            for pname, _, shape, off in unit.shard:
+                self.grads[pname] = out[off:off + math.prod(shape)].view(
+                    shape)
+        if unit.rep:
+            out = unit.rep_grad
+            self._sum(out, self.data_group)
+            self._sum(out, self.pod_group)
+            for pname in unit.rep:
+                _, shape, off = unit.slot[pname]
+                self.grads[pname] = out[off:off + math.prod(shape)].view(
+                    shape)
+        if self.replicas > 1:
+            for pname in unit.names:
+                self.grads[pname].div_(self.replicas)
+        unit.grad = unit.rep_grad = None
+        unit.seen = set()
+
+    @staticmethod
+    def _sum(t: torch.Tensor, group) -> None:
+        if group is not None and tdist.get_world_size(group) > 1:
+            tdist.all_reduce(t, group=group)
+
+    def take(self) -> Dict[str, torch.Tensor]:
+        """The step's gradients in the parameters' order (the clip's norm
+        sums the leaves in that order, as the unsharded step does)."""
+        missing = [n for n in self.working if n not in self.grads]
+        if missing:
+            raise RuntimeError(f"no gradient reached {missing[:4]} "
+                               f"({len(missing)} parameters)")
+        grads, self.grads = self.grads, {}
+        return {name: grads[name] for name in self.working}
+
+
+def _remove_hooks(handles) -> None:
+    for h in handles:
+        h.remove()
+
+
+def _global_mean(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each metric's mean over the ranks (one all-reduce)."""
+    keys = sorted(metrics)
+    vals = torch.stack([metrics[k].float() for k in keys])
+    tdist.all_reduce(vals)
+    vals = vals / tdist.get_world_size()
+    return {k: vals[i] for i, k in enumerate(keys)}
+
+
+def _sharded_step(model: Model, opt_cfg: AdamWConfig, microbatch: int,
+                  decay: Dict[str, bool], ctx: dist.DistContext) -> Callable:
+    """``make_train_step`` under ``ctx``: the ZeRO-3 step on DTensor
+    master weights and moments (``shard_params``, ``init_opt_state``) and
+    this rank's rows of the batch."""
+    if ctx.mesh.size() != tdist.get_world_size():
+        raise ValueError(f"the mesh holds {ctx.mesh.size()} of the "
+                         f"{tdist.get_world_size()} ranks: a sharded step "
+                         f"reduces over the whole process group")
+    zero = _Zero3(model, ctx)
+
+    def grads_of(batch):
+        if not microbatch:
+            loss, metrics = model.train_loss(batch)
+            loss.backward()
+            return zero.take(), {k: v.detach() for k, v in metrics.items()}
+        chunks = _microbatches(batch, microbatch)
+        zero.accumulate = True
+        per_chunk = []
+        for chunk in chunks:
+            loss, metrics = model.train_loss(chunk)
+            loss.backward()
+            per_chunk.append({k: v.detach() for k, v in metrics.items()})
+        zero.accumulate = False
+        for unit in zero.units:
+            zero.reduce(unit)
+        grads = {name: g / len(chunks) for name, g in zero.take().items()}
+        metrics = {k: torch.stack([m[k] for m in per_chunk]).mean()
+                   for k in per_chunk[0]}
+        return grads, metrics
+
+    def train_step(params, opt_state, batch):
+        with dist.use_mesh(ctx.mesh, ctx.rules):   # the step's own context
+            zero.begin(params)
+            try:
+                grads, metrics = grads_of(batch)
+            finally:
+                zero.end()
+            metrics = _global_mean(metrics)
+            params, opt_state, opt_metrics = apply_adamw(
+                params, grads, opt_state, opt_cfg, decay)
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    # the hooks go when the step does
+    weakref.finalize(train_step, _remove_hooks, zero.handles)
+    return train_step
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
                     microbatch: int = 0) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics); the
     metrics are device tensors. Switches ``requires_grad`` on for the
-    model's working weights."""
+    model's working weights. Under a mesh context the step is the ZeRO-3
+    one: ``params`` and the moments are ``shard_params``' DTensors and
+    ``batch`` is this rank's rows."""
     for p in model.parameters():
         p.requires_grad_(True)
     decay = decay_mask(model)
+    ctx = dist.current()
+    if ctx is not None:
+        return _sharded_step(model, opt_cfg, microbatch, decay, ctx)
 
     def grads_of(batch):
         if not microbatch:
@@ -96,16 +439,11 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             return _grads(model), {k: v.detach()
                                    for k, v in metrics.items()}
         # gradient accumulation over batch-dim chunks, summed in float32
-        B = np.shape(batch["tokens"])[0]
-        if B % microbatch:
-            raise ValueError(f"batch of {B} is no multiple of the "
-                             f"microbatch {microbatch}")
-        n = B // microbatch
+        chunks = _microbatches(batch, microbatch)
+        n = len(chunks)
         acc: Dict[str, torch.Tensor] = {}
         per_chunk = []
-        for i in range(n):
-            chunk = {k: v[i * microbatch:(i + 1) * microbatch]
-                     for k, v in batch.items()}
+        for chunk in chunks:
             loss, metrics = model.train_loss(chunk)
             loss.backward()
             for name, g in _grads(model).items():
@@ -125,6 +463,20 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step
+
+
+def _batch_shard(ctx: dist.DistContext, global_batch: int
+                 ) -> Tuple[int, int]:
+    """(this rank's shard, number of shards) of the batch dim, which
+    ``act_batch`` splits over "pod" and "data" (row-major), or (0, 1) where
+    the batch does not divide them and replicates."""
+    if ctx.spec(("act_batch",), (global_batch,))[0] is None:
+        return 0, 1
+    coord = dict(zip(ctx.sizes, ctx.mesh.get_coordinate()))
+    index = 0
+    for axis in ctx.mesh_axes("act_batch"):
+        index = index * ctx.sizes[axis] + coord[axis]
+    return index, ctx.axis_size("act_batch")
 
 
 def make_serve_step(model: Model) -> Callable:
@@ -160,7 +512,9 @@ def _assign(dst: Mapping, src: Mapping) -> None:
 class Trainer:
     """Trains the port's ``model`` (parameters already drawn or converted)
     on ``data``. ``params`` holds the float32 master weights by parameter
-    name, at first the working weights widened."""
+    name, at first the working weights widened; built under a mesh
+    context, they and the moments are DTensors (``shard_params``) and each
+    step takes this rank's rows of the batch."""
 
     def __init__(self, model: Model, data: SyntheticLM, cfg: TrainConfig,
                  ckpt: Optional[CheckpointManager] = None,
@@ -173,7 +527,11 @@ class Trainer:
         self.history: list = []
         self.last_recovery: Optional[Dict[str, Any]] = None
 
-        self.params = master_params(model)
+        self.ctx = dist.current()
+        self.params = master_params(model) if self.ctx is None \
+            else shard_params(model, self.ctx)
+        self.batch_shard = (0, 1) if self.ctx is None \
+            else _batch_shard(self.ctx, data.cfg.global_batch)
         self.opt_state = init_opt_state(self.params)
         self._step_fn = make_train_step(model, cfg.opt, cfg.microbatch)
 
@@ -209,7 +567,7 @@ class Trainer:
             ) -> Dict[str, Any]:
         step = self.restore()
         while step < self.cfg.steps:
-            batch = self.data.batch_at(step)
+            batch = self.data.batch_at(step, *self.batch_shard)
             t0 = time.perf_counter()
             self.params, self.opt_state, metrics = self._step_fn(
                 self.params, self.opt_state, batch)
@@ -239,7 +597,10 @@ class Trainer:
                 if on_ckpt:
                     on_ckpt(step)
 
-            if self.hook and self.hook(step, wall, m):
+            restart = bool(self.hook and self.hook(step, wall, m))
+            if self.ctx is not None:
+                restart = dist.rank0_value(restart)
+            if restart:
                 # Guard requested an immediate restart: rewind to the last
                 # checkpoint (replacement happens at the cluster layer)
                 fail_step = step
@@ -262,4 +623,5 @@ class Trainer:
 
 
 __all__ = ["StepHook", "TrainConfig", "Trainer", "decay_mask", "load_working",
-           "make_serve_step", "make_train_step", "master_params"]
+           "make_serve_step", "make_train_step", "master_params",
+           "shard_params"]

@@ -65,7 +65,9 @@ def test_every_module_is_covered():
                  "repro_torch.diagnose.whatif", "repro_torch.diagnose.trace",
                  "repro_torch.simcluster.cluster",
                  "repro_torch.simcluster.runtime",
-                 "repro_torch.simcluster.scenarios"):
+                 "repro_torch.simcluster.scenarios",
+                 "repro_torch.dist", "repro_torch.dist.api",
+                 "repro_torch.launch.mesh"):
         assert want in names
 
 
