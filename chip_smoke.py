@@ -102,7 +102,23 @@ order, it
      the same two steps without a mesh, flash attention 16 and its
      backward 8 launches a step, then the step time and peak memory beside
      phase 10's;
- 15. prints one JSON line of per-kernel numbers, then
+ 15. serves the moe family: deepseek-moe-16b at full width and depth
+     (28 layers, 16.4 B parameters) and llama4-scout-17b-a16e at full
+     width, 4 of 48 layers: a prefill of 4,096 tokens on the kernel path
+     (flash attention once per layer) against the plain path (see
+     ``TIE_EPS``: the routing flips between the paths counted, those of
+     the first MoE layer held to be ties, the logits and caches held on
+     the kernel path's routing), the prefill's operator rows, a
+     ``BatchedServer`` of 12 requests on 4 slots, and the slots each of
+     32 decode steps over 4 slots drops;
+ 16. trains deepseek-moe-16b at full width (4 of 28 layers: dense0 and
+     three MoE layers, one 4,096-token sequence, bf16, remat "full"): one
+     step on the kernel path against the plain path on its routing at
+     phase 10's limits (flash attention 7 and its backward 4 launches a
+     step), the step's operator rows, then a ``Trainer`` of 12 steps with
+     a ``GuardStepHook``; the step is not bit-repeatable (the dispatch
+     gather's backward adds with atomics);
+ 17. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -727,9 +743,14 @@ def phase_k4(torch, np):
 # within PATH_REL_TOL of their largest magnitude, and the first cache the
 # kernel feeds, before any growth, within FIRST_REL_TOL: qwen3-4b's layer
 # 1 K/V (one bfloat16 rounding of layer 0's attention away) and rwkv6-7b's
-# layer 0 WKV state (the kernel's own float32 output).
+# layer 0 WKV state (the kernel's own float32 output). The moe family's
+# first such cache is the same kind as the dense one's, one attention
+# away: deepseek-moe-16b's MoE layer 0 K/V (after its dense first layer)
+# and llama4-scout's MoE layer 1 K/V (measured on an H100: 1.16e-2 and
+# 9.1e-3), so it takes the dense limit; the moe family is held on the
+# kernel path's routing (see TIE_EPS).
 PATH_REL_TOL = 1e-1
-FIRST_REL_TOL = {"dense": 2e-2, "ssm": 1e-3}
+FIRST_REL_TOL = {"dense": 2e-2, "ssm": 1e-3, "moe": 2e-2}
 
 
 @contextlib.contextmanager
@@ -835,16 +856,22 @@ def prefill_vs_plain(torch, model, cfg, tokens, counters: dict, tag: str):
 
 
 def phase_serve(torch, np, arch: str, seq: int, counters: dict,
-                ragged: int = 0):
-    """Prefill at full width and depth on the kernel path, checked against
-    the plain path (again at a ``ragged`` prompt length when given), then a
-    BatchedServer to completion. Returns the launches of each kernel during
-    the prefill and the numbers (``ragged_launches`` among them)."""
+                ragged: int = 0, layers: int = 0):
+    """Prefill at full width and depth (``layers`` deep when given) on the
+    kernel path, checked against the plain path (again at a ``ragged``
+    prompt length when given; the moe family by
+    ``moe_prefill_vs_plain``), then a BatchedServer to completion; the moe
+    family also prints its prefill's operator rows and the slots
+    MOE_DECODE_STEPS decode steps drop. Returns the launches of each
+    kernel during the prefill and the numbers (``ragged_launches`` among
+    them)."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import BatchedServer, synthetic_requests
     from repro_torch.models.model import Model
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
@@ -853,9 +880,14 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict,
     rng = np.random.default_rng(7)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (1, seq))).cuda()
-    launches, first_s = prefill_vs_plain(torch, model, cfg, tokens,
-                                         counters, f"{arch} {seq} tokens")
+    tag = f"{arch} {seq} tokens"
     extra = {}
+    if cfg.moe:
+        launches, first_s, extra["vs_plain"] = moe_prefill_vs_plain(
+            torch, model, cfg, tokens, counters, tag)
+    else:
+        launches, first_s = prefill_vs_plain(torch, model, cfg, tokens,
+                                             counters, tag)
     if ragged:
         rtoks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                               (1, ragged))).cuda()
@@ -873,6 +905,11 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict,
     print(f"{arch} prefill profile: {p_wall:.1f} ms wall, device busy "
           f"{p_busy:.1f} ms ({p_busy / p_wall:.0%}); top kernels (ms per "
           f"prefill): {p_top}", flush=True)
+    if cfg.moe:
+        extra["prefill_ops"] = op_rows(torch, lambda: model.prefill(tokens),
+                                       reps=2)
+        print(f"{arch} prefill operators (device ms per prefill): "
+              f"{extra['prefill_ops']}", flush=True)
     dcache = model.init_cache(4, 512)
     dtoks = torch.zeros(4, dtype=torch.long, device=model.device)
     d_wall, d_busy, d_top = device_profile(
@@ -900,10 +937,19 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict,
           f"{arch}: non-finite logits in a decode step")
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
           f"{arch}: a token outside the vocabulary")
+    if cfg.moe:
+        model.decode_step = decode
+        drops = decode_drops(torch, model, MOE_DECODE_STEPS)
+        extra["decode_drops"] = drops
+        from repro_torch.models.moe import capacity
+        print(f"{arch} decode over 4 slots, slots dropped by the capacity "
+              f"(C = {capacity(4, cfg)}) in each of {MOE_DECODE_STEPS} "
+              f"steps, summed over the {len(model.layers)} MoE layers: "
+              f"{drops}", flush=True)
     nums = dict(init_s=init_s, first_prefill_s=first_s, prefill_s=prefill_s,
                 seq=seq, params=n_params, prefill_busy_ms=p_busy,
                 decode_step_ms=d_wall, decode_busy_ms=d_busy, **extra, **out)
-    print(f"{arch} ({n_params / 1e9:.2f} B params, {cfg.num_layers} layers):"
+    print(f"{arch} ({n_params / 1e9:.3f} B params, {cfg.num_layers} layers):"
           f" init {init_s:.2f} s; prefill of {seq} tokens {prefill_s * 1e3:.1f}"
           f" ms ({seq / prefill_s:.0f} tok/s; first call {first_s * 1e3:.1f}"
           f" ms); launches {launches}; server: {out['requests_done']} "
@@ -917,6 +963,261 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict,
     del model, server, decode
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, nums
+
+
+# ------------------------------------------- phases 15 and 16: the moe family
+
+MOE_SEQ = 4096
+LLAMA4_LAYERS = 4          # of llama4-scout's 48: 107.8 B parameters
+                           # (216 GB in bf16) do not fit one card
+MOE_TRAIN_LAYERS = 4       # of deepseek-moe-16b's 28: dense0 + 3 MoE layers
+MOE_DECODE_STEPS = 32      # recorded decode steps over 4 slots
+# The kernel path and the plain path round the hidden states differently
+# (K3 rounds its probabilities to bf16), so a near-tied router choice can
+# flip between them, and a flip moves where a full expert's capacity cut
+# falls. With random weights the routers are near flat and most experts
+# overflow, so flips spread layer by layer (measured on an H100 in the
+# 28-layer deepseek prefill: 1,072 flipped (token, choice) slots of
+# 24,576 in the first MoE layer, 7,564 in the last, one token of 4,096
+# routed alike in every layer). A flipped token cannot be held to a
+# rounding limit. So phases 15 and 16 count the flips, check that those
+# of the first MoE layer, whose inputs differ by rounding only, are near
+# ties (the two experts' kernel-path probabilities within TIE_EPS), and
+# hold the plain path to the kernel path's limits on the kernel path's
+# routing: the plain path's router takes the kernel path's experts call
+# by call, with its own probabilities as weights.
+TIE_EPS = 2e-2
+
+
+@contextlib.contextmanager
+def recorded_routes(torch, log: list):
+    """Keep in ``log``, for every MoE call, its router probabilities
+    (T, E), experts (B, S, k) and each slot's keep bit
+    (``moe.plan_slots``)."""
+    from unittest import mock
+    import repro_torch.models.moe as moe_mod
+    top_k, inner = moe_mod._top_k, moe_mod.dispatch_compute_combine
+    probs = []
+
+    def kept_top_k(p, k):
+        probs.append(p.detach().reshape(-1, p.shape[-1]).clone())
+        return top_k(p, k)
+
+    def rec(x, idx, w, wi, wo, *, capacity, num_experts, top_k,
+            offset=None):
+        order, dest, c = moe_mod.plan_slots(idx, capacity=capacity,
+                                            num_experts=num_experts,
+                                            offset=offset)
+        keep = torch.empty_like(dest, dtype=torch.bool)
+        keep[order] = dest < num_experts * c
+        log.append((probs.pop(0), idx.detach().clone(),
+                    keep.view(idx.shape)))
+        return inner(x, idx, w, wi, wo, capacity=capacity,
+                     num_experts=num_experts, top_k=top_k, offset=offset)
+    with mock.patch.object(moe_mod, "_top_k", kept_top_k), \
+            mock.patch.object(moe_mod, "dispatch_compute_combine", rec):
+        yield
+
+
+@contextlib.contextmanager
+def forced_routes(torch, log: list):
+    """The MoE calls take the experts of ``log`` (``recorded_routes``),
+    call by call, with their own probabilities as weights."""
+    from unittest import mock
+    import repro_torch.models.moe as moe_mod
+    queue = [idx for _, idx, _ in log]
+
+    def forced(p, k):
+        idx = queue.pop(0)
+        w = p.gather(-1, idx)
+        return w / w.sum(dim=-1, keepdim=True).clamp_min(1e-9), idx
+    with mock.patch.object(moe_mod, "_top_k", forced):
+        yield
+    check(not queue, f"{len(queue)} recorded routes were not taken")
+
+
+def route_flips(torch, got: list, want: list, tag: str):
+    """Per MoE call, the (token, choice) slots whose expert differs
+    between two recorded runs, and the number of tokens routed alike in
+    every call; fails unless each flip of the first call is a tie within
+    TIE_EPS of ``got``'s probabilities. Returns (flips, alike, the first
+    call's largest tie margin)."""
+    check(len(got) == len(want), f"{tag}: {len(got)} MoE calls against "
+          f"{len(want)}")
+    flips, alike = [], None
+    for (_, gi, gk), (_, wi, wk) in zip(got, want):
+        flips.append(int((gi != wi).sum()))
+        same = ((gi == wi) & (gk == wk)).all(dim=-1)
+        alike = same if alike is None else alike & same
+    p, gi, _ = got[0]
+    wi = want[0][1]
+    diff = (gi != wi).reshape(-1, gi.shape[-1])
+    pg = p.gather(-1, gi.reshape(-1, gi.shape[-1]))[diff]
+    pw = p.gather(-1, wi.reshape(-1, wi.shape[-1]))[diff]
+    margin = float((pg - pw).abs().max()) if diff.any() else 0.0
+    check(margin <= TIE_EPS, f"{tag}: a slot of the first MoE layer flipped "
+          f"between experts whose probabilities differ by {margin:.3e} "
+          f"(> TIE_EPS {TIE_EPS}): not a rounding tie")
+    return flips, int(alike.sum()), margin
+
+
+def moe_prefill_vs_plain(torch, model, cfg, tokens, counters: dict,
+                         tag: str):
+    """``prefill_vs_plain`` for the moe family (see TIE_EPS): the kernel
+    path (its launches, seconds and routing kept), the plain path (its
+    routing compared: ``route_flips``), and the plain path on the kernel
+    path's routing, whose logits and caches must hold PATH_REL_TOL and
+    the first K/V an attention feeds FIRST_REL_TOL["moe"]. Returns
+    (launches, seconds, numbers)."""
+    for c in counters.values():
+        c.reset()
+    routes_k, routes_p = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_routes(torch, routes_k):
+        logits, cache = model.prefill(tokens)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    check(bool(torch.isfinite(logits).all()),
+          f"{tag}: non-finite prefill logits")
+    with plain_paths(), recorded_routes(torch, routes_p):
+        model.prefill(tokens)
+    flips, alike, margin = route_flips(torch, routes_k, routes_p, tag)
+    del routes_p
+    with plain_paths(), forced_routes(torch, routes_k):
+        plain_logits, plain_cache = model.prefill(tokens)
+    torch.cuda.synchronize()
+    check(all(c.launches == launches[n] for n, c in counters.items()),
+          f"{tag}: the plain path launched a kernel")
+    errs = {"logits": rel_err(logits, plain_logits)}
+    for name, got, want in zip("kv", cache["layers"], plain_cache["layers"]):
+        errs[f"{name} cache"] = rel_err(got, want)
+    # the first K/V one attention away: after dense0, else MoE layer 1
+    j = 0 if "dense0" in cache else 1
+    first = max(rel_err(got[j], want[j]) for got, want in
+                zip(cache["layers"], plain_cache["layers"]))
+    slots = routes_k[0][1].numel()
+    dropped = [int((~k).sum()) for _, _, k in routes_k]
+    print(f"{tag} prefill kernel vs plain path: {sum(flips)} of "
+          f"{slots * len(flips)} (token, choice) slots routed to another "
+          f"expert (per MoE layer {flips}; the first layer's within "
+          f"{margin:.3e} of a tie, TIE_EPS {TIE_EPS}), {alike} of "
+          f"{tokens.numel()} tokens routed alike in every layer; slots "
+          f"dropped by the capacity per MoE layer {dropped} of {slots}; "
+          f"on the kernel path's routing, max abs err / max abs: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; cache layer {j} k/v {first:.3e}; launches {launches}",
+          flush=True)
+    for name, e in errs.items():
+        check(e <= PATH_REL_TOL, f"{tag}: prefill {name} differs from the "
+                                 f"plain path by {e:.3e} of its largest "
+                                 f"magnitude (> {PATH_REL_TOL})")
+    check(first <= FIRST_REL_TOL["moe"],
+          f"{tag}: cache layer {j}'s k/v differ from the plain path by "
+          f"{first:.3e} (> {FIRST_REL_TOL['moe']})")
+    nums = dict(route_flips=flips, tokens_alike=alike, tie_margin=margin,
+                slots=slots, dropped=dropped, first_err=first,
+                **{f"{k.replace(' ', '_')}_err": v for k, v in errs.items()})
+    return launches, secs, nums
+
+
+def decode_drops(torch, model, steps: int) -> list:
+    """Slots each of ``steps`` decode steps over 4 slots drops, summed
+    over the MoE layers (seeded tokens, a zero cache of 512)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    cache = model.init_cache(4, 512)
+    out = []
+    for _ in range(steps):
+        toks = torch.randint(0, model.cfg.vocab_size, (4,), device="cuda",
+                             generator=gen)
+        log = []
+        with recorded_routes(torch, log):
+            model.decode_step(toks, cache)
+        out.append(sum(int((~k).sum()) for _, _, k in log))
+    return out
+
+
+def op_rows(torch, fn, reps: int, top: int = 12):
+    """The operators with the most device time a call of ``fn`` (the
+    profiler's CPU-side rows, each with its kernels' device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.self_device_time_total]
+    rows.sort(key=lambda r: -r[1])
+    return [(k[:40], round(t / reps / 1e3, 3)) for k, t in rows[:top]]
+
+
+def phase_train_moe(torch, np, counters: dict):
+    """Phase 16: deepseek-moe-16b training at full width, MOE_TRAIN_LAYERS
+    deep (dense0 and three MoE layers): one bf16 step on the kernel path
+    against the plain path on the kernel path's routing at phase 10's
+    limits (the plain path's own routing compared: ``route_flips``), the
+    operators of a step, then ``trainer_run``. Returns (launches of the
+    Trainer run, numbers)."""
+    import gc
+    # dense0 once; each MoE layer in the forward and in the recompute
+    per_step = {"flash_attention": 2 * MOE_TRAIN_LAYERS - 1,
+                "flash_attention_bwd": MOE_TRAIN_LAYERS}
+    model, data, batch, opt, tag = train_setup(torch, "deepseek-moe-16b",
+                                               MOE_TRAIN_LAYERS)
+    routes, routes_p = [], []
+    loss_k, grads_k, loss_p, grads_p, launches = step_vs_plain(
+        torch, counters, per_step, model, batch, tag, routes)
+    n_moe = MOE_TRAIN_LAYERS - 1
+    check(len(routes) == 2 * n_moe, f"{tag}: {len(routes)} MoE calls in "
+          f"the kernel step, not {2 * n_moe} (forward and recompute)")
+    with torch.no_grad(), plain_paths(), recorded_routes(torch, routes_p):
+        model.train_loss(batch)
+    flips, alike, margin = route_flips(torch, routes[:n_moe], routes_p, tag)
+    dropped = [int((~k).sum()) for _, _, k in routes[:n_moe]]
+    slots = routes[0][1].numel()
+    del routes, routes_p
+    g = step_gaps(torch, model, loss_k, grads_k, loss_p, grads_p, opt)
+    print(f"{tag}: {flips} of {slots} (token, choice) slots a MoE layer "
+          f"routed to another expert by the plain path (the first layer's "
+          f"within {margin:.3e} of a tie), {alike} of {MOE_SEQ} tokens "
+          f"routed alike in every layer; slots dropped by the capacity "
+          f"{dropped} of {slots}", flush=True)
+    step_nums = hold_step(g, loss_k, loss_p, tag,
+                          "in bfloat16, on the kernel path's routing",
+                          launches)
+    step_nums.update(route_flips=flips, tokens_alike=alike,
+                     tie_margin=margin, dropped=dropped)
+    del grads_k, grads_p, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_nums["step_ops"] = op_rows(
+        torch, lambda: train_step_grads(torch, model, batch), reps=1)
+    print(f"{tag} operators (device ms per step): {step_nums['step_ops']}",
+          flush=True)
+    return trainer_run(torch, np, counters, per_step, model, data, batch,
+                       opt, tag, step_nums)
+
+
+def phase_moe_serve(torch, np, counters: dict):
+    """Phase 15: deepseek-moe-16b at full width and depth, then
+    llama4-scout at full width, LLAMA4_LAYERS deep: prefill of MOE_SEQ
+    tokens against the plain path, profiles, a BatchedServer of 12
+    requests on 4 slots, and the slots MOE_DECODE_STEPS decode steps
+    drop. Returns ({arch: prefill launches}, numbers)."""
+    launches, nums = {}, {}
+    for arch, layers in (("deepseek-moe-16b", 0),
+                         ("llama4-scout-17b-a16e", LLAMA4_LAYERS)):
+        launches[arch], nums[arch] = phase_serve(
+            torch, np, arch, MOE_SEQ, counters, layers=layers)
     return launches, nums
 
 
@@ -1159,19 +1460,24 @@ def train_setup(torch, arch: str, layers: int):
 
 
 def step_vs_plain(torch, counters: dict, per_step: dict, model, batch,
-                  tag: str):
+                  tag: str, routes: list = None):
     """One step of ``model`` on the kernel path, then on the plain path.
     Fails unless the kernel path launched each kernel ``per_step`` times
-    and the plain path none, and the loss and gradients are finite.
-    Returns (loss_k, grads_k, loss_p, grads_p, launches)."""
+    and the plain path none, and the loss and gradients are finite. With
+    ``routes`` (the moe family), the kernel step's routing is recorded
+    there and the plain step takes it (``forced_routes``). Returns
+    (loss_k, grads_k, loss_p, grads_p, launches)."""
+    moe = routes is not None
     for c in counters.values():
         c.reset()
-    loss_k, grads_k = train_step_grads(torch, model, batch)
+    with recorded_routes(torch, routes) if moe else contextlib.nullcontext():
+        loss_k, grads_k = train_step_grads(torch, model, batch)
     launches = {n: c.launches for n, c in counters.items()}
     check(launches == {n: per_step.get(n, 0) for n in counters},
           f"{tag}: a kernel-path step launched {launches}, not {per_step} "
           f"(forward and remat, one backward a layer)")
-    with plain_paths():
+    with plain_paths(), \
+            forced_routes(torch, routes) if moe else contextlib.nullcontext():
         loss_p, grads_p = train_step_grads(torch, model, batch)
     check(all(c.launches == launches[n] for n, c in counters.items()),
           f"{tag}: the plain path launched a kernel")
@@ -2466,6 +2772,13 @@ def main() -> None:
     train_ssm, ssm_nums = phase_train_ssm(torch, np, counters)
     train_mesh, mesh_nums = phase_train_mesh(torch, np, counters, tnums,
                                              card)
+    moe, moe_nums = phase_moe_serve(torch, np, counters)
+    for arch, layers in (("deepseek-moe-16b", 28),
+                         ("llama4-scout-17b-a16e", LLAMA4_LAYERS)):
+        check(moe[arch] == only(flash_attention=layers),
+              f"{arch} prefill launched {moe[arch]} (flash_attention once "
+              f"per layer, {layers})")
+    train_moe, moe_tnums = phase_train_moe(torch, np, counters)
 
     kernels = [
         {"name": "fleet_score", "route": "cuda",
@@ -2493,12 +2806,17 @@ def main() -> None:
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "shape": k3["shape"],
          "launches_train": train["flash_attention"],
-         "launches_mesh": train_mesh["flash_attention"]},
+         "launches_mesh": train_mesh["flash_attention"],
+         "launches_moe_prefill": moe["deepseek-moe-16b"]["flash_attention"],
+         "launches_moe_prefill_llama4":
+             moe["llama4-scout-17b-a16e"]["flash_attention"],
+         "launches_moe_train": train_moe["flash_attention"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention/ops.py:42",
          "launches": train["flash_attention_bwd"],
          "launches_mesh": train_mesh["flash_attention_bwd"],
+         "launches_moe_train": train_moe["flash_attention_bwd"],
          "max_abs_err": k3b["max_abs_err"],
          "max_rel_err": k3b["max_rel_err"], "ms": k3b["ms"],
          "device_ms": k3b["device_ms"],
@@ -2534,6 +2852,10 @@ def main() -> None:
     print(f"ssm training (phase 13): {json.dumps(ssm_nums)}", flush=True)
     print(f"training under a one-rank mesh (phase 14): "
           f"{json.dumps(mesh_nums)}", flush=True)
+    print(f"moe serving (phase 15): {json.dumps(moe_nums)}", flush=True)
+    print(f"moe training (phase 16): {json.dumps(moe_tnums)}", flush=True)
+    print(f"every phase passed in {time.perf_counter() - t0:.1f} s, the "
+          f"builds included", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,14 +4,19 @@ Batched decode serving with continuous batching over a synthetic request
 stream, the port of ``repro.launch.serve``: requests arrive with a prompt
 length and a decode budget; slots are backfilled as sequences finish.
 Without ``--full`` it serves the reduced config; ``--full`` serves the
-published widths and depth. It runs on the card (``--device cuda``, the
-default) unless asked for the CPU.
+published widths and depth. ``--arch`` takes the dense, moe and ssm
+families (qwen3-4b, deepseek-moe-16b, llama4-scout-17b-a16e, rwkv6-7b,
+...). It runs on the card (``--device cuda``, the default) unless asked
+for the CPU.
 
 The server keeps the reference's behaviour on purpose, so that both
 packages give the same token streams: prompts are fed by decode steps
 (no prefill call), one cache position ``pos`` is shared by all slots, so
 a request admitted later attends to the rows its slot's earlier occupant
-wrote, and a position past the cache writes nothing.
+wrote, and a position past the cache writes nothing. An idle slot is fed
+token 0, and in the moe family a decode step routes all slots as one
+call: idle slots take expert capacity, and slots beyond an expert's
+capacity lose their routed output for that layer.
 """
 from __future__ import annotations
 
@@ -110,7 +115,10 @@ class BatchedServer:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="qwen3-4b",
+                    help="a dense, moe or ssm architecture id, e.g. "
+                         "qwen3-4b, deepseek-moe-16b, "
+                         "llama4-scout-17b-a16e, rwkv6-7b")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=256)

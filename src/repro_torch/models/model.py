@@ -1,5 +1,5 @@
-"""The model of the dense and ssm families: training loss, prefill and
-KV-cache (or state) decode, the port of ``repro.models.model.Model``.
+"""The model of the dense, moe and ssm families: training loss, prefill
+and KV-cache (or state) decode, the port of ``repro.models.model.Model``.
 
   Model(cfg, policy, device=..., seed=..., remat=...)   parameters drawn
                              on the device
@@ -9,14 +9,19 @@ KV-cache (or state) decode, the port of ``repro.models.model.Model``.
   decode_step(tokens, cache) -> (logits (B, Vp), cache)
 
 The cache has the JAX package's layout: dense ``{"layers": (K, V), "pos"}``
-with K/V (L, B, Hkv, Sc, hd) in the compute dtype; ssm ``{"wkv", "x_tm",
-"x_cm", "pos"}`` in float32. ``pos`` is a Python int here (a 0-d int32
-array there). ``decode_step`` updates the cache's tensors in place and
-returns the same dict with ``pos`` advanced; the JAX package returns a new
-cache. ``train_loss`` runs with gradients through the working weights (see
-``models.common``); with ``remat="full"`` (the reference's default) each
-layer is ``torch.utils.checkpoint``-ed, so its forward, flash attention
-or the WKV6 kernel included, runs again in the backward. The moe,
+with K/V (L, B, Hkv, Sc, hd) in the compute dtype; moe the same over its
+MoE layers, and, where the first layer is dense (deepseek-moe's
+``first_layer_dense``), ``"dense0"``: that layer's (K, V) of (B, Hkv, Sc,
+hd); ssm ``{"wkv", "x_tm", "x_cm", "pos"}`` in float32. ``pos`` is a
+Python int here (a 0-d int32 array there). ``decode_step`` updates the
+cache's tensors in place and returns the same dict with ``pos`` advanced;
+the JAX package returns a new cache. ``train_loss`` runs with gradients
+through the working weights (see ``models.common``); with
+``remat="full"`` (the reference's default) each layer is
+``torch.utils.checkpoint``-ed, so its forward, flash attention or the
+WKV6 kernel included, runs again in the backward; the moe family's
+``dense0`` runs outside the checkpoint, as in the reference, and its
+loss adds ``router_aux_loss`` times the MoE layers' summed aux. The
 hybrid, audio and vlm families come with their slices.
 
   param_axes()               -> {parameter name: logical axes}, the
@@ -27,11 +32,11 @@ Under a mesh (``repro_torch.dist``), ``train_loss`` constrains the
 activations at the reference's sites, and a sharded training step sets
 ``zero3`` (``repro_torch.train.trainer``) to gather each unit of
 ``zero3_units`` just in time: "in" (the token table, ``ln0``) before the
-embedding, each layer at its start, inside the checkpointed function so
-that the recompute gathers again, and "out" (``ln_f``, the head) after
-the layers. After such a step the working weights hold no storage
-(``weights_released``) and every entry point raises until
-``repro_torch.train.load_working`` brings them back.
+embedding, "dense0" before that layer, each layer at its start, inside
+the checkpointed function so that the recompute gathers again, and "out"
+(``ln_f``, the head) after the layers. After such a step the working
+weights hold no storage (``weights_released``) and every entry point
+raises until ``repro_torch.train.load_working`` brings them back.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.dist import api as dist
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import Init, Policy, pad_vocab
@@ -50,7 +56,7 @@ from repro_torch.models.layers import (Embed, cross_entropy, embed_tokens,
                                        layer_norm, logits_from_hidden,
                                        rms_norm, rope_tables)
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm")
 REMAT = ("full", "none")
 
 Cache = Dict[str, Any]
@@ -68,7 +74,7 @@ class Model(nn.Module):
         ``remat`` ("full" or "none") is how ``train_loss`` keeps
         activations."""
         super().__init__()
-        if cfg.family not in FAMILIES or cfg.moe or cfg.is_encoder_decoder \
+        if cfg.family not in FAMILIES or cfg.is_encoder_decoder \
                 or cfg.mrope_sections:
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
@@ -88,6 +94,14 @@ class Model(nn.Module):
             self.ln0 = init.zeros((cfg.d_model,))
             self.layers = nn.ModuleList(rwkv6.Block(init, cfg)
                                         for _ in range(cfg.num_layers))
+        elif cfg.moe:
+            n_dense = 1 if cfg.moe.first_layer_dense else 0
+            if n_dense:
+                self.dense0 = tfm.DecoderLayer(init, cfg,
+                                               d_ff=cfg.moe.dense_d_ff)
+            self.layers = nn.ModuleList(
+                tfm.DecoderLayer(init, cfg, moe_layer=True)
+                for _ in range(cfg.num_layers - n_dense))
         else:
             self.layers = nn.ModuleList(tfm.DecoderLayer(init, cfg)
                                         for _ in range(cfg.num_layers))
@@ -108,12 +122,18 @@ class Model(nn.Module):
     def zero3_units(self) -> Dict[str, List[str]]:
         """The sharded step's units, each gathered as one, in the order
         the forward reads them: {unit: parameter names}. "in" is what it
-        reads before the layers, "layers.<i>" each layer, "out" what it
-        reads after them (``ln_f`` and an untied head)."""
+        reads before the layers, "dense0" the moe family's dense first
+        layer, "layers.<i>" each layer, "out" what it reads after them
+        (``ln_f`` and an untied head). "in", "dense0" and "out" are not
+        checkpointed: their gathered weights stay until their
+        gradients arrive."""
         names = [n for n, _ in self.named_parameters()]
         late = ("ln_f", "embed.head")
         units = {"in": [n for n in names
-                        if not n.startswith("layers.") and n not in late]}
+                        if not n.startswith(("layers.", "dense0."))
+                        and n not in late]}
+        if hasattr(self, "dense0"):
+            units["dense0"] = [n for n in names if n.startswith("dense0.")]
         for i in range(len(self.layers)):
             units[f"layers.{i}"] = [n for n in names
                                     if n.startswith(f"layers.{i}.")]
@@ -123,6 +143,10 @@ class Model(nn.Module):
     def _gather(self, unit: str) -> None:
         if self.zero3 is not None:
             self.zero3.gather(unit)
+
+    def _token_shard(self) -> Optional[moe_mod.TokenShard]:
+        """(this rank's batch shard, shards) inside a sharded step."""
+        return None if self.zero3 is None else self.zero3.token_shard
 
     def require_weights(self) -> None:
         """Raises where a sharded step left the working weights empty."""
@@ -144,18 +168,24 @@ class Model(nn.Module):
             return self._forward_rwkv(tokens)
         B, S = tokens.shape
         x = embed_tokens(self.embed, tokens)
-        L, hd = cfg.num_layers, cfg.resolved_head_dim
+        L, hd = len(self.layers), cfg.resolved_head_dim
         positions = torch.arange(S, dtype=torch.int32,
                                  device=self.device)[None].expand(B, S)
         rope = rope_tables(positions, hd, cfg.rope_theta)
+        cache: Cache = {}
+        if hasattr(self, "dense0"):
+            x, _, (k, v) = tfm.decoder_layer(self.dense0, cfg, x, rope)
+            cache["dense0"] = (k.transpose(1, 2).contiguous(),
+                               v.transpose(1, 2).contiguous())
         shape = (L, B, cfg.num_kv_heads, S, hd)
         kc = torch.empty(shape, dtype=x.dtype, device=self.device)
         vc = torch.empty(shape, dtype=x.dtype, device=self.device)
         for i, lp in enumerate(self.layers):
-            x, (k, v) = tfm.decoder_layer(lp, cfg, x, rope)
+            x, _, (k, v) = tfm.decoder_layer(lp, cfg, x, rope)
             kc[i] = k.transpose(1, 2)           # (B, Hkv, S, hd) cache layout
             vc[i] = v.transpose(1, 2)
-        return x, {"layers": (kc, vc)}
+        cache["layers"] = (kc, vc)
+        return x, cache
 
     def _forward_rwkv(self, tokens: torch.Tensor
                       ) -> Tuple[torch.Tensor, Cache]:
@@ -185,7 +215,9 @@ class Model(nn.Module):
         "aux"}), the loss a scalar float32 tensor with a graph back to the
         working weights. The ssm family runs the reference's
         ``_forward_rwkv`` (``ln0``, then each block from a zero WKV
-        state), whose WKV6 call differentiates through K4' on the card."""
+        state), whose WKV6 call differentiates through K4' on the card.
+        The moe family's loss is ``ce + router_aux_loss * aux``, aux the
+        sum of its MoE layers' (``dense0``'s is not counted)."""
         cfg = self.cfg
         tokens = self._tokens(batch["tokens"])
         labels = self._tokens(batch["labels"])
@@ -204,6 +236,11 @@ class Model(nn.Module):
             layer = self._train_layer
             extra = (rope_tables(positions, cfg.resolved_head_dim,
                                  cfg.rope_theta),)
+        auxes = []
+        if hasattr(self, "dense0"):
+            # outside the checkpoint, as in the reference; its aux is 0
+            self._gather("dense0")
+            x = tfm.decoder_layer(self.dense0, cfg, x, *extra)[0]
         for i, lp in enumerate(self.layers):
             if self.remat == "full" and torch.is_grad_enabled():
                 # no randomness inside a layer: the RNG state need not be
@@ -215,6 +252,9 @@ class Model(nn.Module):
                     self.zero3.release(f"layers.{i}")
             else:
                 x = layer(i, lp, x, *extra)
+            if cfg.moe:
+                x, aux = x
+                auxes.append(aux)
         self._gather("out")
         x = rms_norm(x, self.ln_f.to(x.dtype), cfg.norm_eps)
         x = dist.constraint(x, "act_batch", "act_seq", "act_embed")
@@ -222,13 +262,19 @@ class Model(nn.Module):
                                     cfg.tie_embeddings)
         logits = dist.constraint(logits, "act_batch", "act_seq", "act_vocab")
         ce = cross_entropy(logits, labels, cfg.vocab_size)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        return ce, {"loss": ce, "ce": ce, "aux": aux}
+        if not auxes:
+            aux = torch.zeros((), dtype=torch.float32, device=self.device)
+            return ce, {"loss": ce, "ce": ce, "aux": aux}
+        aux = torch.stack(auxes).sum()
+        loss = ce + cfg.moe.router_aux_loss * aux
+        return loss, {"loss": loss, "ce": ce, "aux": aux}
 
-    def _train_layer(self, i: int, lp, x: torch.Tensor,
-                     rope) -> torch.Tensor:
+    def _train_layer(self, i: int, lp, x: torch.Tensor, rope):
+        """x of the next layer; (x, aux) in the moe family."""
         self._gather(f"layers.{i}")
-        return tfm.decoder_layer(lp, self.cfg, x, rope)[0]
+        x, aux, _ = tfm.decoder_layer(lp, self.cfg, x, rope,
+                                      token_shard=self._token_shard())
+        return (x, aux) if self.cfg.moe else x
 
     def _train_rwkv_layer(self, i: int, lp, x: torch.Tensor) -> torch.Tensor:
         self._gather(f"layers.{i}")
@@ -266,10 +312,15 @@ class Model(nn.Module):
                     "x_tm": torch.zeros((L, B, d), **f32),
                     "x_cm": torch.zeros((L, B, d), **f32),
                     "pos": 0}
-        shape = (L, B, cfg.num_kv_heads, cache_len, cfg.resolved_head_dim)
+        shape = (len(self.layers), B, cfg.num_kv_heads, cache_len,
+                 cfg.resolved_head_dim)
         kv = dict(dtype=self.policy.compute_dtype, device=self.device)
-        return {"layers": (torch.zeros(shape, **kv), torch.zeros(shape, **kv)),
-                "pos": 0}
+        cache = {"layers": (torch.zeros(shape, **kv),
+                            torch.zeros(shape, **kv)), "pos": 0}
+        if hasattr(self, "dense0"):
+            cache["dense0"] = (torch.zeros(shape[1:], **kv),
+                               torch.zeros(shape[1:], **kv))
+        return cache
 
     @torch.no_grad()
     def decode_step(self, tokens, cache: Cache) -> Tuple[torch.Tensor, Cache]:
@@ -294,6 +345,9 @@ class Model(nn.Module):
                                    device=self.device)
             rope = rope_tables(positions, cfg.resolved_head_dim,
                                cfg.rope_theta)
+            if hasattr(self, "dense0"):
+                x = tfm.decoder_layer_step(self.dense0, cfg, x,
+                                           *cache["dense0"], pos, rope)
             for i, lp in enumerate(self.layers):
                 x = tfm.decoder_layer_step(lp, cfg, x, kc[i], vc[i], pos,
                                            rope)

@@ -1,51 +1,69 @@
-"""The dense decoder layer: prefill (``decoder_layer``) and one decode step
-(``decoder_layer_step``). Sliding windows, cross attention and MoE FFNs
-come with the hybrid, audio and moe families."""
+"""The decoder layer with a dense or an MoE FFN: prefill and training
+(``decoder_layer``) and one decode step (``decoder_layer_step``). Sliding
+windows and cross attention come with the hybrid and audio families."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import Init
 from repro_torch.models.layers import MLP, rms_norm
 
 
 class DecoderLayer(nn.Module):
-    """``ln_attn``, ``attn``, ``ln_mlp``, ``mlp`` as in the JAX tree."""
+    """``ln_attn``, ``attn``, ``ln_mlp`` and either ``mlp`` (of hidden
+    ``d_ff``, default ``cfg.d_ff``) or, for an MoE layer, ``moe``, as in
+    the JAX tree (``init_decoder_layer``)."""
 
     AXES = {"ln_attn": (None,), "ln_mlp": (None,)}
 
-    def __init__(self, init: Init, cfg):
+    def __init__(self, init: Init, cfg, *, moe_layer: bool = False,
+                 d_ff: int = 0):
         super().__init__()
         self.ln_attn = init.zeros((cfg.d_model,))
         self.attn = attn.Attention(init, cfg)
         self.ln_mlp = init.zeros((cfg.d_model,))
-        self.mlp = MLP(init, cfg.d_model, cfg.d_ff, cfg.act)
+        self.moe_layer = moe_layer
+        if moe_layer:
+            self.moe = moe_mod.MoE(init, cfg)
+        else:
+            self.mlp = MLP(init, cfg.d_model, d_ff or cfg.d_ff, cfg.act)
 
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
 
 
-def decoder_layer(p: DecoderLayer, cfg, x: torch.Tensor, rope: Rope
-                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Prefill layer. x (B, S, D); ``rope`` the tables of positions 0..S-1.
-    Returns (x, (k, v)) with k/v (B, S, Hkv, hd) for the cache."""
+def decoder_layer(p: DecoderLayer, cfg, x: torch.Tensor, rope: Rope,
+                  token_shard: Optional[moe_mod.TokenShard] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             Tuple[torch.Tensor, torch.Tensor]]:
+    """Prefill / training layer. x (B, S, D); ``rope`` the tables of
+    positions 0..S-1; ``token_shard`` see ``moe.apply_moe``. Returns (x,
+    aux, (k, v)): the MoE's aux (zero for a dense FFN), k/v (B, S, Hkv,
+    hd) for the cache."""
     h = rms_norm(x, p.ln_attn, cfg.norm_eps)
     q, k, v = attn.project_qkv(p.attn, cfg, h, rope)
     o = attn.full_attention(q, k, v, causal=True)
     x = x + attn.out_projection(p.attn, o)
     h = rms_norm(x, p.ln_mlp, cfg.norm_eps)
-    return x + p.mlp(h), (k, v)
+    if p.moe_layer:
+        d, aux = moe_mod.apply_moe(p.moe, cfg, h, token_shard)
+    else:       # the reference's aux of a dense FFN: a float32 zero
+        d = p.mlp(h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + d, aux, (k, v)
 
 
 def decoder_layer_step(p: DecoderLayer, cfg, x: torch.Tensor,
                        kcache: torch.Tensor, vcache: torch.Tensor, pos: int,
                        rope: Rope) -> torch.Tensor:
     """Decode-step layer. x (B, D); caches (B, Hkv, Sc, hd), written in
-    place at ``pos``; ``rope`` the (B, 1) tables of ``pos``. Returns x."""
+    place at ``pos``; ``rope`` the (B, 1) tables of ``pos``. An MoE layer
+    routes the step's B tokens as one call and drops its aux. Returns x."""
     B, _ = x.shape
     h = rms_norm(x, p.ln_attn, cfg.norm_eps)[:, None]          # (B, 1, D)
     q, k, v = attn.project_qkv(p.attn, cfg, h, rope)
@@ -53,6 +71,8 @@ def decoder_layer_step(p: DecoderLayer, cfg, x: torch.Tensor,
                               pos)
     x = x + o.reshape(B, -1) @ p.attn.wo
     h = rms_norm(x, p.ln_mlp, cfg.norm_eps)
+    if p.moe_layer:
+        return x + moe_mod.apply_moe(p.moe, cfg, h[:, None])[0][:, 0]
     return x + p.mlp(h)
 
 

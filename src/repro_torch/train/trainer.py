@@ -228,6 +228,9 @@ class _Zero3:
         self.local: Dict[str, torch.Tensor] = {}   # the masters' shards
         self.grads: Dict[str, torch.Tensor] = {}
         self.accumulate = False
+        # (this rank's batch shard, shards): the model's MoE layers route
+        # the ranks' rows as one batch (``models.moe.apply_moe``)
+        self.token_shard: Tuple[int, int] = (0, 1)
         self.active = False
         self.handles = [p.register_post_accumulate_grad_hook(
             functools.partial(self._on_grad, name))
@@ -371,15 +374,17 @@ def _global_mean(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def _sharded_step(model: Model, opt_cfg: AdamWConfig, microbatch: int,
-                  decay: Dict[str, bool], ctx: dist.DistContext) -> Callable:
+                  decay: Dict[str, bool], ctx: dist.DistContext,
+                  batch_shard: Tuple[int, int]) -> Callable:
     """``make_train_step`` under ``ctx``: the ZeRO-3 step on DTensor
     master weights and moments (``shard_params``, ``init_opt_state``) and
-    this rank's rows of the batch."""
+    this rank's rows of the batch, shard ``batch_shard`` of the whole."""
     if ctx.mesh.size() != tdist.get_world_size():
         raise ValueError(f"the mesh holds {ctx.mesh.size()} of the "
                          f"{tdist.get_world_size()} ranks: a sharded step "
                          f"reduces over the whole process group")
     zero = _Zero3(model, ctx)
+    zero.token_shard = batch_shard
 
     def grads_of(batch):
         if not microbatch:
@@ -419,18 +424,25 @@ def _sharded_step(model: Model, opt_cfg: AdamWConfig, microbatch: int,
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
-                    microbatch: int = 0) -> Callable:
+                    microbatch: int = 0,
+                    batch_shard: Optional[Tuple[int, int]] = None
+                    ) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics); the
     metrics are device tensors. Switches ``requires_grad`` on for the
     model's working weights. Under a mesh context the step is the ZeRO-3
     one: ``params`` and the moments are ``shard_params``' DTensors and
-    ``batch`` is this rank's rows."""
+    ``batch`` is this rank's rows: shard ``batch_shard`` = (index, count)
+    of the global batch (``Trainer.batch_shard``; default: the rank's own
+    shard of "act_batch")."""
     for p in model.parameters():
         p.requires_grad_(True)
     decay = decay_mask(model)
     ctx = dist.current()
     if ctx is not None:
-        return _sharded_step(model, opt_cfg, microbatch, decay, ctx)
+        if batch_shard is None:
+            batch_shard = _row_shard(ctx)
+        return _sharded_step(model, opt_cfg, microbatch, decay, ctx,
+                             batch_shard)
 
     def grads_of(batch):
         if not microbatch:
@@ -472,6 +484,12 @@ def _batch_shard(ctx: dist.DistContext, global_batch: int
     the batch does not divide them and replicates."""
     if ctx.spec(("act_batch",), (global_batch,))[0] is None:
         return 0, 1
+    return _row_shard(ctx)
+
+
+def _row_shard(ctx: dist.DistContext) -> Tuple[int, int]:
+    """(this rank's shard, number of shards) of ``act_batch`` (row-major
+    over "pod" and "data")."""
     coord = dict(zip(ctx.sizes, ctx.mesh.get_coordinate()))
     index = 0
     for axis in ctx.mesh_axes("act_batch"):
@@ -533,7 +551,8 @@ class Trainer:
         self.batch_shard = (0, 1) if self.ctx is None \
             else _batch_shard(self.ctx, data.cfg.global_batch)
         self.opt_state = init_opt_state(self.params)
-        self._step_fn = make_train_step(model, cfg.opt, cfg.microbatch)
+        self._step_fn = make_train_step(model, cfg.opt, cfg.microbatch,
+                                        self.batch_shard)
 
     # ------------------------------------------------------------- loop
 

@@ -3,10 +3,14 @@ port's single-process step and the JAX package.
 
 One spawn of four gloo ranks (``tests/torch_dist_workers.py``: a
 ``FileStore`` in the test's temporary directory, a join limit of
-``JOIN_S``) runs reduced qwen3-4b and reduced rwkv6-7b from the
-reference's weights, float32, ``DataConfig(vocab, 32, 4)`` (one sequence
-a rank), two ``Trainer`` steps under ``make_cpu_mesh()`` of (4, 1), the
-plain versions of the kernels. Limits:
+``JOIN_S``) runs reduced qwen3-4b, rwkv6-7b and deepseek-moe-16b (also
+with its capacity factor cut to 0.5, so that full experts drop slots:
+``workers.RUNS``) from the reference's weights, float32,
+``DataConfig(vocab, 32, 4)`` (one sequence a rank), two ``Trainer`` steps
+under ``make_cpu_mesh()`` of (4, 1), the plain versions of the kernels.
+The reference routes the whole batch in one call; the port's ranks
+route it as one through a count all-gather (``models.moe``), so the
+capacity cut falls on the same slots. Limits:
 
 - the loss of each step against the reference's ``Trainer`` under its
   one-device CPU mesh: 1e-4 relative, the reference's own
@@ -48,8 +52,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as jax_get_config
-from repro.configs import reduced as jax_reduced
+import repro.configs
+import repro_torch.configs
 from repro.dist import api as jax_dist
 from repro.launch.mesh import make_cpu_mesh as jax_cpu_mesh
 from repro.models.common import Policy as JaxPolicy
@@ -69,13 +73,13 @@ import torch_dist_workers as workers
 
 WORLD = 4
 JOIN_S = 120.0
-ARCHS = ("qwen3-4b", "rwkv6-7b")
+ARCHS = tuple(workers.RUNS)
 
 
 def _reference(arch):
     """The reference's initial weights (numpy) and its two steps' history
     under its one-device CPU mesh."""
-    jcfg = jax_reduced(jax_get_config(arch))
+    jcfg = workers.run_config(arch, repro.configs)
     jm = JaxModel(jcfg, JaxPolicy(compute_dtype=jnp.float32))
     data = JaxSyntheticLM(JaxDataConfig(jcfg.vocab_size, workers.SEQ, WORLD))
     mesh = jax_cpu_mesh()
@@ -89,7 +93,7 @@ def _reference(arch):
 
 
 def _single(arch, init, steps=2):
-    model = model_params(init, reduced(get_config(arch)),
+    model = model_params(init, workers.run_config(arch, repro_torch.configs),
                          policy=Policy(compute_dtype=torch.float32),
                          device="cpu")
     data = SyntheticLM(DataConfig(model.cfg.vocab_size, workers.SEQ, WORLD))

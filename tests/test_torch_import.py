@@ -67,7 +67,9 @@ def test_every_module_is_covered():
                  "repro_torch.simcluster.runtime",
                  "repro_torch.simcluster.scenarios",
                  "repro_torch.dist", "repro_torch.dist.api",
-                 "repro_torch.launch.mesh"):
+                 "repro_torch.launch.mesh", "repro_torch.models.moe",
+                 "repro_torch.configs.deepseek_moe_16b",
+                 "repro_torch.configs.llama4_scout_17b_a16e"):
         assert want in names
 
 

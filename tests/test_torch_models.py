@@ -104,6 +104,41 @@ def test_decode_from_empty_cache_matches_reference(arch):
     _cache_close(arch, cache, jcache, TOL["float32"])
 
 
+def test_qkv_biases_match_reference():
+    """Reduced qwen1.5-110b (``qkv_bias``) in float32. The reference
+    initializes the q/k/v biases to zero, so they are drawn here from
+    N(0, 0.5^2) (numpy, seeded) into the reference's tree before both
+    packages take it."""
+    jm = JaxModel(jax_reduced(jax_get_config("qwen1.5-110b")),
+                  JaxPolicy(compute_dtype=jnp.float32))
+    params, _ = jm.init_params(jax.random.key(0))
+    tree = jax.tree.map(lambda x: np.array(x, copy=True), params)
+    rng = np.random.default_rng(11)
+    attn = tree["layers"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        assert not attn[name].any()
+        attn[name] = (rng.standard_normal(attn[name].shape) * 0.5
+                      ).astype(np.float32)
+    model = model_params(tree, reduced(get_config("qwen1.5-110b")),
+                         policy=Policy(compute_dtype=torch.float32),
+                         device="cpu")
+    jparams = jax.tree.map(jnp.asarray, tree)
+    tokens = rng.integers(0, model.cfg.vocab_size, (2, 40)).astype(np.int32)
+    jlogits, jcache = jax.jit(jm.prefill)(jparams,
+                                          {"tokens": jnp.asarray(tokens)})
+    logits, cache = model.prefill(torch.from_numpy(tokens))
+    tol = TOL["float32"]
+    _close(logits, jlogits, tol, "prefill logits")
+    for name, got, want in zip("kv", cache["layers"], jcache["layers"]):
+        _close(got, want, tol, f"{name} cache")
+    step = jax.jit(jm.decode_step)
+    for i in range(3):
+        tok = rng.integers(0, model.cfg.vocab_size, (2,)).astype(np.int32)
+        jlogits, jcache = step(jparams, jnp.asarray(tok), jcache)
+        logits, cache = model.decode_step(torch.from_numpy(tok), cache)
+        _close(logits, jlogits, tol, f"decode step {i} logits")
+
+
 def test_configs_match_the_reference_registry():
     assert list_configs() == jax_list_configs()
     for name in list_configs():
@@ -114,8 +149,8 @@ def test_configs_match_the_reference_registry():
         assert dataclasses.asdict(ra) == dataclasses.asdict(rb)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "recurrentgemma-9b",
-                                  "whisper-small", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small",
+                                  "qwen2-vl-72b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError):
         Model(reduced(get_config(arch)), device="cpu")
@@ -149,8 +184,10 @@ def test_model_params_checks_the_tree():
                      reduced(get_config("qwen3-4b"), d_ff=128), device="cpu")
 
 
-def test_cuda_without_a_card_raises():
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-moe-16b",
+                                  "llama4-scout-17b-a16e"])
+def test_cuda_without_a_card_raises(arch):
     if torch.cuda.is_available():
         pytest.skip("a card is present: asking for it is legitimate here")
     with pytest.raises(RuntimeError):
-        Model(reduced(get_config("qwen3-4b")))
+        Model(reduced(get_config(arch)))

@@ -20,6 +20,23 @@ import numpy as np
 
 OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)
 SEQ = 32
+# run name -> (arch, MoE capacity factor or None): "deepseek-moe-16b-drops"
+# cuts the capacity so that full experts drop slots of every rank
+RUNS = {"qwen3-4b": ("qwen3-4b", None), "rwkv6-7b": ("rwkv6-7b", None),
+        "deepseek-moe-16b": ("deepseek-moe-16b", None),
+        "deepseek-moe-16b-drops": ("deepseek-moe-16b", 0.5)}
+
+
+def run_config(run: str, package):
+    """The reduced config of ``run`` from ``package``'s configs (the
+    port's ``repro_torch.configs`` or the reference's)."""
+    import dataclasses
+    arch, cf = RUNS[run]
+    cfg = package.reduced(package.get_config(arch))
+    if cf is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    return cfg
 
 
 def _full(tree) -> Dict[str, np.ndarray]:
@@ -27,15 +44,15 @@ def _full(tree) -> Dict[str, np.ndarray]:
     return {k: v.full_tensor().numpy() for k, v in tree.items()}
 
 
-def _trainer(arch: str, init, steps: int, batch: int = 4, seq: int = SEQ,
+def _trainer(run: str, init, steps: int, batch: int = 4, seq: int = SEQ,
              ckpt=None, hook=None, microbatch: int = 0):
     import torch
-    from repro_torch.configs import get_config, reduced
+    import repro_torch.configs
     from repro_torch.convert import model_params
     from repro_torch.models.common import Policy
     from repro_torch.train import (AdamWConfig, DataConfig, SyntheticLM,
                                    TrainConfig, Trainer)
-    cfg = reduced(get_config(arch))
+    cfg = run_config(run, repro_torch.configs)
     model = model_params(init, cfg, policy=Policy(compute_dtype=torch.float32),
                          device="cpu")
     data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch))
@@ -152,10 +169,10 @@ def _suite(rank: int, out: str, inits) -> None:
             list(c.placements) == [Shard(0), Replicate()]
             and isinstance(c, DTensor))
 
-        # two Trainer steps of each family, from the reference's weights
+        # two Trainer steps of each run, from the reference's weights
         facts["placements_equal"] = {}
         facts["history"] = {}
-        for arch in ("qwen3-4b", "rwkv6-7b"):
+        for arch in inits:
             tr = _trainer(arch, inits[arch], steps=2)
             want = dist.param_sharding(tr.model.param_axes(), tr.params, ctx)
             ok = all(list(tr.params[n].placements) == want[n]
