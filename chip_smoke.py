@@ -118,20 +118,49 @@ order, it
      step), the step's operator rows, then a ``Trainer`` of 12 steps with
      a ``GuardStepHook``; the step is not bit-repeatable (the dispatch
      gather's backward adds with atomics);
- 17. prints one JSON line of per-kernel numbers, then
+ 17. holds the RG-LRU scan kernel against its plain version on the card
+     at recurrentgemma-9b's prefill shape (bfloat16, and float32) and at
+     the other ``K5_CASES`` (B = 2 and 3, sequence lengths no multiple of
+     the kernel's chunks, widths no multiple of its blocks, a nonzero
+     initial state), checks that two calls are bit-equal and that a call
+     is one launch, and times it; then holds the flash-attention kernel
+     with a sliding window against its plain version at
+     recurrentgemma-9b's local attention (16 query heads over one KV head
+     of 256, window 2,048, 4,096 tokens, bfloat16 and float32) and at the
+     other ``K3W_CASES``, two calls bit-equal, and times it beside
+     ``scaled_dot_product_attention`` with the window's boolean mask;
+ 18. serves recurrentgemma-9b at full width and depth (38 layers, 8.5 B
+     parameters): prefills of 4,096 and 1,000 tokens on the kernel path
+     (flash attention 12 and the RG-LRU scan 26 launches) against the
+     plain path, six ring decode steps from each path's cache, the
+     prefill's operator rows, and a ``BatchedServer`` of 12 requests on 4
+     slots;
+ 19. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
-Any failed check exits non-zero before the last line is printed. Without
-a CUDA device, or without the repository next to it, it fails at once.
+The phases run in the order 1–6, 9, 13(a), 17, 7, 8, 10–12, 13(b), 14–16,
+18: the kernel phases whose checks read profiler traces come before the
+model phases' profiles, after which sessions of one call can trace
+nothing (``call_segments``).
+
+Every phase prints a start line (with the card's free memory) and, when
+it passes, a line with its seconds and peak memory; its models and
+tensors are dropped before the next phase starts. A failed check, or any
+exception (an out-of-memory error included, with its traceback), prints
+``FAIL: phase <n> <name>: ...`` and exits 1 before the last line is
+printed. Without a CUDA device, or without the repository next to it, it
+fails at once.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -152,8 +181,13 @@ PLANTED = {"immediate": 101, "defer": 2_202, "hardware": 3_303,
 HEARTBEAT_LOST_AT = 10     # window from which node "heartbeat" is silent
 
 
+# the phase running now, named in every FAIL line (``run_phase``)
+PHASE = {"label": None}
+
+
 def fail(msg: str) -> None:
-    print(f"FAIL: {msg}", flush=True)
+    where = f"phase {PHASE['label']}: " if PHASE["label"] else ""
+    print(f"FAIL: {where}{msg}", flush=True)
     sys.exit(1)
 
 
@@ -202,6 +236,9 @@ def max_abs_err(a, b) -> float:
 # that loss instead, and splits the calls at marker kernels
 # (``call_segments``), so that a lossy session is seen and taken again.
 LEAD_CYCLES = 40_000_000
+# profiler sessions ``call_segments`` took, and those that traced no whole
+# call (printed at the end of a run)
+SESSIONS = {"taken": 0, "lost": 0}
 
 
 def kernel_device_ms(torch, fn, name: str, calls: int = 3):
@@ -291,20 +328,25 @@ def phase_k1(torch, np, dirs):
 
 # ------------------------------------------------------------ phase 3: K2
 
-def call_segments(torch, fn, calls: int = 3, tries: int = 3):
+def call_segments(torch, fn, calls: int = 3, tries: int = 8):
     """The device kernels of each call of ``fn``, as (name, ms) lists, from
     the profiler over ``calls`` calls, each followed by a marker kernel
     (``torch.cuda._sleep``'s ``spin_kernel``), after the lead-in spin; ms
     is each kernel's own start-to-end time in the trace. What comes before
     the first marker is dropped, and a session whose calls between markers
-    are empty or disagree in their kernels is taken again, up to ``tries``
-    sessions; None when none of them agreed (the last one's kernels are
-    printed)."""
+    are empty or disagree in their kernels is taken again, its lead-in
+    spin four times as long up to 64 LEAD_CYCLES (~1.4 s), up to ``tries``
+    sessions. On an H100, late in a full run (from phase 9 or 13 on), the
+    first session of a call often traced no kernel at all and up to three
+    in a row did; a fresh process tracing 250 sessions lost none. None when
+    no session agreed (the last one's kernels and its count of device
+    events are printed)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
+    for attempt in range(tries):
+        SESSIONS["taken"] += 1
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(LEAD_CYCLES)
+            torch.cuda._sleep(LEAD_CYCLES * 4 ** min(attempt, 3))
             torch.cuda.synchronize()
             for _ in range(calls):
                 fn()
@@ -323,13 +365,19 @@ def call_segments(torch, fn, calls: int = 3, tries: int = 3):
         whole = segments[1:-1]           # each between two markers
         names = [[basename(n) for n, _ in seg] for seg in whole]
         if names and names[0] and all(n == names[0] for n in names):
+            SESSIONS["lost"] += attempt
+            if attempt:
+                print(f"  (traced in session {attempt + 1} of {tries})",
+                      flush=True)
             return whole
+    SESSIONS["lost"] += tries
     print(f"  no whole call traced in {tries} sessions; the last one's "
-          f"kernels between markers: {names}", flush=True)
+          f"kernels between markers: {names} ({len(events)} device events "
+          f"in it)", flush=True)
     return None
 
 
-def kernels_in(torch, fn, calls: int = 3, tries: int = 3) -> list:
+def kernels_in(torch, fn, calls: int = 3, tries: int = 8) -> list:
     """Names of the device kernels one call of ``fn`` runs
     (``call_segments``); empty when no whole call was traced."""
     segs = call_segments(torch, fn, calls, tries)
@@ -748,30 +796,35 @@ def phase_k4(torch, np):
 # away: deepseek-moe-16b's MoE layer 0 K/V (after its dense first layer)
 # and llama4-scout's MoE layer 1 K/V (measured on an H100: 1.16e-2 and
 # 9.1e-3), so it takes the dense limit; the moe family is held on the
-# kernel path's routing (see TIE_EPS).
+# kernel path's routing (see TIE_EPS). The hybrid family's first such
+# state is unit 0's first rec layer's h, the RG-LRU kernel's own float32
+# output on the inputs both paths share, so it takes the ssm limit.
 PATH_REL_TOL = 1e-1
-FIRST_REL_TOL = {"dense": 2e-2, "ssm": 1e-3, "moe": 2e-2}
+FIRST_REL_TOL = {"dense": 2e-2, "ssm": 1e-3, "moe": 2e-2, "hybrid": 1e-3}
 
 
 @contextlib.contextmanager
 def plain_paths():
-    """Send the models' attention and WKV calls to the plain versions on
-    the card (the WKV6 backward too), for the comparison run; nothing of
-    the port changes."""
+    """Send the models' attention, WKV and RG-LRU calls to the plain
+    versions on the card (the WKV6 backward too), for the comparison run;
+    nothing of the port changes."""
     from unittest import mock
     import repro_torch.models.attention as attention_mod
+    import repro_torch.models.rglru as rglru_mod
     import repro_torch.models.rwkv6 as rwkv6_mod
     from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.rglru import rglru_ref
     from repro_torch.kernels.wkv6 import wkv6_plain
 
-    def attn(q, k, v, *, causal, q_offset=0, kv_len=0):
+    def attn(q, k, v, *, causal, q_offset=0, kv_len=0, window=0):
         return attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
                              causal=causal, q_offset=q_offset,
-                             kv_len=kv_len).transpose(1, 2)
+                             kv_len=kv_len, window=window).transpose(1, 2)
 
     # wkv6_plain: wkv6_ref, differentiated by wkv6_bwd_ref when training
     with mock.patch.object(attention_mod, "flash", attn), \
-            mock.patch.object(rwkv6_mod, "wkv6", wkv6_plain):
+            mock.patch.object(rwkv6_mod, "wkv6", wkv6_plain), \
+            mock.patch.object(rglru_mod, "lru_scan", rglru_ref):
         yield
 
 
@@ -835,6 +888,13 @@ def prefill_vs_plain(torch, model, cfg, tokens, counters: dict, tag: str):
             errs[name] = rel_err(cache[name], plain_cache[name])
         first = ("layer 0 wkv", rel_err(cache["wkv"][0],
                                         plain_cache["wkv"][0]))
+    elif cfg.family == "hybrid":
+        want = hybrid_leaves(plain_cache)
+        for name, got in hybrid_leaves(cache).items():
+            errs[name] = rel_err(got, want[name])
+        first = ("unit 0 l0_rec h", rel_err(
+            cache["units"]["l0_rec"]["h"][0],
+            plain_cache["units"]["l0_rec"]["h"][0]))
     else:
         for name, got, want in zip("kv", cache["layers"],
                                    plain_cache["layers"]):
@@ -852,7 +912,63 @@ def prefill_vs_plain(torch, model, cfg, tokens, counters: dict, tag: str):
     check(first[1] <= FIRST_REL_TOL[cfg.family],
           f"{tag}: {first[0]} differs from the plain path by "
           f"{first[1]:.3e} (> {FIRST_REL_TOL[cfg.family]})")
+    if cfg.family == "hybrid":
+        ring_decode_vs_plain(torch, model, cache, plain_cache, counters,
+                             tag)
     return launches, secs
+
+
+def hybrid_leaves(cache) -> dict:
+    """The hybrid cache's tensors by name: each unit layer's (stacked over
+    the units) and each tail layer's."""
+    out = {}
+
+    def add(prefix, c):
+        items = zip("kv", c) if isinstance(c, tuple) else c.items()
+        for name, t in items:
+            out[f"{prefix}.{name}"] = t
+    for key, c in cache["units"].items():
+        add(f"units.{key}", c)
+    for j, c in enumerate(cache["tail"]):
+        add(f"tail.{j}", c)
+    return out
+
+
+HYBRID_DECODE_STEPS = 6
+
+
+def ring_decode_vs_plain(torch, model, cache, plain_cache, counters: dict,
+                         tag: str) -> None:
+    """HYBRID_DECODE_STEPS decode steps from the kernel path's prefill cache
+    and from the plain path's, on the same seeded tokens (decode runs no
+    kernel: the two differ only by their caches); fails unless each
+    step's logits agree within PATH_REL_TOL and no kernel launched. After
+    a prefill of a multiple of the window the first step overwrites ring
+    slot 0."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    for c in counters.values():
+        c.reset()
+    errs = []
+    for _ in range(HYBRID_DECODE_STEPS):
+        toks = torch.randint(0, model.cfg.vocab_size, (1,), device="cuda",
+                             generator=gen)
+        got, cache = model.decode_step(toks, cache)
+        want, plain_cache = model.decode_step(toks, plain_cache)
+        check(bool(torch.isfinite(got).all()),
+              f"{tag}: non-finite decode logits")
+        errs.append(rel_err(got, want))
+    check(all(c.launches == 0 for c in counters.values()),
+          f"{tag}: a decode step launched a kernel")
+    print(f"{tag}: {HYBRID_DECODE_STEPS} ring decode steps from position "
+          f"{cache['pos'] - HYBRID_DECODE_STEPS} (ring slot "
+          f"{(cache['pos'] - HYBRID_DECODE_STEPS) % model.cfg.window} "
+          f"first), logits kernel-path cache vs plain-path cache, max abs "
+          f"err / max abs: {[f'{e:.3e}' for e in errs]}", flush=True)
+    for i, e in enumerate(errs):
+        check(e <= PATH_REL_TOL, f"{tag}: decode step {i} logits differ "
+                                 f"from the plain path's by {e:.3e} "
+                                 f"(> {PATH_REL_TOL})")
 
 
 def phase_serve(torch, np, arch: str, seq: int, counters: dict,
@@ -860,9 +976,11 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict,
     """Prefill at full width and depth (``layers`` deep when given) on the
     kernel path, checked against the plain path (again at a ``ragged``
     prompt length when given; the moe family by
-    ``moe_prefill_vs_plain``), then a BatchedServer to completion; the moe
-    family also prints its prefill's operator rows and the slots
-    MOE_DECODE_STEPS decode steps drop. Returns the launches of each
+    ``moe_prefill_vs_plain``; the hybrid family's each followed by
+    ``ring_decode_vs_plain``), then a BatchedServer to completion; the moe
+    and hybrid families also print their prefill's operator rows, the moe
+    family the slots MOE_DECODE_STEPS decode steps drop. Returns the
+    launches of each
     kernel during the prefill and the numbers (``ragged_launches`` among
     them)."""
     import gc
@@ -905,7 +1023,7 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict,
     print(f"{arch} prefill profile: {p_wall:.1f} ms wall, device busy "
           f"{p_busy:.1f} ms ({p_busy / p_wall:.0%}); top kernels (ms per "
           f"prefill): {p_top}", flush=True)
-    if cfg.moe:
+    if cfg.moe or cfg.family == "hybrid":
         extra["prefill_ops"] = op_rows(torch, lambda: model.prefill(tokens),
                                        reps=2)
         print(f"{arch} prefill operators (device ms per prefill): "
@@ -2702,6 +2820,238 @@ def phase_train_ssm(torch, np, counters: dict):
                        opt, tag, step_nums)
 
 
+# ------------------------------------------ phases 17 and 18: the hybrid family
+
+# K5 cases: B, S, W, xb dtype, h0 nonzero. The first is recurrentgemma-9b's
+# prefill at 4,096 tokens (lru_width 4,096) from the zero state, the main
+# path's shape; then the same in float32 from a nonzero state, and small
+# odd shapes: B = 2 and 3, S no multiple of the block's 32 chunks (1, 20,
+# 37, 1,000, 4,097), W no multiple of its 32 channels.
+K5_CASES = [(1, 4096, 4096, "bfloat16", False),
+            (1, 4096, 4096, "float32", True),
+            (2, 1000, 300, "float32", True), (2, 37, 64, "bfloat16", True),
+            (3, 4097, 96, "float32", True), (1, 1, 33, "float32", True),
+            (2, 20, 4096, "bfloat16", True)]
+# H and h_last against the plain version's float32 H and h_last: the
+# largest difference over the largest magnitude (summation order only:
+# the chunks' carried states against one sequential walk). A bfloat16 H is
+# held by the float32 error its rounding implies: how far the plain
+# version's float32 value lies outside the kernel's bfloat16 value's
+# rounding interval (half a bfloat16 ulp each way).
+K5_TOL = 1e-5
+
+# Windowed K3 cases: B, Hq, Hkv, S, T, hd, q_offset, kv_len, window, dtype.
+# The first is recurrentgemma-9b's local attention at 4,096 tokens (16
+# query heads over one KV head of 256, window 2,048), the main path's
+# shape; then float32 there; its 1,000-token prefill (S <= W: the model
+# calls plain causal attention) with and without the window; float32 at
+# hd 256; hd 64 with GQA; q_offset and kv_len ragged; hd 32 and 128;
+# windows of 7 and 50.
+K3W_CASES = [
+    (1, 16, 1, 4096, 4096, 256, 0, 0, 2048, "bfloat16"),
+    (1, 16, 1, 4096, 4096, 256, 0, 0, 2048, "float32"),
+    (1, 16, 1, 1000, 1000, 256, 0, 0, 0, "bfloat16"),
+    (1, 16, 1, 1000, 1000, 256, 0, 0, 2048, "bfloat16"),
+    (1, 4, 1, 600, 600, 256, 0, 0, 256, "float32"),
+    (2, 8, 2, 700, 700, 64, 0, 0, 128, "bfloat16"),
+    (1, 4, 1, 200, 520, 256, 320, 500, 100, "bfloat16"),
+    (2, 4, 4, 333, 333, 128, 0, 0, 64, "float32"),
+    (1, 8, 2, 300, 300, 32, 0, 0, 50, "bfloat16"),
+    (1, 4, 1, 129, 300, 256, 171, 0, 7, "bfloat16"),
+]
+
+
+def bf16_rounding_excess(torch, got, want):
+    """Elementwise, how far the float32 ``want`` lies outside the rounding
+    interval of the bfloat16 ``got`` (half a bfloat16 ulp of ``got`` each
+    way; 0 inside): a lower bound of the float32 error that rounded to
+    ``got``."""
+    g = got.float()
+    _, e = torch.frexp(g)                    # |g| = m 2^e, m in [0.5, 1)
+    half_ulp = torch.where(g == 0, torch.zeros_like(g),
+                           torch.ldexp(torch.ones_like(g), e - 9))
+    return ((g - want).abs() - half_ulp).clamp_min(0.0)
+
+
+def phase_k5(torch, np):
+    """Phase 17(a): the RG-LRU scan kernel against its plain version."""
+    from repro_torch.kernels.rglru import (rglru_bytes, rglru_flops,
+                                           rglru_ref, rglru_scan)
+    main = None
+    for i, (b, s, w, dname, warm_h0) in enumerate(K5_CASES):
+        dt = getattr(torch, dname)
+        rng = np.random.default_rng(300 + i)
+
+        def mk(*shape, scale=1.0, shift=0.0):
+            x = rng.standard_normal(shape, dtype=np.float32) * scale + shift
+            return torch.from_numpy(x).cuda()
+        xb = mk(b, s, w).to(dt)
+        wa, wi, lam = mk(w, scale=0.5), mk(w, scale=0.5), mk(w, shift=0.65)
+        h0 = mk(b, w) if warm_h0 else torch.zeros(b, w, device="cuda")
+        H, hl = rglru_scan(xb, wa, wi, lam, h0)
+        H2, hl2 = rglru_scan(xb, wa, wi, lam, h0)
+        want, want_hl = rglru_ref(xb.float(), wa, wi, lam, h0)
+        torch.cuda.synchronize()
+        tag = f"K5 rglru B,S,W={b},{s},{w} {dname}" + (
+            " h0 != 0" if warm_h0 else "")
+        check(torch.equal(H, H2) and torch.equal(hl, hl2),
+              f"{tag}: two calls are not bit-equal")
+        check(bool(torch.isfinite(H.float()).all()),
+              f"{tag}: non-finite output")
+        scale_h = float(want.abs().max().clamp_min(1e-30))
+        if dt == torch.float32:
+            err_h = float((H - want).abs().max()) / scale_h
+        else:
+            err_h = float(bf16_rounding_excess(torch, H, want).max()) / \
+                scale_h
+        err_l = float((hl - want_hl).abs().max() /
+                      want_hl.abs().max().clamp_min(1e-30))
+        abs_err = max_abs_err(H, want.to(dt))
+        for what, e in (("H", err_h), ("h_last", err_l)):
+            check(e <= K5_TOL, f"{tag}: {what} differs from the plain "
+                  f"version by {e:.3e} of its largest magnitude "
+                  f"(> {K5_TOL})")
+        line = (f"{tag}: H {err_h:.3e}, h_last {err_l:.3e} of the largest "
+                f"magnitude (limit {K5_TOL}: {max(err_h, err_l) / K5_TOL:.1%}"
+                f" of it), max abs err against the plain output "
+                f"{abs_err:.3e}, two calls bit-equal")
+        if i == 0:
+            fn = lambda: rglru_scan(xb, wa, wi, lam, h0)   # noqa: E731
+            names = kernel_basenames(torch, fn)
+            check(names == ["rglru_scan"], f"{tag}: one call ran {names}")
+            ms = time_ms(fn)
+            dev_ms = kernel_device_ms(torch, fn, "rglru_scan")
+            plain = time_ms(lambda: rglru_ref(xb, wa, wi, lam, h0), reps=2,
+                            warm=1)
+            flops = rglru_flops(b, s, w)
+            nbytes = rglru_bytes(b, s, w, xb.element_size())
+            bnd, by = bound(flops, FP32_SIMT_FLOPS, nbytes)
+            line += (f"; kernel {ms:.4f} ms a call ({fmt_ms(dev_ms)} on the "
+                     f"device, {bnd / ms:.1%} of bound), plain {plain:.4f} "
+                     f"ms, library none, bound {bnd:.4f} ms ({by}; "
+                     f"{flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.2f} MB)")
+            main = dict(max_abs_err=abs_err, h_err=err_h, h_last_err=err_l,
+                        ms=ms, device_ms=dev_ms, plain_ms=plain,
+                        bound_ms=bnd, bound_by=by, library_ms=None,
+                        shape=[b, s, w])
+        print(line, flush=True)
+        main["worst_ratio"] = max(main.get("worst_ratio", 0.0),
+                                  max(err_h, err_l) / K5_TOL)
+        del xb, H, H2, want
+    return main
+
+
+def window_mask(torch, s: int, t: int, q_offset: int, kv_len: int,
+                window: int):
+    """The (S, T) boolean mask of live pairs, for sdpa."""
+    qpos = q_offset + torch.arange(s, device="cuda")[:, None]
+    kpos = torch.arange(t, device="cuda")[None, :]
+    live = (kpos <= qpos) & (kpos < (kv_len or t))
+    return live & (kpos > qpos - window) if window else live
+
+
+def phase_k3_window(torch, np):
+    """Phase 17(b): the flash-attention kernel with a sliding window and
+    at head dim 256 against its plain version."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_flops,
+                                                     attention_ref,
+                                                     flash_attention)
+    main = None
+    for i, (b, hq, hkv, s, t, hd, qo, kvl, win, dname) in enumerate(
+            K3W_CASES):
+        dt, tol = getattr(torch, dname), K3_TOL[dname]
+        rng = np.random.default_rng(400 + i)
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to("cuda", dt).transpose(1, 2)
+            for shape in ((b, s, hq, hd), (b, t, hkv, hd), (b, t, hkv, hd)))
+        kw = dict(causal=True, q_offset=qo, kv_len=kvl, window=win)
+        got = flash_attention(q, k, v, **kw)
+        again = flash_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tag = (f"K3 flash_attention B,Hq,Hkv,S,T,hd={b},{hq},{hkv},{s},{t},"
+               f"{hd} causal{f' window {win}' if win else ''}"
+               f"{f' q_offset {qo}' if qo else ''}"
+               f"{f' kv_len {kvl}' if kvl else ''} {dname}")
+        check(torch.equal(got, again), f"{tag}: two calls are not "
+                                       f"bit-equal")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{tag}: non-finite output")
+        err = max_abs_err(got, want)
+        rel = err / float(want.float().abs().max().clamp_min(1e-30))
+        check(rel <= tol, f"{tag}: max abs err {err:.3e} is {rel:.3e} of "
+                          f"the output's largest magnitude (> {tol})")
+        flops = attention_flops(b, hq, s, kvl or t, hd, causal=True,
+                                q_offset=qo, window=win)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else FP32_SIMT_FLOPS
+        bnd, by = bound(flops, peak, nbytes)
+        fn = lambda: flash_attention(q, k, v, **kw)   # noqa: E731
+        ms = time_ms(fn, reps=10, warm=2)
+        line = (f"{tag}: max abs err {err:.3e}, {rel:.3e} of the largest "
+                f"magnitude (limit {tol}: {rel / tol:.1%} of it), two calls "
+                f"bit-equal; kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
+                f"TFLOP/s, {bnd / ms:.1%} of bound), bound {bnd:.4f} ms "
+                f"({by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        if i < 2:                 # device time, plain and sdpa beside it
+            dev_ms = kernel_device_ms(torch, fn, "fa_fwd")
+            plain = time_ms(lambda: attention_ref(q, k, v, **kw), reps=3,
+                            warm=1)
+            mask = window_mask(torch, s, t, qo, kvl, win)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), reps=10, warm=2)
+            line += (f"; {fmt_ms(dev_ms)} on the device, plain "
+                     f"{plain:.4f} ms, sdpa with the window's boolean mask "
+                     f"{lib:.4f} ms")
+            if main is None:
+                main = dict(max_abs_err=err, rel_err=rel, ms=ms,
+                            device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
+                            bound_by=by, library_ms=lib,
+                            shape=[b, hq, hkv, s, t, hd, win])
+        print(line, flush=True)
+        main["worst_ratio"] = max(main.get("worst_ratio", 0.0), rel / tol)
+        del q, k, v, got, again, want
+    return main
+
+
+def run_phase(torch, label: str, fn, *args):
+    """Run one phase: print its start with the card's free memory, then,
+    on success, its seconds and peak memory, and drop what it held. Any
+    exception (an out-of-memory error included) prints its traceback and
+    fails naming the phase; ``fail`` stays the only way out."""
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase {label}: start, {free / 1e9:.2f} of {total / 1e9:.2f} GB "
+          f"free", flush=True)
+    from unittest import mock
+    PHASE["label"] = label
+    reset = torch.cuda.reset_peak_memory_stats
+    peaks = [0]
+
+    def keep_then_reset(*a, **kw):
+        # a phase that resets the peak for its own reading keeps the
+        # phase's earlier peak here
+        peaks.append(torch.cuda.max_memory_allocated())
+        reset(*a, **kw)
+    reset()
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.object(torch.cuda, "reset_peak_memory_stats",
+                               keep_then_reset):
+            out = fn(*args)
+        torch.cuda.synchronize()
+    except Exception as e:            # noqa: BLE001 - named, then failed
+        traceback.print_exc(file=sys.stdout)
+        fail(f"{type(e).__name__}: {e}")
+    peak = max(peaks + [torch.cuda.max_memory_allocated()]) / 1e9
+    print(f"phase {label}: passed in {time.perf_counter() - t0:.1f} s, "
+          f"peak {peak:.2f} GB", flush=True)
+    PHASE["label"] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> None:
@@ -2719,7 +3069,7 @@ def main() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs = run_phase(torch, "1 build", _build.build_all)
     build_s = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2736,49 +3086,93 @@ def main() -> None:
     print(card, flush=True)
 
     dirs = [1.0, 1.0, -1.0, -1.0, -1.0, 1.0, -1.0, -1.0]
-    k1 = phase_k1(torch, np, dirs)
-    k2 = phase_k2(torch, np)
-    n1, n2 = phase_main(torch, np)
-    k3 = phase_k3(torch, np)
-    k4 = phase_k4(torch, np)
+    k1 = run_phase(torch, "2 fleet_score", phase_k1, torch, np, dirs)
+    k2 = run_phase(torch, "3 sweep_burn", phase_k2, torch, np)
+    n1, n2 = run_phase(torch, "4 guard loop", phase_main, torch, np)
+    k3 = run_phase(torch, "5 flash_attention", phase_k3, torch, np)
+    k4 = run_phase(torch, "6 wkv6", phase_k4, torch, np)
+    # The kernel phases whose checks read profiler traces run before the
+    # model phases: on an H100, after the model phases' profiles (phases
+    # 7, 8, 10) sessions of one call often traced nothing, up to eight in a
+    # row (see call_segments), and none did before them.
+    k3b = run_phase(torch, "9 flash_attention_bwd", phase_k3_bwd, torch, np)
+    k4b = run_phase(torch, "13(a) wkv6_bwd", phase_k4_bwd, torch, np)
+    k5 = run_phase(torch, "17(a) rglru", phase_k5, torch, np)
+    k3w = run_phase(torch, "17(b) flash_attention window", phase_k3_window,
+                    torch, np)
 
     from repro_torch.kernels.fleet_score import COUNTER as C1
     from repro_torch.kernels.flash_attention import BWD_COUNTER as C3B
     from repro_torch.kernels.flash_attention import COUNTER as C3
+    from repro_torch.kernels.rglru import COUNTER as C5
     from repro_torch.kernels.sweep_burn import COUNTER as C2
     from repro_torch.kernels.wkv6 import BWD_COUNTER as C4B
     from repro_torch.kernels.wkv6 import COUNTER as C4
     counters = {"fleet_score": C1, "sweep_burn": C2, "flash_attention": C3,
-                "flash_attention_bwd": C3B, "wkv6": C4, "wkv6_bwd": C4B}
+                "flash_attention_bwd": C3B, "wkv6": C4, "wkv6_bwd": C4B,
+                "rglru": C5}
 
     def only(**want):
         return {n: want.get(n, 0) for n in counters}
-    dense, _ = phase_serve(torch, np, "qwen3-4b", 4096, counters)
-    check(dense == only(flash_attention=36),
-          f"qwen3-4b prefill launched {dense} (flash_attention once per "
-          f"layer, 36)")
-    ssm, nums = phase_serve(torch, np, "rwkv6-7b", 2048, counters,
-                            ragged=1000)
-    for n, got in ((2048, ssm), (1000, nums["ragged_launches"])):
-        check(got == only(wkv6=32),
-              f"rwkv6-7b prefill of {n} tokens launched {got} (wkv6 once "
-              f"per layer, 32)")
+
+    def serve_dense():
+        dense, _ = phase_serve(torch, np, "qwen3-4b", 4096, counters)
+        check(dense == only(flash_attention=36),
+              f"qwen3-4b prefill launched {dense} (flash_attention once per "
+              f"layer, 36)")
+        return dense
+
+    def serve_ssm():
+        ssm, nums = phase_serve(torch, np, "rwkv6-7b", 2048, counters,
+                                ragged=1000)
+        for n, got in ((2048, ssm), (1000, nums["ragged_launches"])):
+            check(got == only(wkv6=32),
+                  f"rwkv6-7b prefill of {n} tokens launched {got} (wkv6 "
+                  f"once per layer, 32)")
+        return ssm
+
+    def serve_moe():
+        moe, moe_nums = phase_moe_serve(torch, np, counters)
+        for arch, layers in (("deepseek-moe-16b", 28),
+                             ("llama4-scout-17b-a16e", LLAMA4_LAYERS)):
+            check(moe[arch] == only(flash_attention=layers),
+                  f"{arch} prefill launched {moe[arch]} (flash_attention "
+                  f"once per layer, {layers})")
+        return moe, moe_nums
+
+    def serve_hybrid():
+        # prefills of 4,096 tokens (twice the window: the shortest prompt
+        # above it that the ring takes) and of 1,000 (below it), each
+        # followed by ring decode steps from both paths' caches
+        hyb, nums = phase_serve(torch, np, "recurrentgemma-9b", 4096,
+                                counters, ragged=1000)
+        # 12 attention layers (12 units) and 26 rec layers (12 units' two
+        # and the tail's two), each once
+        for n, got in ((4096, hyb), (1000, nums["ragged_launches"])):
+            check(got == only(flash_attention=12, rglru=26),
+                  f"recurrentgemma-9b prefill of {n} tokens launched {got} "
+                  f"(flash_attention 12, rglru 26)")
+        return hyb, nums
+
+    dense = run_phase(torch, "7 qwen3-4b serving", serve_dense)
+    ssm = run_phase(torch, "8 rwkv6-7b serving", serve_ssm)
     n3, n4 = dense["flash_attention"], ssm["wkv6"]
-    k3b = phase_k3_bwd(torch, np)
-    train, tnums = phase_train(torch, np, counters)
-    k1_sim, snums = phase_sim(torch, np, counters)
-    k1_fleet, fnums = phase_fleet(torch, np, counters)
-    k4b = phase_k4_bwd(torch, np)
-    train_ssm, ssm_nums = phase_train_ssm(torch, np, counters)
-    train_mesh, mesh_nums = phase_train_mesh(torch, np, counters, tnums,
-                                             card)
-    moe, moe_nums = phase_moe_serve(torch, np, counters)
-    for arch, layers in (("deepseek-moe-16b", 28),
-                         ("llama4-scout-17b-a16e", LLAMA4_LAYERS)):
-        check(moe[arch] == only(flash_attention=layers),
-              f"{arch} prefill launched {moe[arch]} (flash_attention once "
-              f"per layer, {layers})")
-    train_moe, moe_tnums = phase_train_moe(torch, np, counters)
+    train, tnums = run_phase(torch, "10 qwen3-4b training", phase_train,
+                             torch, np, counters)
+    k1_sim, snums = run_phase(torch, "11 attribution and simulation",
+                              phase_sim, torch, np, counters)
+    k1_fleet, fnums = run_phase(torch, "12 fleet control plane",
+                                phase_fleet, torch, np, counters)
+    train_ssm, ssm_nums = run_phase(torch, "13(b) rwkv6-7b training",
+                                    phase_train_ssm, torch, np, counters)
+    train_mesh, mesh_nums = run_phase(
+        torch, "14 training under a one-rank mesh", phase_train_mesh, torch,
+        np, counters, tnums, card)
+    moe, moe_nums = run_phase(torch, "15 moe serving", serve_moe)
+    train_moe, moe_tnums = run_phase(torch, "16 moe training",
+                                     phase_train_moe, torch, np, counters)
+    hybrid, hyb_nums = run_phase(torch, "18 recurrentgemma-9b serving",
+                                 serve_hybrid)
 
     kernels = [
         {"name": "fleet_score", "route": "cuda",
@@ -2810,7 +3204,9 @@ def main() -> None:
          "launches_moe_prefill": moe["deepseek-moe-16b"]["flash_attention"],
          "launches_moe_prefill_llama4":
              moe["llama4-scout-17b-a16e"]["flash_attention"],
-         "launches_moe_train": train_moe["flash_attention"]},
+         "launches_moe_train": train_moe["flash_attention"],
+         "launches_hybrid_prefill": hybrid["flash_attention"],
+         "window": k3w},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention/ops.py:42",
@@ -2844,6 +3240,15 @@ def main() -> None:
          "plain_ms": k4b["plain_ms"], "bound_ms": k4b["bound_ms"],
          "bound_by": k4b["bound_by"], "library_ms": None,
          "shape": k4b["shape"]},
+        {"name": "rglru", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru.cu",
+         "replaces": "src/repro/models/rglru.py:81",
+         "launches": hybrid["rglru"], "max_abs_err": k5["max_abs_err"],
+         "max_rel_err": max(k5["h_err"], k5["h_last_err"]),
+         "worst_limit_ratio": k5["worst_ratio"], "ms": k5["ms"],
+         "device_ms": k5["device_ms"], "plain_ms": k5["plain_ms"],
+         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": None, "shape": k5["shape"]},
     ]
     print(f"training (phase 10): {json.dumps(tnums)}", flush=True)
     print(f"attribution and simulation (phase 11): {json.dumps(snums)}",
@@ -2854,8 +3259,11 @@ def main() -> None:
           f"{json.dumps(mesh_nums)}", flush=True)
     print(f"moe serving (phase 15): {json.dumps(moe_nums)}", flush=True)
     print(f"moe training (phase 16): {json.dumps(moe_tnums)}", flush=True)
+    print(f"hybrid serving (phase 18): {json.dumps(hyb_nums)}", flush=True)
     print(f"every phase passed in {time.perf_counter() - t0:.1f} s, the "
-          f"builds included", flush=True)
+          f"builds included; {SESSIONS['lost']} of {SESSIONS['taken']} "
+          f"profiler sessions traced no whole call and were taken again",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

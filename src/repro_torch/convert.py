@@ -15,9 +15,10 @@ moves both across without importing ``repro``:
       the inverse: that dict, from a port detector or a reference one.
   model_params(jax_params, cfg, policy=..., device=...)
       a port ``Model`` holding the JAX package's parameter tree (nested
-      dicts of numpy arrays): the stacked ``layers`` axis unstacked, every
-      (in, out) matrix kept as it is, each leaf cast to the compute dtype
-      once.
+      dicts of numpy arrays): the stacked ``layers`` axis (the hybrid
+      family's ``units`` axis) unstacked, the hybrid ``tail`` list taken
+      layer by layer, every (in, out) matrix kept as it is, each leaf cast
+      to the compute dtype once.
   named_params(jax_tree, depth)
       any tree shaped like the parameters (float32 master weights, AdamW
       moments, gradients) as ``{port parameter name: array}``;
@@ -211,12 +212,19 @@ def model_params(jax_params: Mapping, cfg, *,
     its shape, and every parameter of the port is set."""
     model = Model(cfg, policy, device=device, seed=None)
     loaded: Set[str] = set()
+    stacked = "units" if cfg.family == "hybrid" else "layers"
     _copy_tree(model, {k: v for k, v in jax_params.items()
-                       if k != "layers"}, "", loaded)
-    depth = len(model.layers)
-    for i, lp in enumerate(model.layers):
-        _copy_tree(lp, _layer(jax_params["layers"], i, depth),
-                   f"layers.{i}.", loaded)
+                       if k not in (stacked, "tail")}, "", loaded)
+    layers = getattr(model, stacked)
+    for i, lp in enumerate(layers):
+        _copy_tree(lp, _layer(jax_params[stacked], i, len(layers)),
+                   f"{stacked}.{i}.", loaded)
+    tail = jax_params.get("tail", [])
+    if len(tail) != len(getattr(model, "tail", [])):
+        raise ValueError(f"reference tail of {len(tail)} layers, port "
+                         f"{len(getattr(model, 'tail', []))}")
+    for i, lp in enumerate(tail):
+        _copy_tree(model.tail[i], lp, f"tail.{i}.", loaded)
     missing = sorted(set(dict(model.named_parameters())) - loaded)
     if missing:
         raise KeyError(f"reference tree leaves port parameters unset: "

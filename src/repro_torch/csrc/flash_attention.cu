@@ -1,7 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a): tiled online-softmax
 // attention, causal or full, with grouped-query heads (query head h reads
-// kv head h / G), a kv_len mask on padded keys and a q_offset that shifts
-// the causal diagonal. Output in the input's type.
+// kv head h / G), a kv_len mask on padded keys, a q_offset that shifts
+// the causal diagonal and, when window > 0, a sliding window: query
+// position p (= q_offset + row) sees keys k with p - window < k <= p,
+// the JAX package's `local_attention` mask. Output in the input's type.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py,
 // `flash_attention` (Pallas body `_fa_kernel`), reached through
@@ -42,6 +44,14 @@
 // rows, q head, batch); per 64-key tile S = Q K^T as 4x4 micro-tiles from
 // shared memory, the softmax by four lanes per row, O += P V in registers.
 //
+// The window: key tiles wholly before the block's first query row's window
+// are never loaded (the work is O(S window), not O(S^2)), and keys at or
+// before p - window get the same -1e30 as the causal future. Head dims 32,
+// 64, 128 and 256 (recurrentgemma-9b's local attention). At hd 256 the
+// tensor-core kernel takes 64-key tiles (Q 64 KB, a 2-stage ring of K and V
+// 128 KB of shared memory; O as a 64 x 256 accumulator, 128 registers a
+// consumer thread, by m64n256k16).
+//
 // Both kernels write each row's natural log-sum-exp of the scaled, masked
 // scores (m + log l, float32, (B, Hq, S) contiguous) when given a non-null
 // `lse`: the backward (flash_attention_bwd.cu) rebuilds P from it. Serving
@@ -53,6 +63,19 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+
+// The first key tile (of `tile` keys) a block whose first query position
+// is `first_pos` must visit under a window (0: none): the tile holding key
+// first_pos - window + 1; at most `nk`, the tile count it visits otherwise.
+__host__ __device__ __forceinline__ int first_tile(long long first_pos,
+                                                   int window, int tile,
+                                                   int nk) {
+  if (window <= 0) return 0;
+  const long long first_key = first_pos - window + 1;
+  if (first_key <= 0) return 0;
+  const long long t = first_key / tile;
+  return t < nk ? (int)t : nk;
+}
 
 // ===================================================== float32, CUDA cores
 
@@ -74,8 +97,8 @@ __global__ void __launch_bounds__(kThreads)
 fa_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ o,
             float* __restrict__ lse, int G, int S, int Tk, int kv_len,
-            int q_offset, int causal, float scale, Strides qs, Strides ks,
-            Strides vs, Strides os) {
+            int q_offset, int causal, int window, float scale, Strides qs,
+            Strides ks, Strides vs, Strides os) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
   constexpr int OJ = HD / 16;
   extern __shared__ float smem[];
@@ -107,13 +130,15 @@ fa_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // key tiles to visit: those holding a key below kv_len and, when causal,
-  // a key no later than the block's last query
+  // a key no later than the block's last query; with a window, from the
+  // tile holding the first key of the block's first query's window
   int nk = (kv_len + BK - 1) / BK;
   if (causal) {
     const long long last = (long long)q_offset + q0 + BQ - 1;
     const long long lim = last < 0 ? 0 : last / BK + 1;
     if (lim < nk) nk = (int)lim;
   }
+  const int kt0 = first_tile((long long)q_offset + q0, window, BK, nk);
 
   float acc[4][OJ];
 #pragma unroll
@@ -121,7 +146,7 @@ fa_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < OJ; ++j) acc[i][j] = 0.0f;
 
-  for (int kt = 0; kt < nk; ++kt) {
+  for (int kt = kt0; kt < nk; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                 // the previous tile is consumed
     for (int i = tid; i < BK * HD; i += kThreads) {
@@ -157,6 +182,9 @@ fa_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
         bool live = kpos < kv_len;
         if (causal) live = live && (long long)kpos <=
                                        (long long)q_offset + q0 + r;
+        if (window > 0)
+          live = live && (long long)kpos > (long long)q_offset + q0 + r -
+                                               window;
         Ps[r * (BK + 1) + c] = live ? s[i][j] * scale : kNegInf;
       }
     __syncthreads();
@@ -208,7 +236,7 @@ fa_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < OJ; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
     }
   }
-  __syncthreads();                   // l_s is final (also when nk == 0)
+  __syncthreads();                   // l_s is final (also with no tile)
   if (lse != nullptr && tid < BQ && q0 + tid < S)
     lse[((long long)b * gridDim.y + h) * S + q0 + tid] =
         m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
@@ -227,8 +255,8 @@ fa_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int Hq, int Hkv, int S, int Tk, int kv_len,
-                int q_offset, int causal, float scale, Strides qs, Strides ks,
-                Strides vs, Strides os, cudaStream_t stream) {
+                int q_offset, int causal, int window, float scale, Strides qs,
+                Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   const size_t smem = Smem<HD>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       fa_fwd_simt<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -237,7 +265,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
   fa_fwd_simt<HD><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
-      Hq / Hkv, S, Tk, kv_len, q_offset, causal, scale, qs, ks, vs, os);
+      Hq / Hkv, S, Tk, kv_len, q_offset, causal, window, scale, qs, ks, vs,
+      os);
   return (int)cudaGetLastError();
 }
 
@@ -248,13 +277,13 @@ namespace tc {
 using namespace hopper;
 
 constexpr int BM = 128;            // query rows per block, 64 per consumer
-constexpr int TK = 128;            // keys per tile
 constexpr int kStages = 2;
 constexpr int kBlock = 384;        // producer + two consumer warpgroups
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;   // 168 on average
 
 template <int HD>
 struct Cfg : Atom<HD> {
+  static constexpr int TK = HD >= 256 ? 64 : 128;   // keys per tile
   static constexpr int Q_BYTES = BM * HD * 2;
   static constexpr int KV_BYTES = TK * HD * 2;
   static constexpr int SMEM = Q_BYTES + 2 * kStages * KV_BYTES + 1024 + 64;
@@ -269,8 +298,9 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tv,
           __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
           Strides os, int G, int S, int kv_len, int q_offset, int causal,
-          float scale_log2) {
+          int window, float scale_log2) {
   using C = Cfg<HD>;
+  constexpr int TK = C::TK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -291,6 +321,7 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
     const long long lim = last < 0 ? 0 : last / TK + 1;
     if (lim < nk) nk = (int)lim;
   }
+  const int j0 = first_tile((long long)q_offset + q0, window, TK, nk);
 
   if (threadIdx.x == 0) {
     bar_init(q_full, 1);
@@ -312,9 +343,9 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
       const int hk = h / G;
       bar_expect_tx(q_full, C::Q_BYTES);
       tma_tile<HD>(sQ, &tq, BM, q0, h, b, q_full);
-      for (int j = 0; j < nk; ++j) {
-        const int s = j % kStages;
-        if (j >= kStages) bar_wait(empty + s, (j / kStages - 1) & 1);
+      for (int j = j0; j < nk; ++j) {
+        const int it = j - j0, s = it % kStages;
+        if (it >= kStages) bar_wait(empty + s, (it / kStages - 1) & 1);
         bar_expect_tx(k_full + s, C::KV_BYTES);
         tma_tile<HD>(sK + s * C::KV_BYTES, &tk, TK, j * TK, hk, b,
                      k_full + s);
@@ -332,6 +363,7 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
     const int r_lo = 64 * w + 16 * warp + lane / 4;  // and r_lo + 8
     const long long pos_lo = (long long)q_offset + q0 + r_lo;
     const long long first_pos = (long long)q_offset + q0 + 64 * w;
+    const long long last_pos = first_pos + 63;
     const int cq = 2 * (lane % 4);
 
     float oacc[HD / 2];
@@ -342,8 +374,8 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
     const uint32_t q_addr = smem_u32(sQ) + w * 64 * C::ATOM_B;
     bar_wait(q_full, 0);
 
-    for (int j = 0; j < nk; ++j) {
-      const int s = j % kStages, ph = (j / kStages) & 1;
+    for (int j = j0; j < nk; ++j) {
+      const int it = j - j0, s = it % kStages, ph = (it / kStages) & 1;
       const uint32_t k_addr = smem_u32(sK + s * C::KV_BYTES);
       const uint32_t v_addr = smem_u32(sV + s * C::KV_BYTES);
 
@@ -362,7 +394,8 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
       // mask, then the online softmax (log2 domain) on the two rows
       const int k0 = j * TK;
       const bool masked = k0 + TK > kv_len ||
-                          (causal && (long long)k0 + TK - 1 > first_pos);
+                          (causal && (long long)k0 + TK - 1 > first_pos) ||
+                          (window > 0 && (long long)k0 <= last_pos - window);
       float mx_lo = kNegInf, mx_hi = kNegInf;
 #pragma unroll
       for (int i = 0; i < TK / 8; ++i) {
@@ -373,8 +406,12 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
           if (masked) {
             const int kpos = k0 + 8 * i + cq + e;
             const bool pad = kpos >= kv_len;
-            if (pad || (causal && kpos > pos_lo)) x_lo = kNegInf;
-            if (pad || (causal && kpos > pos_lo + 8)) x_hi = kNegInf;
+            if (pad || (causal && kpos > pos_lo) ||
+                (window > 0 && kpos <= pos_lo - window))
+              x_lo = kNegInf;
+            if (pad || (causal && kpos > pos_lo + 8) ||
+                (window > 0 && kpos <= pos_lo + 8 - window))
+              x_hi = kNegInf;
           }
           sacc[4 * i + e] = x_lo;
           sacc[4 * i + 2 + e] = x_hi;
@@ -467,13 +504,13 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Hq, int Hkv, int S, int T, int kv_len, int q_offset,
-           int causal, float scale, Strides qs, Strides ks, Strides vs,
-           Strides os, cudaStream_t stream) {
+           int causal, int window, float scale, Strides qs, Strides ks,
+           Strides vs, Strides os, cudaStream_t stream) {
   if (!encode_fn()) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv;
   if (!make_map<HD>(&tq, q, S, Hq, B, qs, BM) ||
-      !make_map<HD>(&tk, k, T, Hkv, B, ks, TK) ||
-      !make_map<HD>(&tv, v, T, Hkv, B, vs, TK))
+      !make_map<HD>(&tk, k, T, Hkv, B, ks, Cfg<HD>::TK) ||
+      !make_map<HD>(&tv, v, T, Hkv, B, vs, Cfg<HD>::TK))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       fa_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -487,7 +524,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const float scale_log2 = (float)((double)scale * 1.4426950408889634);
   fa_fwd_tc<HD><<<grid, kBlock, Cfg<HD>::SMEM, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, lse, os, Hq / Hkv, S, kv_len,
-      q_offset, causal, scale_log2);
+      q_offset, causal, window, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -496,37 +533,37 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 template <bool BF16, int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int Hq, int Hkv, int S, int T, int kv_len,
-              int q_offset, int causal, float scale, Strides qs, Strides ks,
-              Strides vs, Strides os, cudaStream_t stream) {
+              int q_offset, int causal, int window, float scale, Strides qs,
+              Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   if constexpr (BF16)
     return tc::launch<HD>(q, k, v, o, lse, B, Hq, Hkv, S, T, kv_len,
-                          q_offset, causal, scale, qs, ks, vs, os, stream);
+                          q_offset, causal, window, scale, qs, ks, vs, os,
+                          stream);
   else
     return launch_simt<HD>(q, k, v, o, lse, B, Hq, Hkv, S, T, kv_len,
-                           q_offset, causal, scale, qs, ks, vs, os, stream);
+                           q_offset, causal, window, scale, qs, ks, vs, os,
+                           stream);
 }
 
 template <bool BF16>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int Hq, int Hkv, int S, int T, int kv_len,
-                int q_offset, int causal, float scale, Strides qs,
+                int q_offset, int causal, int window, float scale, Strides qs,
                 Strides ks, Strides vs, Strides os, cudaStream_t stream) {
+#define FA_CASE(HD)                                                        \
+  case HD:                                                                 \
+    return launch_hd<BF16, HD>(q, k, v, o, lse, B, Hq, Hkv, S, T, kv_len,  \
+                               q_offset, causal, window, scale, qs, ks, vs, \
+                               os, stream);
   switch (hd) {
-    case 32:
-      return launch_hd<BF16, 32>(q, k, v, o, lse, B, Hq, Hkv, S, T,
-                                 kv_len, q_offset, causal, scale, qs, ks, vs,
-                                 os, stream);
-    case 64:
-      return launch_hd<BF16, 64>(q, k, v, o, lse, B, Hq, Hkv, S, T,
-                                 kv_len, q_offset, causal, scale, qs, ks, vs,
-                                 os, stream);
-    case 128:
-      return launch_hd<BF16, 128>(q, k, v, o, lse, B, Hq, Hkv, S, T,
-                                  kv_len, q_offset, causal, scale, qs, ks, vs,
-                                  os, stream);
+    FA_CASE(32)
+    FA_CASE(64)
+    FA_CASE(128)
+    FA_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef FA_CASE
 }
 
 }  // namespace
@@ -538,21 +575,23 @@ extern "C" {
 // dimension; lse null or a contiguous float32 (B, Hq, S) that receives
 // each row's log-sum-exp. dtype 0: float32, 1: bfloat16 (all four tensors;
 // bfloat16 needs 16-byte aligned base addresses and row/head/batch strides,
-// which TMA reads). hd in {32, 64, 128}; Hq a multiple of Hkv;
-// 1 <= kv_len <= T.
+// which TMA reads). hd in {32, 64, 128, 256}; Hq a multiple of Hkv;
+// 1 <= kv_len <= T; window 0 (none) or the sliding window's length, which
+// needs causal.
 // Returns the first CUDA error (cudaSuccess = 0), cudaErrorInvalidValue
 // for a shape or layout the kernel does not take.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, void* lse, int dtype, int B, int Hq,
                            int Hkv, int S, int T, int hd, int kv_len,
-                           int q_offset,
-                           int causal, float scale, long long qsb,
+                           int q_offset, int causal, int window,
+                           float scale, long long qsb,
                            long long qsh, long long qss, long long ksb,
                            long long ksh, long long kss, long long vsb,
                            long long vsh, long long vss, long long osb,
                            long long osh, long long oss, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || S <= 0 || T <= 0 ||
-      kv_len <= 0 || kv_len > T || B > 65535 || Hq > 65535)
+      kv_len <= 0 || kv_len > T || B > 65535 || Hq > 65535 || window < 0 ||
+      (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
@@ -560,7 +599,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   float* l = (float*)lse;
   if (dtype == 0)
     return dispatch_hd<false>(hd, q, k, v, o, l, B, Hq, Hkv, S, T, kv_len,
-                              q_offset, causal, scale, qs, ks, vs, os, s);
+                              q_offset, causal, window, scale, qs, ks, vs, os,
+                              s);
   if (dtype == 1) {
     for (const void* p : {q, k, v, (const void*)o})
       if (reinterpret_cast<uintptr_t>(p) % 16)
@@ -569,7 +609,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       if ((st * 2) % 16) return (int)cudaErrorInvalidValue;
     if ((S + tc::BM - 1) / tc::BM > 65535) return (int)cudaErrorInvalidValue;
     return dispatch_hd<true>(hd, q, k, v, o, l, B, Hq, Hkv, S, T, kv_len,
-                             q_offset, causal, scale, qs, ks, vs, os, s);
+                             q_offset, causal, window, scale, qs, ks, vs, os,
+                             s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -42,6 +42,7 @@ FLAGS: Dict[str, Tuple[str, ...]] = {
     "flash_attention_bwd": _COMMON,
     "wkv6": _COMMON,
     "wkv6_bwd": _COMMON,
+    "rglru": _COMMON,
 }
 
 

@@ -7,7 +7,11 @@ online softmax in registers and P rounded to bfloat16 for P.V. float32
 runs on the CUDA cores (one block per 64 query rows), exact to the
 reference's 2e-5. Both skip key tiles in the causal future and mask the
 ragged edges in the kernel, and both write each row's log-sum-exp when
-asked (``lse=True``), for the backward.
+asked (``lse=True``), for the backward. With ``window`` > 0 (the hybrid
+family's sliding window) both also skip the key tiles before each query
+tile's window and mask the keys k <= p - window of query position p.
+Head dims 32, 64, 128 and 256 (256 with 64-key tiles on the tensor
+cores).
 
 Backward (``csrc/flash_attention_bwd.cu``): dQ, dK, dV from the forward's
 output and log-sum-exp, three launches per call (D = rowsum(dO o O), a
@@ -17,7 +21,7 @@ bfloat16 runs on the tensor cores like the forward (a TMA producer
 warpgroup and two ``wgmma`` consumer warpgroups a block; P and dS rounded
 to bfloat16 before their products) and needs 16-byte aligned rows of q,
 k, v, o and do; float32 runs on the CUDA cores. ``BWD_COUNTER`` counts its
-calls.
+calls; it takes no window and head dims up to 128 (``BWD_HEAD_DIMS``).
 
 The library is built with ``nvcc`` at the first launch (see
 ``repro_torch.kernels._build``). The wrapper checks its inputs, allocates
@@ -34,7 +38,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 COUNTER = _build.LaunchCounter()
@@ -47,7 +52,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:            # first use: declare the C signature
         p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                        ctypes.c_longlong)
-        fn.argtypes = [p] * 5 + [i] * 10 + [f] + [ll] * 12 + [p]
+        fn.argtypes = [p] * 5 + [i] * 11 + [f] + [ll] * 12 + [p]
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -107,9 +112,11 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0, kv_len: int = 0,
-                    lse: bool = False):
+                    window: int = 0, lse: bool = False):
     """q (B, Hq, S, hd); k/v (B, Hkv, T, hd) CUDA tensors -> (B, Hq, S, hd),
     and with ``lse`` also the rows' float32 log-sum-exp (B, Hq, S).
+    ``window`` > 0 (which needs ``causal``) lets query position p see only
+    the keys k with p - window < k <= p.
 
     The same function as ``ref.attention_ref``, except that in bfloat16
     the kernel rounds P to bfloat16 before P.V. Inputs may be strided
@@ -119,6 +126,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len = _check_qkv(q, k, v, kv_len)
     B, Hq, S, hd = q.shape
     _, Hkv, T, _ = k.shape
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window={window}: a sliding window is >= 0 and "
+                         f"needs causal=True")
     if q.dtype == torch.bfloat16:      # TMA reads 16-byte aligned rows
         for name, t in (("q", q), ("k", k), ("v", v)):
             if not aligned16(t):
@@ -138,7 +148,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if rows is None else rows.data_ptr(),
         _DTYPES[q.dtype], B, Hq, Hkv, S, T, hd, kv_len, int(q_offset),
-        int(bool(causal)), 1.0 / math.sqrt(hd), *strides, stream)
+        int(bool(causal)), int(window), 1.0 / math.sqrt(hd), *strides,
+        stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: "
                            f"{lib.flash_attention_error_string(err).decode()}")
@@ -161,6 +172,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = _check_qkv(q, k, v, kv_len)
     B, Hq, S, hd = q.shape
     _, Hkv, T, _ = k.shape
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward kernel takes head dims "
+                         f"{BWD_HEAD_DIMS}, got {hd}")
     for name, t in (("o", o), ("do", do)):
         if t.device != q.device or t.dtype != q.dtype or \
                 tuple(t.shape) != (B, Hq, S, hd) or t.stride(-1) != 1:
@@ -206,11 +220,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_flops(B: int, Hq: int, S: int, T: int, hd: int, *,
-                    causal: bool, q_offset: int = 0) -> float:
+                    causal: bool, q_offset: int = 0, window: int = 0
+                    ) -> float:
     """Multiply-adds x 2 of QK^T and PV over the (query, key) pairs the
     mask leaves live: the work these inputs need."""
     if causal:
-        live = sum(max(0, min(T, q_offset + i + 1)) for i in range(S))
+        live = 0
+        for i in range(S):
+            pos = q_offset + i
+            lo = max(0, pos - window + 1) if window else 0
+            live += max(0, min(T, pos + 1) - lo)
     else:
         live = S * T
     return 4.0 * B * Hq * hd * live
@@ -224,6 +243,6 @@ def attention_bwd_flops(B: int, Hq: int, S: int, T: int, hd: int, *,
                                  q_offset=q_offset)
 
 
-__all__ = ["BWD_COUNTER", "COUNTER", "HEAD_DIMS", "aligned16",
-           "attention_bwd_flops", "attention_flops", "flash_attention",
+__all__ = ["BWD_COUNTER", "BWD_HEAD_DIMS", "COUNTER", "HEAD_DIMS",
+           "aligned16", "attention_bwd_flops", "attention_flops", "flash_attention",
            "flash_attention_bwd"]

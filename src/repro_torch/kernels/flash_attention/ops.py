@@ -8,7 +8,9 @@ version. On the card, when a gradient is wanted, the call is a
 ``torch.autograd.Function`` whose forward is the forward kernel (which
 then also writes the rows' log-sum-exp) and whose backward is the
 backward kernel; without a gradient (prefill, decode) it is the forward
-kernel alone, with no log-sum-exp.
+kernel alone, with no log-sum-exp. A sliding ``window`` runs the forward
+kernel with its window; the backward kernel takes none yet, so on the
+card a windowed call that wants a gradient raises.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ class _FlashAttention(torch.autograd.Function):
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, q_offset: int = 0,
-              kv_len: int = 0) -> torch.Tensor:
+              kv_len: int = 0, window: int = 0) -> torch.Tensor:
     """Model layout q (B, S, Hq, hd), k/v (B, T, Hkv, hd) -> (B, S, Hq, hd).
 
     The kernels mask ragged edges themselves, so nothing is padded, and
@@ -51,13 +53,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
     if q.device.type == "cpu":
-        return attention_ref(qt, kt, vt, **kw).transpose(1, 2)
+        return attention_ref(qt, kt, vt, window=window,
+                             **kw).transpose(1, 2)
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
+            if window:
+                raise NotImplementedError(
+                    "the flash-attention backward kernel takes no sliding "
+                    "window yet (it comes with the hybrid family's "
+                    "training slice)")
             return _FlashAttention.apply(qt, kt, vt, causal, q_offset,
                                          kv_len).transpose(1, 2)
-        return flash_attention(qt, kt, vt, **kw).transpose(1, 2)
+        return flash_attention(qt, kt, vt, window=window,
+                               **kw).transpose(1, 2)
     raise ValueError(f"attention: unsupported device {q.device}")
 
 

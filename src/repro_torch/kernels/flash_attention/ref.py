@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the flash-attention kernels: the same math as
 the JAX package's ``attention_ref`` (float32 scores, one softmax over the
-whole key axis), plus the kernel's ``q_offset`` and ``kv_len``, and the
-backward's recompute equations."""
+whole key axis), plus the kernel's ``q_offset``, ``kv_len`` and sliding
+``window``, and the backward's recompute equations."""
 from __future__ import annotations
 
 import math
@@ -11,7 +11,7 @@ import torch
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
-            q_offset: int, kv_len: int
+            q_offset: int, kv_len: int, window: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """float32 scaled scores (B, Hkv, G, S, T) and the live mask (S, T)."""
     B, Hq, S, hd = q.shape
@@ -23,21 +23,28 @@ def _scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
     if causal:
         qpos = q_offset + torch.arange(S, device=q.device)
         mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
     return s, mask
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, q_offset: int = 0, kv_len: int = 0,
-                  return_lse: bool = False):
+                  window: int = 0, return_lse: bool = False):
     """q (B, Hq, S, hd); k/v (B, Hkv, T, hd) -> (B, Hq, S, hd) in q's dtype.
 
     GQA: query head h reads kv head h // (Hq // Hkv). Keys at or past
     ``kv_len`` (0 -> T) are masked; with ``causal`` query i sees keys
-    ``<= q_offset + i``. With ``return_lse`` also each row's float32
+    ``<= q_offset + i``, and with a ``window`` > 0 only those
+    ``> q_offset + i - window`` (the JAX package's ``local_attention``
+    mask). With ``return_lse`` also each row's float32
     log-sum-exp (B, Hq, S) of the scaled, masked scores, as the kernel
     writes it for the backward."""
     B, Hq, S, hd = q.shape
-    s, mask = _scores(q, k, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    if window and not causal:
+        raise ValueError("a sliding window needs causal=True")
+    s, mask = _scores(q, k, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                      window=window)
     s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)

@@ -1,9 +1,10 @@
 """Attention: GQA projections, prefill attention through the flash-attention
-kernel, and decode-step attention over a KV cache.
+kernel (causal, or in a sliding window for the hybrid family's
+``local_attention``), and decode-step attention over a KV cache.
 
 Local (single-device) paths only: the sequence-sharded flash-decoding
-branch, ``local_attention`` and ``cross_attention`` come with ``dist`` and
-the hybrid and audio families.
+branch and ``cross_attention`` come with tensor parallelism and the audio
+family.
 """
 from __future__ import annotations
 
@@ -87,6 +88,26 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash(q, k, v, causal=causal, q_offset=q_offset)
 
 
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int) -> torch.Tensor:
+    """Sliding-window causal attention, O(S window): query position p sees
+    the keys k with p - window < k <= p. q (B, S, Hq, hd), k/v (B, S, Hkv,
+    hd) -> (B, S, Hq, hd).
+
+    As in the JAX package, a sequence no longer than the window is plain
+    causal attention, and a longer one must be a multiple of the window
+    (the reference asserts it: its chunks are window-sized). On the card
+    this is the flash-attention kernel with its window; on the CPU its
+    plain version with the same mask."""
+    S = q.shape[1]
+    if S <= window:
+        return flash(q, k, v, causal=True)
+    if S % window:
+        raise ValueError(f"local_attention: {S} tokens are more than the "
+                         f"window {window} and not a multiple of it")
+    return flash(q, k, v, causal=True, window=window)
+
+
 def decode_attention(q: torch.Tensor, kcache: torch.Tensor,
                      vcache: torch.Tensor, k_new: torch.Tensor,
                      v_new: torch.Tensor, pos: int) -> torch.Tensor:
@@ -116,4 +137,4 @@ def decode_attention(q: torch.Tensor, kcache: torch.Tensor,
 
 
 __all__ = ["Attention", "decode_attention", "full_attention",
-           "out_projection", "project_qkv"]
+           "local_attention", "out_projection", "project_qkv"]

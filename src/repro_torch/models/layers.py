@@ -79,20 +79,26 @@ def apply_rope(x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]
 # ---------------------------------------------------------------- MLPs
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (PyTorch's default
+    is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
 class MLP(nn.Module):
-    """Gated swiglu (``wg``, ``wu``) or squared-relu (``wi``) MLP, with
-    ``wo``; every matrix is stored (in, out) as in the JAX package. The
-    geglu and gelu activations come with the families that use them."""
+    """Gated swiglu or geglu (``wg``, ``wu``) or squared-relu (``wi``) MLP,
+    with ``wo``; every matrix is stored (in, out) as in the JAX package.
+    The gelu activation comes with the family that uses it."""
 
     AXES = {"wg": ("fsdp", "ff"), "wu": ("fsdp", "ff"),
             "wi": ("fsdp", "ff"), "wo": ("ff", "fsdp")}
 
     def __init__(self, init: Init, d_model: int, d_ff: int, act: str):
         super().__init__()
-        if act not in ("swiglu", "relu_sq"):
+        if act not in ("swiglu", "geglu", "relu_sq"):
             raise NotImplementedError(f"activation {act!r} is not ported")
         self.act = act
-        if act == "swiglu":
+        if act in ("swiglu", "geglu"):
             self.wg = init.dense(d_model, d_ff)
             self.wu = init.dense(d_model, d_ff)
         else:
@@ -104,6 +110,8 @@ class MLP(nn.Module):
         sequence, ``_mlp_step`` of the JAX package."""
         if self.act == "swiglu":
             h = F.silu(x @ self.wg) * (x @ self.wu)
+        elif self.act == "geglu":
+            h = gelu(x @ self.wg) * (x @ self.wu)
         else:
             h = F.relu(x @ self.wi).square()
         return h @ self.wo
@@ -171,5 +179,5 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 __all__ = ["Embed", "MLP", "apply_rope", "cross_entropy", "embed_tokens",
-           "group_norm", "layer_norm", "logits_from_hidden", "rms_norm",
+           "gelu", "group_norm", "layer_norm", "logits_from_hidden", "rms_norm",
            "rope_tables"]

@@ -1,5 +1,6 @@
-"""The model of the dense, moe and ssm families: training loss, prefill
-and KV-cache (or state) decode, the port of ``repro.models.model.Model``.
+"""The model of the dense, moe, ssm and hybrid families: training loss,
+prefill and KV-cache (or state) decode, the port of
+``repro.models.model.Model``.
 
   Model(cfg, policy, device=..., seed=..., remat=...)   parameters drawn
                              on the device
@@ -12,8 +13,14 @@ The cache has the JAX package's layout: dense ``{"layers": (K, V), "pos"}``
 with K/V (L, B, Hkv, Sc, hd) in the compute dtype; moe the same over its
 MoE layers, and, where the first layer is dense (deepseek-moe's
 ``first_layer_dense``), ``"dense0"``: that layer's (K, V) of (B, Hkv, Sc,
-hd); ssm ``{"wkv", "x_tm", "x_cm", "pos"}`` in float32. ``pos`` is a
-Python int here (a 0-d int32 array there). ``decode_step`` updates the
+hd); ssm ``{"wkv", "x_tm", "x_cm", "pos"}`` in float32; hybrid
+``{"units", "tail", "pos"}``: ``units`` maps each layer of the pattern
+(``"l0_rec"``, ``"l1_rec"``, ``"l2_attn"``) to its cache stacked over the
+units, a rec layer's ``{"h" (n, B, W), "conv" (n, B, K-1, W)}`` in
+float32 and an attention layer's ring (K, V) of (n, B, Hkv, window, hd)
+in the compute dtype, and ``tail`` lists the remaining layers' caches
+unstacked. ``pos`` is a Python int here (a 0-d int32 array there).
+``decode_step`` updates the
 cache's tensors in place and returns the same dict with ``pos`` advanced;
 the JAX package returns a new cache. ``train_loss`` runs with gradients
 through the working weights (see ``models.common``); with
@@ -22,7 +29,11 @@ through the working weights (see ``models.common``); with
 WKV6 kernel included, runs again in the backward; the moe family's
 ``dense0`` runs outside the checkpoint, as in the reference, and its
 loss adds ``router_aux_loss`` times the MoE layers' summed aux. The
-hybrid, audio and vlm families come with their slices.
+hybrid family (recurrentgemma: units of (rec, rec, attn) layers, a tail
+of the pattern's first layers, the gemma embedding scale, the attention
+in a sliding window) serves here; its ``train_loss``, ``param_axes`` and
+``zero3_units`` come with its training slice. The audio and vlm families
+come with their slices.
 
   param_axes()               -> {parameter name: logical axes}, the
                                 reference's ``Model.param_axes()`` without
@@ -40,6 +51,7 @@ raises until ``repro_torch.train.load_working`` brings them back.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -49,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.dist import api as dist
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru
 from repro_torch.models import rwkv6
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import Init, Policy, pad_vocab
@@ -56,7 +69,7 @@ from repro_torch.models.layers import (Embed, cross_entropy, embed_tokens,
                                        layer_norm, logits_from_hidden,
                                        rms_norm, rope_tables)
 
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 REMAT = ("full", "none")
 
 Cache = Dict[str, Any]
@@ -94,6 +107,16 @@ class Model(nn.Module):
             self.ln0 = init.zeros((cfg.d_model,))
             self.layers = nn.ModuleList(rwkv6.Block(init, cfg)
                                         for _ in range(cfg.num_layers))
+        elif cfg.family == "hybrid":
+            # the reference's scan-stacked units, one module each, and its
+            # tail list
+            n_units = cfg.num_layers // len(cfg.block_pattern)
+            self.units = nn.ModuleList(
+                nn.ModuleDict({key: self._hybrid_layer(init, kind)
+                               for key, kind in self._hybrid_keys()})
+                for _ in range(n_units))
+            self.tail = nn.ModuleList(self._hybrid_layer(init, kind)
+                                      for kind in self._hybrid_tail_kinds())
         elif cfg.moe:
             n_dense = 1 if cfg.moe.first_layer_dense else 0
             if n_dense:
@@ -111,10 +134,35 @@ class Model(nn.Module):
         self.zero3 = None
         self.weights_released = False
 
+    # ------------------------------------------------------------ hybrid
+
+    def _hybrid_keys(self) -> List[Tuple[str, str]]:
+        """(cache and parameter key, kind) of each layer of a unit."""
+        return [(f"l{i}_{kind}", kind)
+                for i, kind in enumerate(self.cfg.block_pattern)]
+
+    def _hybrid_tail_kinds(self) -> List[str]:
+        pat = self.cfg.block_pattern
+        return [pat[i % len(pat)]
+                for i in range(self.cfg.num_layers % len(pat))]
+
+    def _hybrid_layer(self, init: Init, kind: str) -> nn.Module:
+        if kind == "attn":
+            return tfm.DecoderLayer(init, self.cfg)
+        return rglru.RecLayer(init, self.cfg)
+
+    def _require_trainable(self, what: str) -> None:
+        if self.cfg.family == "hybrid":
+            raise NotImplementedError(
+                f"{what} of the hybrid family ({self.cfg.name}) comes with "
+                f"its training slice (the RG-LRU scan's backward and a "
+                f"windowed flash-attention backward)")
+
     def param_axes(self) -> Dict[str, dist.Axes]:
         """``{parameter name: logical axes}`` from each module's ``AXES``
         table (the axes the reference initializes each parameter with);
         the port's layers are not stacked, so no axis is "layer"."""
+        self._require_trainable("param_axes")
         return {f"{mod}.{name}" if mod else name: type(m).AXES[name]
                 for mod, m in self.named_modules()
                 for name, _ in m.named_parameters(recurse=False)}
@@ -127,6 +175,7 @@ class Model(nn.Module):
         (``ln_f`` and an untied head). "in", "dense0" and "out" are not
         checkpointed: their gathered weights stay until their
         gradients arrive."""
+        self._require_trainable("zero3_units")
         names = [n for n, _ in self.named_parameters()]
         late = ("ln_f", "embed.head")
         units = {"in": [n for n in names
@@ -166,6 +215,8 @@ class Model(nn.Module):
         cfg = self.cfg
         if cfg.family == "ssm":
             return self._forward_rwkv(tokens)
+        if cfg.family == "hybrid":
+            return self._forward_hybrid(tokens)
         B, S = tokens.shape
         x = embed_tokens(self.embed, tokens)
         L, hd = len(self.layers), cfg.resolved_head_dim
@@ -207,6 +258,89 @@ class Model(nn.Module):
         return x, {"wkv": torch.stack(states), "x_tm": torch.stack(x_tm),
                    "x_cm": torch.stack(x_cm)}
 
+    def _embed_hybrid(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The token rows times sqrt(d_model) in their dtype (gemma)."""
+        x = embed_tokens(self.embed, tokens)
+        return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype,
+                                device=x.device)
+
+    def _rec_layer(self, lp: rglru.RecLayer, x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, rglru.State]:
+        """A rec layer over a sequence from a zero state -> (x, its decode
+        state {"h", "conv"})."""
+        cfg = self.cfg
+        h = rms_norm(x, lp.ln_rec, cfg.norm_eps)
+        h0 = torch.zeros((x.shape[0], cfg.lru_width or cfg.d_model),
+                         dtype=torch.float32, device=x.device)
+        out, h_last, conv = rglru.rec_block(lp.rec, cfg, h, h0,
+                                            collect_state=True)
+        x = x + out
+        x = x + lp.mlp(rms_norm(x, lp.ln_mlp, cfg.norm_eps))
+        return x, {"h": h_last, "conv": conv}
+
+    def _rec_layer_step(self, lp: rglru.RecLayer, x: torch.Tensor,
+                        state: rglru.State
+                        ) -> Tuple[torch.Tensor, rglru.State]:
+        cfg = self.cfg
+        out, state = rglru.rec_block_step(
+            lp.rec, cfg, rms_norm(x, lp.ln_rec, cfg.norm_eps), state)
+        x = x + out
+        return x + lp.mlp(rms_norm(x, lp.ln_mlp, cfg.norm_eps)), state
+
+    def _to_ring(self, t: torch.Tensor) -> torch.Tensor:
+        """(B, S, Hkv, hd) -> the ring (B, Hkv, W, hd): slot i holds the
+        position p with p % W == i. S < W is right-padded with zeros (the
+        decode's warm-up mask covers them); S >= W keeps the last W rows,
+        which S % W == 0 keeps aligned."""
+        W = self.cfg.window
+        t = t.transpose(1, 2)
+        S = t.shape[2]
+        if S < W:
+            return torch.nn.functional.pad(t, (0, 0, 0, W - S))
+        if S % W:
+            raise ValueError(f"{S} tokens: the ring needs a multiple of the "
+                             f"window {W}")
+        return t[:, :, -W:].contiguous()
+
+    def _forward_hybrid(self, tokens: torch.Tensor
+                        ) -> Tuple[torch.Tensor, Cache]:
+        """The reference's ``_forward_hybrid`` with ``collect_cache``: every
+        unit, then the tail, each layer's cache collected (the units'
+        stacked as the reference's scan stacks them)."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self._embed_hybrid(tokens)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=self.device)[None].expand(B, S)
+        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+        def one_layer(lp, kind, x):
+            if kind == "attn":
+                x, _, (k, v) = tfm.decoder_layer(lp, cfg, x, rope,
+                                                 window=cfg.window)
+                return x, (self._to_ring(k), self._to_ring(v))
+            return self._rec_layer(lp, x)
+
+        per_key: Dict[str, list] = {key: [] for key, _ in self._hybrid_keys()}
+        for unit in self.units:
+            for key, kind in self._hybrid_keys():
+                x, c = one_layer(unit[key], kind, x)
+                per_key[key].append(c)
+        units: Dict[str, Any] = {}
+        for key, kind in self._hybrid_keys():
+            cs = per_key[key]
+            if kind == "attn":
+                units[key] = (torch.stack([c[0] for c in cs]),
+                              torch.stack([c[1] for c in cs]))
+            else:
+                units[key] = {name: torch.stack([c[name] for c in cs])
+                              for name in ("h", "conv")}
+        tail = []
+        for lp, kind in zip(self.tail, self._hybrid_tail_kinds()):
+            x, c = one_layer(lp, kind, x)
+            tail.append(c)
+        return x, {"units": units, "tail": tail}
+
     # ------------------------------------------------------------ train
 
     def train_loss(self, batch) -> Tuple[torch.Tensor,
@@ -219,6 +353,7 @@ class Model(nn.Module):
         The moe family's loss is ``ce + router_aux_loss * aux``, aux the
         sum of its MoE layers' (``dense0``'s is not counted)."""
         cfg = self.cfg
+        self._require_trainable("train_loss")
         tokens = self._tokens(batch["tokens"])
         labels = self._tokens(batch["labels"])
         B, S = tokens.shape
@@ -312,9 +447,26 @@ class Model(nn.Module):
                     "x_tm": torch.zeros((L, B, d), **f32),
                     "x_cm": torch.zeros((L, B, d), **f32),
                     "pos": 0}
+        kv = dict(dtype=self.policy.compute_dtype, device=self.device)
+        if cfg.family == "hybrid":
+            # the ring of ``window`` slots: cache_len does not enter
+            ring = (B, cfg.num_kv_heads, cfg.window, cfg.resolved_head_dim)
+            w, K = cfg.lru_width or d, cfg.conv_width
+
+            def layer_cache(kind, lead=()):
+                if kind == "attn":
+                    return (torch.zeros(lead + ring, **kv),
+                            torch.zeros(lead + ring, **kv))
+                return {"h": torch.zeros(lead + (B, w), **f32),
+                        "conv": torch.zeros(lead + (B, K - 1, w), **f32)}
+            n = (len(self.units),)
+            return {"units": {key: layer_cache(kind, n)
+                              for key, kind in self._hybrid_keys()},
+                    "tail": [layer_cache(kind)
+                             for kind in self._hybrid_tail_kinds()],
+                    "pos": 0}
         shape = (len(self.layers), B, cfg.num_kv_heads, cache_len,
                  cfg.resolved_head_dim)
-        kv = dict(dtype=self.policy.compute_dtype, device=self.device)
         cache = {"layers": (torch.zeros(shape, **kv),
                             torch.zeros(shape, **kv)), "pos": 0}
         if hasattr(self, "dense0"):
@@ -330,6 +482,8 @@ class Model(nn.Module):
         self.require_weights()
         cfg = self.cfg
         pos = int(cache["pos"])
+        if cfg.family == "hybrid":
+            return self._decode_hybrid(self._tokens(tokens), cache, pos)
         x = dist.constraint(embed_tokens(self.embed, self._tokens(tokens)),
                             "act_batch", "act_embed")
         if cfg.family == "ssm":
@@ -351,6 +505,39 @@ class Model(nn.Module):
             for i, lp in enumerate(self.layers):
                 x = tfm.decoder_layer_step(lp, cfg, x, kc[i], vc[i], pos,
                                            rope)
+        cache["pos"] = pos + 1
+        return self._final_logits(x), cache
+
+    def _decode_hybrid(self, tokens: torch.Tensor, cache: Cache, pos: int
+                       ) -> Tuple[torch.Tensor, Cache]:
+        """The reference's hybrid ``decode_step``: rec layers step their
+        state, attention layers decode over their ring."""
+        cfg = self.cfg
+        x = self._embed_hybrid(tokens)
+        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                               device=self.device)
+        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+        def one_step(lp, kind, x, c):
+            """Layer ``lp`` on its cache ``c`` (views of the stacked
+            tensors for a unit's layer), updated in place."""
+            if kind == "attn":
+                return tfm.decoder_layer_step(lp, cfg, x, c[0], c[1], pos,
+                                              rope, window=cfg.window)
+            x, new = self._rec_layer_step(lp, x, c)
+            for name, val in new.items():
+                c[name].copy_(val)
+            return x
+
+        for i, unit in enumerate(self.units):
+            for key, kind in self._hybrid_keys():
+                c = cache["units"][key]
+                c = ((c[0][i], c[1][i]) if kind == "attn"
+                     else {name: t[i] for name, t in c.items()})
+                x = one_step(unit[key], kind, x, c)
+        for lp, kind, c in zip(self.tail, self._hybrid_tail_kinds(),
+                               cache["tail"]):
+            x = one_step(lp, kind, x, c)
         cache["pos"] = pos + 1
         return self._final_logits(x), cache
 

@@ -69,7 +69,13 @@ def test_every_module_is_covered():
                  "repro_torch.dist", "repro_torch.dist.api",
                  "repro_torch.launch.mesh", "repro_torch.models.moe",
                  "repro_torch.configs.deepseek_moe_16b",
-                 "repro_torch.configs.llama4_scout_17b_a16e"):
+                 "repro_torch.configs.llama4_scout_17b_a16e",
+                 "repro_torch.models.rglru",
+                 "repro_torch.kernels.rglru",
+                 "repro_torch.kernels.rglru.rglru",
+                 "repro_torch.kernels.rglru.ops",
+                 "repro_torch.kernels.rglru.ref",
+                 "repro_torch.configs.recurrentgemma_9b"):
         assert want in names
 
 
@@ -78,6 +84,7 @@ def test_cuda_sources_ship_with_the_package():
     assert (csrc / "fleet_score.cu").is_file()
     assert (csrc / "sweep_burn.cu").is_file()
     assert (csrc / "flash_attention.cu").is_file()
+    assert (csrc / "rglru.cu").is_file()
     assert (csrc / "flash_attention_bwd.cu").is_file()
     assert (csrc / "wkv6.cu").is_file()
 

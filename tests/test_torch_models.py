@@ -152,8 +152,16 @@ def test_configs_match_the_reference_registry():
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small",
                                   "qwen2-vl-72b"])
 def test_unported_families_raise(arch):
+    cfg = reduced(get_config(arch))
+    if cfg.family == "hybrid":
+        # serves since its slice; what is not ported yet is its training
+        model = Model(cfg, device="cpu")
+        tokens = np.zeros((1, 8), np.int64)
+        with pytest.raises(NotImplementedError):
+            model.train_loss({"tokens": tokens, "labels": tokens})
+        return
     with pytest.raises(NotImplementedError):
-        Model(reduced(get_config(arch)), device="cpu")
+        Model(cfg, device="cpu")
 
 
 def test_seeded_init_is_repeatable_and_has_the_reference_scales():
