@@ -121,9 +121,11 @@ order, it
  17. holds the RG-LRU scan kernel against its plain version on the card
      at recurrentgemma-9b's prefill shape (bfloat16, and float32) and at
      the other ``K5_CASES`` (B = 2 and 3, sequence lengths no multiple of
-     the kernel's chunks, widths no multiple of its blocks, a nonzero
-     initial state), checks that two calls are bit-equal and that a call
-     is one launch, and times it; then holds the flash-attention kernel
+     the kernel's 128-step tiles, one step past a tile and past its ring
+     of three, widths no multiple of its 32-channel blocks or of a 16-byte
+     vector, a nonzero initial state), checks that two calls are bit-equal
+     and that a call is one launch, and times it, its special-function
+     floor printed beside its bound; then holds the flash-attention kernel
      with a sliding window against its plain version at
      recurrentgemma-9b's local attention (16 query heads over one KV head
      of 256, window 2,048, 4,096 tokens, bfloat16 and float32) and at the
@@ -170,6 +172,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_SIMT_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
 TF32_TENSOR_FLOPS = 495e12
+# special-function unit results a clock an SM (Hopper white paper) and the
+# H100 SXM's boost clock (data sheet): K5's pace, printed beside its bound
+SFU_PER_CLOCK_SM = 16
+BOOST_CLOCK_HZ = 1.98e9
 
 N_MAIN = 16_384            # nodes on the main path
 N_SPARES = 64
@@ -2825,19 +2831,25 @@ def phase_train_ssm(torch, np, counters: dict):
 # K5 cases: B, S, W, xb dtype, h0 nonzero. The first is recurrentgemma-9b's
 # prefill at 4,096 tokens (lru_width 4,096) from the zero state, the main
 # path's shape; then the same in float32 from a nonzero state, and small
-# odd shapes: B = 2 and 3, S no multiple of the block's 32 chunks (1, 20,
-# 37, 1,000, 4,097), W no multiple of its 32 channels.
+# odd shapes: B = 2 and 3, S of one step, inside one 128-step tile of the
+# kernel's ring and over many (1, 20, 37, 1,000, 4,097), W no multiple of a
+# block's 32 channels (33, 300). The last two are edges of the ring design:
+# S one step past a tile (129) with a last block of 4 live channels at 129
+# blocks, and S one step past the ring's three slots (385, its first wrap)
+# in bfloat16 with W no multiple of 8 (element accesses, not 16-byte ones).
 K5_CASES = [(1, 4096, 4096, "bfloat16", False),
             (1, 4096, 4096, "float32", True),
             (2, 1000, 300, "float32", True), (2, 37, 64, "bfloat16", True),
             (3, 4097, 96, "float32", True), (1, 1, 33, "float32", True),
-            (2, 20, 4096, "bfloat16", True)]
+            (2, 20, 4096, "bfloat16", True),
+            (1, 129, 4100, "float32", True), (2, 385, 300, "bfloat16", True)]
 # H and h_last against the plain version's float32 H and h_last: the
-# largest difference over the largest magnitude (summation order only:
-# the chunks' carried states against one sequential walk). A bfloat16 H is
-# held by the float32 error its rounding implies: how far the plain
-# version's float32 value lies outside the kernel's bfloat16 value's
-# rounding interval (half a bfloat16 ulp each way).
+# largest difference over the largest magnitude (the card's special
+# functions and a fused multiply-add a step against torch's: both walk the
+# sequence in order). A bfloat16 H is held by the float32 error its
+# rounding implies: how far the plain version's float32 value lies outside
+# the kernel's bfloat16 value's rounding interval (half a bfloat16 ulp each
+# way).
 K5_TOL = 1e-5
 
 # Windowed K3 cases: B, Hq, Hkv, S, T, hd, q_offset, kv_len, window, dtype.
@@ -2876,7 +2888,8 @@ def bf16_rounding_excess(torch, got, want):
 def phase_k5(torch, np):
     """Phase 17(a): the RG-LRU scan kernel against its plain version."""
     from repro_torch.kernels.rglru import (rglru_bytes, rglru_flops,
-                                           rglru_ref, rglru_scan)
+                                           rglru_ref, rglru_scan,
+                                           rglru_sfu_ops)
     main = None
     for i, (b, s, w, dname, warm_h0) in enumerate(K5_CASES):
         dt = getattr(torch, dname)
@@ -2926,10 +2939,17 @@ def phase_k5(torch, np):
             flops = rglru_flops(b, s, w)
             nbytes = rglru_bytes(b, s, w, xb.element_size())
             bnd, by = bound(flops, FP32_SIMT_FLOPS, nbytes)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            sfu = rglru_sfu_ops(b, s, w) / (
+                SFU_PER_CLOCK_SM * sms * BOOST_CLOCK_HZ) * 1e3
             line += (f"; kernel {ms:.4f} ms a call ({fmt_ms(dev_ms)} on the "
                      f"device, {bnd / ms:.1%} of bound), plain {plain:.4f} "
                      f"ms, library none, bound {bnd:.4f} ms ({by}; "
-                     f"{flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.2f} MB)")
+                     f"{flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.2f} MB); "
+                     f"note, not the bound: the special-function floor "
+                     f"{sfu:.4f} ms ({rglru_sfu_ops(b, s, w) / 1e6:.1f} M "
+                     f"operations at {SFU_PER_CLOCK_SM} a clock on {sms} "
+                     f"SMs, {BOOST_CLOCK_HZ / 1e9:.2f} GHz)")
             main = dict(max_abs_err=abs_err, h_err=err_h, h_last_err=err_l,
                         ms=ms, device_ms=dev_ms, plain_ms=plain,
                         bound_ms=bnd, bound_by=by, library_ms=None,

@@ -21,13 +21,28 @@
 // warpgroups. Warpgroup 0 is the producer: one thread loads the query
 // tile once and then each 128-key tile of K and of V with TMA into a
 // 2-stage ring of shared-memory buffers guarded by mbarriers (full: bytes
-// landed; empty: both consumers done), and gives most of its registers to
-// the consumers (setmaxnreg). Warpgroups 1 and 2 each own 64 query rows:
-// S = Q K^T by wgmma (m64n128k16, both operands from shared memory, fp32
-// accumulate), the online softmax in registers (row max and sum across
-// each quad of lanes with shuffles, exp2 of log2e-scaled scores), P
-// rounded to bf16 in registers and fed as wgmma's A operand for
-// O += P V (V from shared memory, MN-major). The reference keeps P in
+// landed; empty, one for K and one for V: both consumers done with it),
+// and gives most of its registers to the consumers (setmaxnreg).
+// Warpgroups 1 and 2 each own 64 query rows: S = Q K^T by wgmma
+// (m64n128k16, both operands from shared memory, fp32 accumulate), the
+// online softmax in registers (row max and sum across each quad of lanes
+// with shuffles, exp2 of log2e-scaled scores), P rounded to bf16 in
+// registers and fed as wgmma's A operand for O += P V (V from shared
+// memory, MN-major). The consumers' schedule puts the softmax beside the
+// tensor cores' work, in the shape of FlashAttention-3:
+//  - within a consumer, tile j's S_j = Q K_j^T and the tile before's
+//    O += P_{j-1} V_{j-1} are issued together, and the softmax of S_j runs
+//    while P_{j-1} V_{j-1} is still on the tensor cores (one S accumulator,
+//    P of the tile before in its A fragments: O, S and P take 128 + 32 +
+//    16 registers a thread at hd 256 under setmaxnreg 240, the producer
+//    keeping 24; O's rescale by alpha_j follows the softmax of tile j and
+//    is skipped where every alpha of the warp is exactly 1);
+//  - across the two consumers, ping-pong: they take turns to issue their
+//    products (two named barriers), so that one's products run while the
+//    other runs its softmax and the O rescale, instead of both at once.
+// Each row's operations are those of the tiles one after another in the
+// same order (O_j = alpha_j O_{j-1} + P_j V_j), so the schedule changes no
+// bit of the output. The reference keeps P in
 // float32; rounding it to bf16 is the rounding the JAX package's XLA
 // model path makes. The masking is the reference's: the finite -1e30 on
 // keys at or past kv_len and in the causal future, and O / max(l, 1e-30)
@@ -50,12 +65,16 @@
 // 64, 128 and 256 (recurrentgemma-9b's local attention). At hd 256 the
 // tensor-core kernel takes 64-key tiles (Q 64 KB, a 2-stage ring of K and V
 // 128 KB of shared memory; O as a 64 x 256 accumulator, 128 registers a
-// consumer thread, by m64n256k16).
+// consumer thread, by m64n256k16; S by m64n64k16). There the S product
+// reads both operands from shared memory at about the rate shared memory
+// gives (4 KB every 32 tensor-core cycles), and the two consumers' turns
+// keep one consumer's softmax off the other's products.
 //
 // Both kernels write each row's natural log-sum-exp of the scaled, masked
 // scores (m + log l, float32, (B, Hq, S) contiguous) when given a non-null
 // `lse`: the backward (flash_attention_bwd.cu) rebuilds P from it. Serving
 // passes null and the epilogue skips the store.
+#include <climits>
 #include <initializer_list>
 
 #include "hopper.cuh"
@@ -279,15 +298,52 @@ using namespace hopper;
 constexpr int BM = 128;            // query rows per block, 64 per consumer
 constexpr int kStages = 2;
 constexpr int kBlock = 384;        // producer + two consumer warpgroups
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;   // 168 on average
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;   // 168 on average
+constexpr int kTurn = 1;           // named barriers kTurn + consumer: its turn
+constexpr int kBars = 1 + 4 * kStages;   // q_full, k/v full, k/v empty
 
 template <int HD>
 struct Cfg : Atom<HD> {
   static constexpr int TK = HD >= 256 ? 64 : 128;   // keys per tile
   static constexpr int Q_BYTES = BM * HD * 2;
   static constexpr int KV_BYTES = TK * HD * 2;
-  static constexpr int SMEM = Q_BYTES + 2 * kStages * KV_BYTES + 1024 + 64;
+  static constexpr int SMEM =
+      Q_BYTES + 2 * kStages * KV_BYTES + 1024 + 8 * kBars;
 };
+
+// O *= alpha, row by row: the thread's rows r (alpha lo) and r + 8 (hi)
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], float lo, float hi) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    o[4 * i + 0] *= lo;
+    o[4 * i + 1] *= lo;
+    o[4 * i + 2] *= hi;
+    o[4 * i + 3] *= hi;
+  }
+}
+
+// 2^x for P. At hd 256 the bare special-function instruction (ex2.approx
+// with denormal results flushed): exp2f is the same instruction with a
+// fixup of arguments below -126 (a compare and two predicated products an
+// element), where P is a denormal that it keeps and this flushes to 0.
+// The other head dims keep exp2f, and their bits.
+template <int HD>
+__device__ __forceinline__ float exp2_p(float x) {
+  if constexpr (HD >= 256) {
+    float r;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+    return r;
+  } else {
+    return exp2f(x);
+  }
+}
+
+// wgmma_wait<0> spelled a second way, so that the compiler keeps one in
+// each arm of a branch rather than one above it
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0; // all\n" ::: "memory");
+}
 
 // P goes from the S accumulators to the P.V product's A operand without a
 // shuffle (the accumulator layout is the A-fragment layout: hopper.cuh).
@@ -311,7 +367,8 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;
   uint64_t* v_full = bars + 1 + kStages;
-  uint64_t* empty = bars + 1 + 2 * kStages;
+  uint64_t* k_empty = bars + 1 + 2 * kStages;
+  uint64_t* v_empty = bars + 1 + 3 * kStages;
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;   // longest first
@@ -328,7 +385,8 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < kStages; ++s) {
       bar_init(k_full + s, 1);
       bar_init(v_full + s, 1);
-      bar_init(empty + s, 8);                      // the consumers' warps
+      bar_init(k_empty + s, 8);                    // the consumers' warps
+      bar_init(v_empty + s, 8);
     }
     bar_init_fence();
   }
@@ -345,10 +403,11 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
       tma_tile<HD>(sQ, &tq, BM, q0, h, b, q_full);
       for (int j = j0; j < nk; ++j) {
         const int it = j - j0, s = it % kStages;
-        if (it >= kStages) bar_wait(empty + s, (it / kStages - 1) & 1);
+        if (it >= kStages) bar_wait(k_empty + s, (it / kStages - 1) & 1);
         bar_expect_tx(k_full + s, C::KV_BYTES);
         tma_tile<HD>(sK + s * C::KV_BYTES, &tk, TK, j * TK, hk, b,
                      k_full + s);
+        if (it >= kStages) bar_wait(v_empty + s, (it / kStages - 1) & 1);
         bar_expect_tx(v_full + s, C::KV_BYTES);
         tma_tile<HD>(sV + s * C::KV_BYTES, &tv, TK, j * TK, hk, b,
                      v_full + s);
@@ -361,41 +420,55 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
     const int w = wg - 1;                          // rows 64w .. 64w + 63
     const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
     const int r_lo = 64 * w + 16 * warp + lane / 4;  // and r_lo + 8
-    const long long pos_lo = (long long)q_offset + q0 + r_lo;
-    const long long first_pos = (long long)q_offset + q0 + 64 * w;
-    const long long last_pos = first_pos + 63;
+    // positions in 32 bits: the launcher keeps q_offset + S + BM below 2^31
+    const int pos_lo = q_offset + q0 + r_lo;
+    const int first_pos = q_offset + q0 + 64 * w;
+    const int last_pos = first_pos + 63;
     const int cq = 2 * (lane % 4);
 
     float oacc[HD / 2];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.0f;
     float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.0f, l_hi = 0.0f;
+    // P of the tile before, as the P.V product's A fragments, and its
+    // alpha (the factor O takes before that product)
+    uint32_t pa[TK / 16][4];
+    float al_lo = 1.0f, al_hi = 1.0f;
+
+    // Ping-pong: the consumers take turns to issue their products, the
+    // first consumer first, so that one's products run on the tensor cores
+    // while the other runs its softmax. Each syncs on its own turn barrier
+    // and arrives at the other's once a tile; the second consumer's first
+    // arrival opens the first turn and it skips its last, so every arrival
+    // is waited for.
+    const int ntiles = nk - j0;                    // the same for both
+    if (w == 1 && ntiles > 0) named_arrive(kTurn, 256);
 
     const uint32_t q_addr = smem_u32(sQ) + w * 64 * C::ATOM_B;
     bar_wait(q_full, 0);
 
-    for (int j = j0; j < nk; ++j) {
-      const int it = j - j0, s = it % kStages, ph = (it / kStages) & 1;
-      const uint32_t k_addr = smem_u32(sK + s * C::KV_BYTES);
-      const uint32_t v_addr = smem_u32(sV + s * C::KV_BYTES);
-
-      // S = Q K^T over hd in k16 steps
-      float sacc[TK / 2];
-      bar_wait(k_full + s, ph);
-      wgmma_fence();
+    // S = Q K^T over hd in k16 steps, from the K tile at k_addr
+    auto issue_s = [&](float (&sacc)[TK / 2], uint32_t k_addr) {
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
         wgmma_ss(sacc, desc_kmajor<HD>(q_addr, BM, kk),
                  desc_kmajor<HD>(k_addr, TK, kk), kk > 0);
       wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sacc);
-
-      // mask, then the online softmax (log2 domain) on the two rows
+    };
+    // O += P V over the tile's keys in k16 steps, from the V tile at v_addr
+    auto issue_pv = [&](uint32_t v_addr) {
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+        wgmma_rs(oacc, pa[kk], desc_mnmajor<HD>(v_addr, TK, kk));
+      wgmma_commit();
+    };
+    // Tile j's mask, then the online softmax (log2 domain) on the two rows:
+    // m and l updated, alpha kept, the scores overwritten with P.
+    auto softmax = [&](float (&sacc)[TK / 2], int j) {
       const int k0 = j * TK;
       const bool masked = k0 + TK > kv_len ||
-                          (causal && (long long)k0 + TK - 1 > first_pos) ||
-                          (window > 0 && (long long)k0 <= last_pos - window);
+                          (causal && k0 + TK - 1 > first_pos) ||
+                          (window > 0 && k0 <= last_pos - window);
       float mx_lo = kNegInf, mx_hi = kNegInf;
 #pragma unroll
       for (int i = 0; i < TK / 8; ++i) {
@@ -424,7 +497,8 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
       mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
       mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
       const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-      const float al_lo = exp2f(m_lo - mn_lo), al_hi = exp2f(m_hi - mn_hi);
+      al_lo = exp2f(m_lo - mn_lo);
+      al_hi = exp2f(m_hi - mn_hi);
       m_lo = mn_lo;
       m_hi = mn_hi;
       float sum_lo = 0.0f, sum_hi = 0.0f;
@@ -432,8 +506,8 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < TK / 8; ++i) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float p_lo = exp2f(sacc[4 * i + e] - mn_lo);
-          const float p_hi = exp2f(sacc[4 * i + 2 + e] - mn_hi);
+          const float p_lo = exp2_p<HD>(sacc[4 * i + e] - mn_lo);
+          const float p_hi = exp2_p<HD>(sacc[4 * i + 2 + e] - mn_hi);
           sacc[4 * i + e] = p_lo;
           sacc[4 * i + 2 + e] = p_hi;
           sum_lo += p_lo;
@@ -446,29 +520,77 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
       sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, 2);
       l_lo = al_lo * l_lo + sum_lo;
       l_hi = al_hi * l_hi + sum_hi;
+    };
 
-      // P in bf16, as wgmma A fragments: one k16 step per two chunks
-      uint32_t pa[TK / 16][4];
-      to_a_frags(pa, sacc);
-#pragma unroll
-      for (int i = 0; i < HD / 8; ++i) {
-        oacc[4 * i + 0] *= al_lo;
-        oacc[4 * i + 1] *= al_lo;
-        oacc[4 * i + 2] *= al_hi;
-        oacc[4 * i + 3] *= al_hi;
+    // Tile j (j > j0): S_j = Q K_j^T and, behind it, O += P_{j-1} V_{j-1}
+    // are issued in one turn; the softmax of S_j runs while P_{j-1} V_{j-1}
+    // is still on the tensor cores. Every row's operations are those of one
+    // tile after another (O_{j-1} = alpha_{j-1} O_{j-2} + P_{j-1} V_{j-1}),
+    // in the same order, so the output's bits do not depend on the overlap.
+    // The first tile (S only) and the last P.V stand outside the loop, so
+    // that its body is straight-line code: ptxas then follows which
+    // products each wgmma wait retires, instead of injecting waits of its
+    // own (and serialising the products).
+    if (ntiles > 0) {
+      {                                            // tile j0: S_j0 only
+        float sacc[TK / 2];
+        bar_wait(k_full, 0);
+        named_sync(kTurn + w, 256);
+        wgmma_fence();
+        issue_s(sacc, smem_u32(sK));
+        if (w == 0 || ntiles > 1) named_arrive(kTurn + 1 - w, 256);
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        if (lane == 0) bar_arrive(k_empty);
+        softmax(sacc, j0);
+        to_a_frags(pa, sacc);
       }
-
-      // O += P V over the tile's keys in k16 steps
-      bar_wait(v_full + s, ph);
-      fence_regs(oacc);
+      for (int j = j0 + 1; j < nk; ++j) {
+        const int it = j - j0, s = it % kStages, ph = (it / kStages) & 1;
+        const int sp = (it - 1) % kStages, php = ((it - 1) / kStages) & 1;
+        bar_wait(v_full + sp, php);
+        bar_wait(k_full + s, ph);
+        float sacc[TK / 2];
+        named_sync(kTurn + w, 256);
+        wgmma_fence();
+        issue_s(sacc, smem_u32(sK + s * C::KV_BYTES));
+        issue_pv(smem_u32(sV + sp * C::KV_BYTES));
+        if (w == 0 || it + 1 < ntiles) named_arrive(kTurn + 1 - w, 256);
+        wgmma_wait<1>();                           // S_j; P.V in flight
+        fence_regs(sacc);
+        softmax(sacc, j);
+        if (lane == 0) bar_arrive(k_empty + s);
+        // O_{j-1} = O after P_{j-1} V_{j-1}, times alpha_j before P_j V_j
+        // is issued. The wait for P_{j-1} V_{j-1} stands in the two arms of
+        // a branch on alpha_j: ptxas moves a wgmma wait to the top of its
+        // basic block, and in the softmax's block it would come before the
+        // exponentials. An alpha of exactly 1 (the rows' maxima unchanged,
+        // as in most tiles after the first) leaves O as it is bit for bit,
+        // so that arm skips the products. The branch is the warp's (a wgmma
+        // wait is executed by the whole warp together): a lane of alpha 1
+        // in a warp that rescales multiplies by 1, which changes no bit.
+        if (__all_sync(0xffffffffu, al_lo == 1.0f && al_hi == 1.0f)) {
+          wgmma_wait<0>();
+        } else {
+          wgmma_wait_all();
+          fence_regs(oacc);
+          rescale(oacc, al_lo, al_hi);
+        }
+        fence_regs(oacc);
+        fence_regs(pa);
+        if (lane == 0) bar_arrive(v_empty + sp);
+        // P in bf16, as wgmma A fragments: one k16 step per two chunks
+        to_a_frags(pa, sacc);
+      }
+      // O += P_last V_last (O already scaled by its alpha; after tile j0
+      // alone O is 0, which its alpha leaves 0)
+      const int it = ntiles - 1, s = it % kStages;
+      bar_wait(v_full + s, (it / kStages) & 1);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < TK / 16; ++kk)
-        wgmma_rs(oacc, pa[kk], desc_mnmajor<HD>(v_addr, TK, kk));
-      wgmma_commit();
+      issue_pv(smem_u32(sV + s * C::KV_BYTES));
       wgmma_wait<0>();
       fence_regs(oacc);
-      if (lane == 0) bar_arrive(empty + s);
+      fence_regs(pa);
     }
 
     // O / max(l, 1e-30), written in bf16 through the output's strides
@@ -607,7 +729,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
         return (int)cudaErrorInvalidValue;
     for (long long st : {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss})
       if ((st * 2) % 16) return (int)cudaErrorInvalidValue;
-    if ((S + tc::BM - 1) / tc::BM > 65535) return (int)cudaErrorInvalidValue;
+    if ((S + tc::BM - 1) / tc::BM > 65535 ||
+        (long long)q_offset + S + tc::BM > INT_MAX)
+      return (int)cudaErrorInvalidValue;
     return dispatch_hd<true>(hd, q, k, v, o, l, B, Hq, Hkv, S, T, kv_len,
                              q_offset, causal, window, scale, qs, ks, vs, os,
                              s);

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash-attention
-// kernels (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA
-// loads of 4-D (hd, rows, heads, batch) tiles, wgmma shared-memory
-// descriptors and the wgmma shapes the kernels issue, all as inline PTX (no
-// CUTLASS include), and cuTensorMapEncodeTiled reached through the
-// runtime's driver entry point (no -lcuda).
+// kernels (flash_attention.cu, flash_attention_bwd.cu): mbarriers, named
+// barriers, TMA loads of 4-D (hd, rows, heads, batch) tiles, wgmma
+// shared-memory descriptors and the wgmma shapes the kernels issue, all as
+// inline PTX (no CUTLASS include), and cuTensorMapEncodeTiled reached
+// through the runtime's driver entry point (no -lcuda).
 #pragma once
 
 #include <cuda.h>
@@ -149,6 +149,25 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for A fragments a wgmma reads from registers: until its wait,
+// the compiler must neither reuse nor rewrite them.
+template <int KS>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int k = 0; k < KS; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// Named barriers (ids 1..15; 0 is __syncthreads) of `count` threads, a
+// multiple of 32: sync waits for the barrier, arrive counts itself in and
+// goes on.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // D (64 x 32, fp32) += A (64 x 16, bf16 pairs in registers) . B (16 x 32);

@@ -57,6 +57,15 @@ def rglru_flops(B: int, S: int, W: int) -> float:
     return 20.0 * B * S * W
 
 
+def rglru_sfu_ops(B: int, S: int, W: int) -> float:
+    """Special-function operations of a call, 7 an element: the four
+    exponentials (two inside the sigmoids), the sigmoids' two divisions (a
+    reciprocal each) and beta's square root. Not a bound by the port's
+    rule (bytes or CUDA-core operations), but what paces the kernel: the
+    units retire 16 a clock an SM."""
+    return 7.0 * B * S * W
+
+
 def rglru_bytes(B: int, S: int, W: int, itemsize: int) -> int:
     """Bytes a call must move: xb read and H written once, the float32
     gates (W,) x 3, h0 read and h_last written."""
@@ -64,4 +73,4 @@ def rglru_bytes(B: int, S: int, W: int, itemsize: int) -> int:
 
 
 __all__ = ["DECAY_SCALE", "decay_and_input", "gates", "rglru_bytes",
-           "rglru_flops", "rglru_ref"]
+           "rglru_flops", "rglru_ref", "rglru_sfu_ops"]

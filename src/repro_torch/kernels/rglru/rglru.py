@@ -1,8 +1,9 @@
 """Wrapper of the hand-written CUDA RG-LRU scan kernel (``csrc/rglru.cu``,
 K5): the recurrence h = a h + b of Griffin's Real-Gated LRU with its gates
 computed in the kernel, one launch a call (a block per 32 channels of a
-batch row: each of its 32 warps walks a chunk of the sequence, a warp
-carries the chunks' states, then each warp writes its chunk of H).
+batch row, the sequence in tiles of 128 steps through a ring in shared
+memory: gate warps compute each element's gates once, one walker warp
+runs the chain, store warps write H).
 
 The library is built with ``nvcc`` at the first launch (see
 ``repro_torch.kernels._build``). The wrapper checks its inputs, allocates

@@ -18,10 +18,11 @@ the first layer's state), greedy token streams equal.
 
 - ``rg_lru`` against the reference's associative scan, from a nonzero
   state, and ``h_last`` equal to float32 ``H[:, -1]``; a plain emulation
-  of the RG-LRU kernel's chunk order (each chunk from zero, the states
-  carried across the chunks, each chunk again from its carried state)
-  against the plain version, at lengths that are no multiple of the
-  kernel's 32 chunks;
+  of the RG-LRU kernel's order (the sequence in tiles of 128 steps, each
+  tile's gates computed once, then walked from the state the tile before
+  left) against the plain version, at the tile edges (the
+  kernel itself runs on the CPU through the CUDA stand-in in
+  ``tests/test_torch_rglru_shim.py``);
 - the gates, one decode step, the conv with and without its state, the
   recurrent block over a sequence (with ``collect_state``) and its decode
   step;
@@ -161,44 +162,36 @@ def test_rg_lru_matches_reference_scan(B, S):
     assert torch.equal(last, got[:, -1].float())
 
 
-def _chunked_like_the_kernel(xb, wa, wi, lam, h0, chunks=32):
-    """The RG-LRU kernel's order in plain float32: each of ``chunks``
-    chunks of ceil(S / chunks) steps walked from zero (its decay product
-    and end state), the states carried across the chunks from h0, then
-    each chunk walked again from its carried-in state."""
-    a, bx = decay_and_input(xb, wa, wi, lam)
+def _tiled_like_the_kernel(xb, wa, wi, lam, h0, tile=128):
+    """The RG-LRU kernel's decomposition in plain float32: the sequence in
+    tiles of ``tile`` steps (a slot of its ring), each tile's gates
+    computed from its own slice of xb, then walked from the state the tile
+    before left. This holds the decomposition (gates per slice, the state
+    carried across tile edges), not the kernel: the kernel's own source
+    runs on the CPU in ``tests/test_torch_rglru_shim.py``."""
     S = xb.shape[1]
-    c = -(-S // chunks)
-    bounds = [(min(S, y * c), min(S, y * c + c)) for y in range(chunks)]
-    prods, ends = [], []
-    for t0, t1 in bounds:
-        A, h = torch.ones_like(h0), torch.zeros_like(h0)
-        for t in range(t0, t1):
-            h = a[:, t] * h + bx[:, t]
-            A = A * a[:, t]
-        prods.append(A)
-        ends.append(h)
-    carry, starts = h0.clone(), []
-    for A, e in zip(prods, ends):
-        starts.append(carry)
-        carry = A * carry + e
-    out = torch.empty_like(a)
-    for (t0, t1), h in zip(bounds, starts):
-        for t in range(t0, t1):
-            h = a[:, t] * h + bx[:, t]
-            out[:, t] = h
+    h = h0.clone()
+    out = torch.empty(xb.shape, dtype=torch.float32)
+    for t0 in range(0, S, tile):
+        a, bx = decay_and_input(xb[:, t0:t0 + tile], wa, wi, lam)
+        for u in range(a.shape[1]):
+            h = a[:, u] * h + bx[:, u]
+            out[:, t0 + u] = h
     return out
 
 
-@pytest.mark.parametrize("S", [1, 31, 33, 100, 257])
+@pytest.mark.parametrize("S", [1, 31, 33, 100, 127, 128, 129, 257, 383,
+                               385])
 def test_kernel_chunk_order_matches_plain(S):
+    # the tile edges 128 k - 1, 128 k, 128 k + 1; 385 is one step past the
+    # ring's three slots
     p = _rec_params(2)
     rng = np.random.default_rng(10 + S)
     xb = torch.from_numpy(_randn(rng, 2, S, 64))
     h0 = torch.from_numpy(_randn(rng, 2, 64))
     args = [torch.from_numpy(p[k]) for k in ("wa", "wi", "lam")]
     want, _ = rglru_ref(xb, *args, h0)
-    _close(_chunked_like_the_kernel(xb, *args, h0), want.numpy())
+    _close(_tiled_like_the_kernel(xb, *args, h0), want.numpy())
 
 
 def test_gates_and_step_match_reference():

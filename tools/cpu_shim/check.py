@@ -1,15 +1,24 @@
-"""Run csrc/wkv6_bwd.cu on the CPU, through its C entry point, against the
-CPU stand-in of the CUDA runtime in this directory, and hold its six
-gradients to ``wkv6_bwd_ref`` (the kernel's limits: 1e-4 of each
-gradient's largest magnitude in float32, 8e-3 for bfloat16 dr, dk, dv).
+"""Run a CUDA kernel of the port on the CPU, through its C entry point,
+against the CPU stand-in of the CUDA runtime in this directory, and hold
+it to its plain PyTorch version at the kernel's own limits:
+
+- ``wkv6_bwd`` (csrc/wkv6_bwd.cu): its six gradients against
+  ``wkv6_bwd_ref``, 1e-4 of each gradient's largest magnitude in float32,
+  8e-3 for bfloat16 dr, dk, dv;
+- ``rglru`` (csrc/rglru.cu): H and h_last against ``rglru_ref``, 1e-5 of
+  the largest magnitude (``chip_smoke.K5_TOL``; a bfloat16 H by the
+  float32 error its rounding implies), from a nonzero h0.
+
 Needs g++ (C++20) and PyTorch for the CPU; no card, no nvcc.
 
-    python3 tools/cpu_shim/check.py          # every case
-    python3 tools/cpu_shim/check.py 0 4      # cases 0 and 4
+    python3 tools/cpu_shim/check.py               # every kernel, every case
+    python3 tools/cpu_shim/check.py rglru         # one kernel
+    python3 tools/cpu_shim/check.py wkv6_bwd 0 4  # its cases 0 and 4
 
-It checks the kernel's logic (indexing, swizzles, fragment layouts,
-scans, masks, tiles of a chunk), not its speed or its PTX: the stand-in
-runs each CUDA thread as an OS thread, a few seconds a case.
+It checks a kernel's logic (indexing, swizzles, fragment layouts, scans,
+masks, tiles, the handoffs between warps), not its speed or its PTX: the
+stand-in runs each CUDA thread as an OS thread. A handoff that deadlocks
+hangs; run it under a timeout (tests/test_torch_rglru_shim.py does).
 """
 import ctypes
 import subprocess
@@ -22,11 +31,16 @@ import torch
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+from chip_smoke import K5_TOL, bf16_rounding_excess  # noqa: E402
+from repro_torch.kernels.rglru.ref import rglru_ref  # noqa: E402
 from repro_torch.kernels.wkv6.ref import _clip_exp, wkv6_bwd_ref  # noqa: E402
 
 OUT = ROOT / "build" / "cpu_shim"
-# B, S, H, hd, C, dtype, decay (mean of log(-logw)), d(state) and s0
-CASES = [
+
+# wkv6_bwd: B, S, H, hd, C, dtype, decay (mean of log(-logw)), d(state)
+# and s0
+WKV6_CASES = [
     (1, 64, 1, 64, 32, torch.float32, -2.0, False),
     (1, 64, 1, 64, 32, torch.bfloat16, -2.0, True),
     (1, 64, 2, 16, 32, torch.float32, -2.0, True),
@@ -39,23 +53,28 @@ CASES = [
     (1, 96, 1, 64, 96, torch.bfloat16, 0.5, False),
 ]
 
+# rglru: B, S, W, dtype. S: one step, part of a tile, 300 = two and a
+# third 128-step tiles (the ring of 3 slots not yet full), and 769 = 6
+# tiles and one step (the ring wrapped twice, a last tile of one step).
+# W: 33 (element accesses, a block with one live channel) and 64 (16-byte
+# vectors, two full blocks).
+RGLRU_CASES = [(2, s, w, dt) for s in (1, 37, 300, 769) for w in (33, 64)
+               for dt in (torch.float32, torch.bfloat16)]
 
-def build() -> ctypes.CDLL:
+
+def build(name: str) -> ctypes.CDLL:
+    """Rewrite csrc/<name>.cu for the stand-in, compile and load it."""
     OUT.mkdir(parents=True, exist_ok=True)
-    cpp = OUT / "wkv6_bwd_cpu.cpp"
+    cpp = OUT / f"{name}_cpu.cpp"
     cpp.write_text(subprocess.run(
         [sys.executable, str(HERE / "rewrite.py"),
-         str(ROOT / "src/repro_torch/csrc/wkv6_bwd.cu")],
+         str(ROOT / f"src/repro_torch/csrc/{name}.cu")],
         check=True, capture_output=True, text=True).stdout)
-    lib = OUT / "libwkv6_bwd_cpu.so"
+    lib = OUT / f"lib{name}_cpu.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-shared",
                     "-fPIC", f"-I{HERE}", "-o", str(lib), str(cpp)],
                    check=True)
-    dll = ctypes.CDLL(str(lib))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    dll.wkv6_bwd_launch.argtypes = ([p] * 18 + [i] * 6 +
-                                    [ctypes.POINTER(ctypes.c_longlong), p])
-    return dll
+    return ctypes.CDLL(str(lib))
 
 
 def starts_of(k, v, logw, s0, C):
@@ -72,7 +91,7 @@ def starts_of(k, v, logw, s0, C):
     return torch.stack(out, 2).contiguous()
 
 
-def run_case(lib, B, S, H, hd, C, dtype, decay, full, seed) -> bool:
+def wkv6_case(lib, B, S, H, hd, C, dtype, decay, full, seed) -> bool:
     rng = np.random.default_rng(seed)
 
     def mk(*shape, scale=0.5):
@@ -111,19 +130,73 @@ def run_case(lib, B, S, H, hd, C, dtype, decay, full, seed) -> bool:
         g, w = g.float(), w.float()
         errs[n] = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
         ok &= bool(torch.isfinite(g).all()) and errs[n] <= tol
-    print(f"B,S,H,hd,C={B},{S},{H},{hd},{C} {str(dtype)[6:]} decay {decay}"
-          f"{' with d(state), s0' if full else ''}: " + ", ".join(
+    print(f"wkv6_bwd B,S,H,hd,C={B},{S},{H},{hd},{C} {str(dtype)[6:]} decay "
+          f"{decay}{' with d(state), s0' if full else ''}: " + ", ".join(
               f"{n} {e:.2e}" for n, e in errs.items())
           + (" ok" if ok else " FAIL"), flush=True)
     return ok
 
 
+def rglru_case(lib, B, S, W, dtype, seed) -> bool:
+    """phase 17(a)'s inputs and measure, at a small shape."""
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32) * scale + shift)
+    xb = mk(B, S, W).to(dtype)
+    wa, wi, lam = mk(W, scale=0.5), mk(W, scale=0.5), mk(W, shift=0.65)
+    h0 = mk(B, W)
+    H, hl = torch.empty_like(xb), torch.empty((B, W))
+    err = lib.rglru_launch(xb.data_ptr(), wa.data_ptr(), wi.data_ptr(),
+                           lam.data_ptr(), h0.data_ptr(), H.data_ptr(),
+                           hl.data_ptr(), 1 if dtype == torch.bfloat16
+                           else 0, B, S, W, None)
+    assert err == 0, err
+    want, want_hl = rglru_ref(xb.float(), wa, wi, lam, h0)
+    scale = float(want.abs().max().clamp_min(1e-30))
+    if dtype == torch.float32:
+        err_h = float((H - want).abs().max()) / scale
+    else:
+        err_h = float(bf16_rounding_excess(torch, H, want).max()) / scale
+    err_l = float((hl - want_hl).abs().max()
+                  / want_hl.abs().max().clamp_min(1e-30))
+    ok = (bool(torch.isfinite(H.float()).all()) and err_h <= K5_TOL
+          and err_l <= K5_TOL)
+    if dtype == torch.float32:           # h_last is H's last step
+        ok = ok and torch.equal(hl, H[:, -1])
+    print(f"rglru B,S,W={B},{S},{W} {str(dtype)[6:]} h0 != 0: H {err_h:.2e}, "
+          f"h_last {err_l:.2e} of the largest magnitude"
+          + (" ok" if ok else " FAIL"), flush=True)
+    return ok
+
+
+SUITES = {
+    "wkv6_bwd": (WKV6_CASES, wkv6_case,
+                 lambda lib: lib.wkv6_bwd_launch, [ctypes.c_void_p] * 18
+                 + [ctypes.c_int] * 6
+                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]),
+    "rglru": (RGLRU_CASES, rglru_case, lambda lib: lib.rglru_launch,
+              [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+              + [ctypes.c_void_p]),
+}
+
+
+def run(name: str, chosen=None) -> bool:
+    cases, case_fn, entry, argtypes = SUITES[name]
+    lib = build(name)
+    entry(lib).argtypes = argtypes
+    chosen = chosen or range(len(cases))
+    return all([case_fn(lib, *cases[j], seed=j) for j in chosen])
+
+
 def main() -> None:
-    lib = build()
-    chosen = [int(a) for a in sys.argv[1:]] or range(len(CASES))
-    results = [run_case(lib, *CASES[j], seed=j) for j in chosen]
-    if not all(results):
-        sys.exit("FAIL: the kernel differs from wkv6_bwd_ref")
+    args = sys.argv[1:]
+    names = [args.pop(0)] if args and args[0] in SUITES else list(SUITES)
+    chosen = [int(a) for a in args]
+    failed = [n for n in names if not run(n, chosen)]
+    if failed:
+        sys.exit(f"FAIL: {', '.join(failed)} differs from its plain version")
     print("every case within the kernel's limits")
 
 

@@ -8,5 +8,6 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   u += 0x7FFFu + ((u >> 16) & 1u);
   return {(uint16_t)(u >> 16)};
 }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) { return __float2bfloat16(f); }
 inline float2 __bfloat1622float2(__nv_bfloat162 v) { return {__bfloat162float(v.x), __bfloat162float(v.y)}; }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2bfloat16(a), __float2bfloat16(b)}; }

@@ -1,8 +1,9 @@
 // A CPU stand-in for the CUDA runtime, enough to run the port's backward
-// WKV6 kernel (csrc/wkv6_bwd.cu) through its C entry point with g++ and
-// hold it to the plain PyTorch version without a card: a std::thread per
-// CUDA thread, std::barrier for __syncthreads and for warp exchanges
-// (shuffles, mma.sync), blocks one after another, cp.async a copy.
+// WKV6 kernel (csrc/wkv6_bwd.cu) and RG-LRU scan (csrc/rglru.cu) through
+// their C entry points with g++ and hold them to the plain PyTorch versions
+// without a card: a std::thread per CUDA thread, std::barrier for
+// __syncthreads, for named barriers and for warp exchanges (shuffles,
+// mma.sync), blocks one after another, cp.async a copy.
 // rewrite.py turns the kernel source into C++ against this header;
 // check.py builds and runs it.
 #pragma once
@@ -14,6 +15,7 @@
 #include <thread>
 #include <vector>
 #include <memory>
+#include <mutex>
 #include <algorithm>
 
 #define __global__
@@ -55,6 +57,15 @@ inline uint32_t abuf[64][32][4], bbuf[64][32][2];
 inline std::vector<float> dyn;
 inline float* dyn_smem;
 inline int nthreads;
+// named barriers (ids 1..15), made at their first use in a block with the
+// count that use names
+inline std::mutex named_mu;
+inline std::unique_ptr<std::barrier<>> named[16];
+inline std::barrier<>& named_bar(int id, int count) {
+  std::lock_guard<std::mutex> lock(named_mu);
+  if (!named[id]) named[id] = std::make_unique<std::barrier<>>(count);
+  return *named[id];
+}
 inline void wbar() { warp_bars[threadIdx.x / 32]->arrive_and_wait(); }
 template <class F> float exchange(float v, F src) {
   int w = threadIdx.x / 32, l = threadIdx.x % 32;
@@ -73,6 +84,7 @@ template <class F> void launch(dim3 g, dim3 b, size_t smem, cudaStream_t, F body
         dyn.assign(smem / 4 + 8, std::nanf(""));
         dyn_smem = dyn.data();
         block_bar = std::make_unique<std::barrier<>>(nthreads);
+        for (auto& n : named) n.reset();
         warp_bars.clear();
         for (int w = 0; w < (nthreads + 31) / 32; ++w) warp_bars.push_back(std::make_unique<std::barrier<>>(std::min(32, nthreads - 32 * w)));
         std::vector<std::thread> ts;
@@ -104,6 +116,13 @@ inline void cp_async16(void* smem, const void* gmem, int bytes) {
 }
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
+// IEEE's reciprocal and square root, rounded to nearest (the kernels'
+// PTX fast paths compute them where they hold)
+inline float rcp_rn(float y) { return 1.0f / y; }
+inline float sqrt_rn(float v) { return std::sqrt(v); }
+// bar.sync / bar.arrive on a named barrier of `count` threads
+inline void named_sync(int id, int count) { shim::named_bar(id, count).arrive_and_wait(); }
+inline void named_arrive(int id, int count) { auto token = shim::named_bar(id, count).arrive(); (void)token; }
 // m16n8k8 TF32: the warp's fragments gathered, the low 13 bits of every
 // operand ignored as the tensor core ignores them
 inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {

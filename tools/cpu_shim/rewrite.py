@@ -3,12 +3,13 @@ this directory (cuda_runtime.h): drop the source's PTX helpers (the
 stand-in defines them), turn each kernel launch into a shim::launch call
 and the dynamic shared array into the stand-in's buffer.
 
-    python3 tools/cpu_shim/rewrite.py src/repro_torch/csrc/wkv6_bwd.cu > out.cpp
+    python3 tools/cpu_shim/rewrite.py src/repro_torch/csrc/rglru.cu > out.cpp
 """
 import re
 import sys
 
-HELPERS = ("cp_async16", "cp_async_commit", "cp_async_wait", "mma_tf32")
+HELPERS = ("cp_async16", "cp_async_commit", "cp_async_wait", "mma_tf32",
+           "named_sync", "named_arrive", "rcp_rn", "sqrt_rn")
 
 
 def drop_function(src: str, name: str) -> str:

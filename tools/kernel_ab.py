@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time an earlier design of the fleet_score (K1), flash-attention
-backward (K3') and WKV6 backward (K4') kernels beside this tree's, in
-turns, on one card.
+"""Time an earlier design of the fleet_score (K1), flash-attention forward
+(K3) and backward (K3'), WKV6 backward (K4') and RG-LRU scan (K5) kernels
+beside this tree's, in turns, on one card.
 
 Run from the repository root:
 
@@ -13,15 +13,27 @@ Both designs are built by nvcc with the flags of
 ``repro_torch.kernels._build`` (the earlier one into
 ``build/repro_torch/parent/``) and run on the same seeded inputs, timed in
 the order earlier, this tree, this tree, earlier (median of CUDA-event
-timings each). Their outputs are held against each other: K1 bit for bit,
-K3' (qwen3-4b's training shape, causal, bfloat16) each of dq, dk, dv
+timings each). Their outputs are held against each other: K1 bit for bit;
+K3 at recurrentgemma-9b's local attention (q (1, 16, 4096, 256) over one
+KV head, window 2,048) within ``chip_smoke.K3_TOL`` of the largest
+magnitude, the largest difference printed with whether it is 0, and at
+qwen3-4b's prefill (q (1, 32, 4096, 128), k/v 8 heads, causal) bit for
+bit; K3' (qwen3-4b's training shape, causal, bfloat16) each of dq, dk, dv
 within 2e-2 of its largest magnitude (a redesign may sum in another
-order), K4' (rwkv6-7b's training shape, bfloat16 and float32, the inputs
+order); K4' (rwkv6-7b's training shape, bfloat16 and float32, the inputs
 of ``chip_smoke.py`` phase 13(a)) each of its six gradients within
-``chip_smoke.K4B_TOL`` of its largest magnitude. K4' is timed by its C
-entry point on both sides, into buffers allocated once, so the times are
-the device's. A kernel is compared only when the earlier tree holds its
-source and that source differs from this tree's. Prints the card's name
+``chip_smoke.K4B_TOL`` of its largest magnitude; K5 at recurrentgemma-9b's
+prefill (1, 4096, 4096), bfloat16 and float32 (phase 17(a)'s inputs), H
+and h_last within ``chip_smoke.K5_TOL`` of the largest magnitude (a
+bfloat16 H by the float32 difference its two roundings imply). K3, K4'
+and K5 are timed by their C entry points on both sides, into buffers
+allocated once, so the times are the device's. A kernel is compared only
+when the earlier tree holds its source and that source differs from this
+tree's. K5's gates run the compiler's division 1 / y and ``sqrtf``
+through branch-free copies of their fast paths (``rcp_rn``, ``sqrt_rn``
+in ``rglru.cu``) wherever ``in_rcp_range`` and ``in_sqrt_range`` hold;
+every float32 bit pattern is put through both, and the script fails
+unless they give the same bits over those ranges. Prints the card's name
 and power limit, one line per shape, and a JSON line of all times.
 """
 from __future__ import annotations
@@ -40,6 +52,9 @@ sys.path.insert(0, str(ROOT))
 K1_SHAPES = [(1, 8, 16_384), (6, 8, 16_384), (1, 8, 131_072)]
 K3B_SHAPES = [(1, 32, 8, 4096, 128)]      # B, Hq, Hkv, S = T, hd; causal
 K4B_CASES = [0, 1]        # chip_smoke.K4B_CASES: the training shape, bf16, fp32
+K3_SHAPES = [(1, 16, 1, 4096, 256, 2048),    # B, Hq, Hkv, S = T, hd, window
+             (1, 32, 8, 4096, 128, 0)]       # causal, bfloat16
+K5_SHAPES = [(1, 4096, 4096, "bfloat16"), (1, 4096, 4096, "float32")]
 
 
 def build_parent(parent: Path, names) -> dict:
@@ -72,6 +87,11 @@ def build_parent(parent: Path, names) -> dict:
     if "wkv6_bwd" in libs:
         libs["wkv6_bwd"].wkv6_bwd_launch.argtypes = (
             [p] * 18 + [i] * 6 + [ctypes.POINTER(ll), p])
+    if "flash_attention" in libs:
+        libs["flash_attention"].flash_attention_launch.argtypes = (
+            [p] * 5 + [i] * 11 + [f] + [ll] * 12 + [p])
+    if "rglru" in libs:
+        libs["rglru"].rglru_launch.argtypes = [p] * 7 + [i] * 4 + [p]
     return libs
 
 
@@ -248,6 +268,197 @@ def k4b_ab(torch, np, lib, time_ms) -> list:
     return rows
 
 
+def k3_ab(torch, np, lib, time_ms) -> list:
+    import math
+
+    from chip_smoke import K3_TOL
+    from repro_torch.kernels.flash_attention.flash_attention import _lib
+    current_lib = _lib()
+    rows = []
+    for i, (b, hq, hkv, s, hd, win) in enumerate(K3_SHAPES):
+        rng = np.random.default_rng(400 + i)
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to("cuda", torch.bfloat16)
+            .transpose(1, 2) for shape in ((b, s, hq, hd), (b, s, hkv, hd),
+                                           (b, s, hkv, hd)))
+
+        def launcher(which, out):
+            strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
+
+            def run():
+                err = which.flash_attention_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    None, 1, b, hq, hkv, s, s, hd, s, 0, 1, win,
+                    1.0 / math.sqrt(hd), *strides,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"flash_attention launch failed: "
+                                       f"{err}")
+            return run
+        got, want = (torch.empty((b, s, hq, hd), dtype=q.dtype,
+                                 device="cuda").transpose(1, 2)
+                     for _ in range(2))
+        earlier, current = launcher(lib, want), launcher(current_lib, got)
+        earlier()
+        current()
+        torch.cuda.synchronize()
+        diff = float((got.float() - want.float()).abs().max())
+        rel = diff / float(want.float().abs().max())
+        equal = torch.equal(got, want)
+        if not bool(torch.isfinite(got.float()).all()) or (
+                rel > K3_TOL["bfloat16"] or (hd != 256 and not equal)):
+            raise RuntimeError(f"K3 designs disagree at {(b, hq, hkv, s, hd)}"
+                               f" window {win}: largest difference {diff} "
+                               f"({rel:.3e} of the largest magnitude), "
+                               f"bit-equal {equal}")
+        row = {"kernel": "flash_attention", "shape": [b, hq, hkv, s, hd],
+               "window": win, "max_abs_diff": diff, "bit_equal": equal,
+               **turns(time_ms, earlier, current)}
+        row["earlier_over_this"] = sum(row["earlier_ms"]) / sum(row["ms"])
+        print(f"K3 flash_attention B,Hq,Hkv,S,hd={b},{hq},{hkv},{s},{hd} "
+              f"causal{f' window {win}' if win else ''} bfloat16: largest "
+              f"difference {diff:.3e} ({rel:.3e} of the largest magnitude), "
+              f"{'bit-equal' if equal else 'not bit-equal'}; earlier "
+              f"{row['earlier_ms']} ms, this tree {row['ms']} ms, earlier / "
+              f"this tree {row['earlier_over_this']:.2f}x", flush=True)
+        rows.append(row)
+    return rows
+
+
+def _bf16_pair_excess(torch, a, b):
+    """Elementwise, how far two bfloat16 values lie apart beyond the half
+    ulps each rounding allows (0 when one float32 value could round to
+    both within them)."""
+    out = (a.float() - b.float()).abs()
+    for t in (a.float(), b.float()):
+        _, e = torch.frexp(t)
+        out = out - torch.where(t == 0, torch.zeros_like(t),
+                                torch.ldexp(torch.ones_like(t), e - 9))
+    return out.clamp_min(0.0)
+
+
+def k5_ab(torch, np, lib, time_ms) -> list:
+    from chip_smoke import K5_TOL
+    from repro_torch.kernels.rglru.rglru import _lib
+    current_lib = _lib()
+    rows = []
+    for b, s, w, dname in K5_SHAPES:
+        dt = getattr(torch, dname)
+        rng = np.random.default_rng(300)          # phase 17(a)'s first case
+
+        def mk(*shape, scale=1.0, shift=0.0):
+            x = rng.standard_normal(shape, dtype=np.float32) * scale + shift
+            return torch.from_numpy(x).cuda()
+        xb = mk(b, s, w).to(dt)
+        wa, wi, lam = mk(w, scale=0.5), mk(w, scale=0.5), mk(w, shift=0.65)
+        h0 = mk(b, w)
+
+        def launcher(which, H, hl):
+            def run():
+                err = which.rglru_launch(
+                    xb.data_ptr(), wa.data_ptr(), wi.data_ptr(),
+                    lam.data_ptr(), h0.data_ptr(), H.data_ptr(),
+                    hl.data_ptr(), 1 if dt == torch.bfloat16 else 0, b, s, w,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"rglru launch failed: {err}")
+            return run
+        got, want = (torch.empty_like(xb), torch.empty_like(xb))
+        got_l, want_l = (torch.empty((b, w), device="cuda") for _ in range(2))
+        earlier = launcher(lib, want, want_l)
+        current = launcher(current_lib, got, got_l)
+        earlier()
+        current()
+        torch.cuda.synchronize()
+        scale = float(want.float().abs().max())
+        if dt == torch.float32:
+            err_h = float((got - want).abs().max()) / scale
+        else:
+            err_h = float(_bf16_pair_excess(torch, got, want).max()) / scale
+        err_l = float((got_l - want_l).abs().max() / want_l.abs().max())
+        if not (bool(torch.isfinite(got.float()).all()) and err_h <= K5_TOL
+                and err_l <= K5_TOL):
+            raise RuntimeError(f"K5 designs disagree at {(b, s, w, dname)}: "
+                               f"H {err_h}, h_last {err_l}")
+        row = {"kernel": "rglru", "shape": [b, s, w], "dtype": dname,
+               "max_rel_diff": {"H": err_h, "h_last": err_l},
+               **turns(time_ms, earlier, current)}
+        row["earlier_over_this"] = sum(row["earlier_ms"]) / sum(row["ms"])
+        print(f"K5 rglru B,S,W={b},{s},{w} {dname}: agree within K5_TOL (H "
+              f"{err_h:.2e}, h_last {err_l:.2e} of the largest magnitude); "
+              f"earlier {row['earlier_ms']} ms, this tree {row['ms']} ms, "
+              f"earlier / this tree {row['earlier_over_this']:.2f}x",
+              flush=True)
+        rows.append(row)
+    return rows
+
+
+_K5_MATH_CHECK = r"""
+#include "%s"
+
+// Every float32 bit pattern: where the range test holds, the fast-path
+// copy against the compiler's own operation, bit for bit.
+__global__ void rglru_math_check(unsigned long long* out) {
+  unsigned long long in_range = 0, differ = 0;
+  const unsigned long long step =
+      (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i =
+           (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += step) {
+    const float y = __uint_as_float((uint32_t)i);
+    if (in_rcp_range(y)) {
+      ++in_range;
+      differ += __float_as_uint(rcp_rn(y)) != __float_as_uint(1.0f / y);
+    }
+    if (in_sqrt_range(y)) {
+      ++in_range;
+      differ += __float_as_uint(sqrt_rn(y)) != __float_as_uint(sqrtf(y));
+    }
+  }
+  atomicAdd(out, in_range);
+  atomicAdd(out + 1, differ);
+}
+
+extern "C" int rglru_math_check_launch(unsigned long long* out,
+                                       cudaStream_t stream) {
+  rglru_math_check<<<132 * 8, 256, 0, stream>>>(out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def k5_math_check(torch) -> dict:
+    """rcp_rn and sqrt_rn against 1 / y and sqrtf over every float32 in
+    their ranges, built with K5's flags."""
+    from repro_torch.kernels import _build
+    out = _build.BUILD_DIR / "math_check"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, lib = out / "rglru_math_check.cu", out / "librglru_math_check.so"
+    cu.write_text(_K5_MATH_CHECK % (ROOT / "src" / "repro_torch" / "csrc"
+                                    / "rglru.cu"))
+    proc = subprocess.run([_build.nvcc(), *_build.FLAGS["rglru"], "-o",
+                           str(lib), str(cu)], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for the K5 math check:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    dll = ctypes.CDLL(str(lib))
+    dll.rglru_math_check_launch.argtypes = [ctypes.c_void_p] * 2
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+    err = dll.rglru_math_check_launch(
+        counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K5 math check launch failed: {err}")
+    in_range, differ = (int(x) for x in counts.cpu())
+    if differ or not in_range:
+        raise RuntimeError(f"K5: rcp_rn/sqrt_rn differ from 1 / y and sqrtf "
+                           f"on {differ} of {in_range} inputs in range")
+    print(f"K5 rcp_rn and sqrt_rn: bit-equal to 1 / y and sqrtf on every "
+          f"float32 in range ({in_range} inputs, the two ranges together)",
+          flush=True)
+    return {"kernel": "rglru", "check": "rcp_rn, sqrt_rn", "in_range":
+            in_range, "differ": differ}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, required=True,
@@ -261,24 +472,30 @@ def main() -> None:
     from chip_smoke import k1_inputs, time_ms
     from repro_torch.kernels import _build
     csrc = Path("src") / "repro_torch" / "csrc"
-    names = [n for n in ("fleet_score", "flash_attention_bwd", "wkv6_bwd")
+    names = [n for n in ("fleet_score", "flash_attention",
+                         "flash_attention_bwd", "wkv6_bwd", "rglru")
              if (args.parent / csrc / f"{n}.cu").exists()
              and (args.parent / csrc / f"{n}.cu").read_bytes()
              != (ROOT / csrc / f"{n}.cu").read_bytes()]
     forwards = {"flash_attention_bwd": "flash_attention", "wkv6_bwd": "wkv6"}
-    _build.build_all([forwards[n] for n in names if n in forwards] + names)
+    _build.build_all(sorted({forwards.get(n, n) for n in names} |
+                            set(names)))
     libs = build_parent(args.parent, names)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    rows = []
+    rows = [k5_math_check(torch)]
     if "fleet_score" in libs:
         rows += k1_ab(torch, libs["fleet_score"], time_ms, k1_inputs)
+    if "flash_attention" in libs:
+        rows += k3_ab(torch, np, libs["flash_attention"], time_ms)
     if "flash_attention_bwd" in libs:
         rows += k3b_ab(torch, np, libs["flash_attention_bwd"], time_ms)
     if "wkv6_bwd" in libs:
         rows += k4b_ab(torch, np, libs["wkv6_bwd"], time_ms)
+    if "rglru" in libs:
+        rows += k5_ab(torch, np, libs["rglru"], time_ms)
     print(json.dumps({"card": smi, "ab": rows}), flush=True)
 
 
