@@ -137,13 +137,32 @@ order, it
      plain path, six ring decode steps from each path's cache, the
      prefill's operator rows, and a ``BatchedServer`` of 12 requests on 4
      slots;
- 19. prints one JSON line of per-kernel numbers, then
+ 19. holds the RG-LRU scan's backward kernel against its plain version on
+     the card at recurrentgemma-9b's training shape (bfloat16, and
+     float32 from a nonzero state and h_last cotangent) and at the other
+     ``K5B_CASES`` (``K5_CASES``' odd shapes), on the float32 states the
+     forward kernel keeps for it, two calls bit-equal, two launches a
+     call, and times it beside the forward; then holds the
+     flash-attention backward kernel with a sliding window and at head
+     dim 256 against its plain version at recurrentgemma-9b's training
+     shape (window 2,048, 4,096 tokens, bfloat16 and float32) and at the
+     other ``K3BW_CASES``, at phase 9's limits, and times it beside the
+     backward of ``scaled_dot_product_attention`` with the window's
+     boolean mask;
+ 20. trains recurrentgemma-9b at full width (5 of its 38 layers: one
+     (rec, rec, attn) unit, checkpointed as one function, and the (rec,
+     rec) tail; one 4,096-token sequence, twice the window; bf16): one
+     step on the kernel path against the plain path at phase 10's limits
+     (the RG-LRU scan 6 and its backward 4, flash attention 2 and its
+     backward 1 launches a step), the step's operator rows, then a
+     ``Trainer`` of 12 steps with a ``GuardStepHook``;
+ 21. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
-The phases run in the order 1–6, 9, 13(a), 17, 7, 8, 10–12, 13(b), 14–16,
-18: the kernel phases whose checks read profiler traces come before the
-model phases' profiles, after which sessions of one call can trace
-nothing (``call_segments``).
+The phases run in the order 1–6, 9, 13(a), 17, 19, 7, 8, 10–12, 13(b),
+14–16, 18, 20: the kernel phases whose checks read profiler traces come
+before the model phases' profiles, after which sessions of one call can
+trace nothing (``call_segments``).
 
 Every phase prints a start line (with the card's free memory) and, when
 it passes, a line with its seconds and peak memory; its models and
@@ -819,7 +838,7 @@ def plain_paths():
     import repro_torch.models.rglru as rglru_mod
     import repro_torch.models.rwkv6 as rwkv6_mod
     from repro_torch.kernels.flash_attention import attention_ref
-    from repro_torch.kernels.rglru import rglru_ref
+    from repro_torch.kernels.rglru import rglru_plain
     from repro_torch.kernels.wkv6 import wkv6_plain
 
     def attn(q, k, v, *, causal, q_offset=0, kv_len=0, window=0):
@@ -827,10 +846,11 @@ def plain_paths():
                              causal=causal, q_offset=q_offset,
                              kv_len=kv_len, window=window).transpose(1, 2)
 
-    # wkv6_plain: wkv6_ref, differentiated by wkv6_bwd_ref when training
+    # wkv6_plain: wkv6_ref, differentiated by wkv6_bwd_ref when training;
+    # rglru_plain: rglru_ref, differentiated by rglru_bwd_ref
     with mock.patch.object(attention_mod, "flash", attn), \
             mock.patch.object(rwkv6_mod, "wkv6", wkv6_plain), \
-            mock.patch.object(rglru_mod, "lru_scan", rglru_ref):
+            mock.patch.object(rglru_mod, "lru_scan", rglru_plain):
         yield
 
 
@@ -2851,6 +2871,15 @@ K5_CASES = [(1, 4096, 4096, "bfloat16", False),
 # the kernel's bfloat16 value's rounding interval (half a bfloat16 ulp each
 # way).
 K5_TOL = 1e-5
+# K5' against rglru_bwd_ref on the same inputs (the forward's float32
+# states included): each float32 gradient's largest difference over its
+# largest magnitude, as K4B_TOL holds K4''s float32 outputs. The chain and
+# the gates are the same float32 operations in another order (the chunks'
+# carries compose the reverse chain's products in another order, and
+# dwa, dwi, dlam sum 4,096 to 16 M terms per chunk and batch row, then
+# over them); a bfloat16 dxb is held by the float32 error its rounding
+# implies (bf16_rounding_excess).
+K5B_TOL = 1e-4
 
 # Windowed K3 cases: B, Hq, Hkv, S, T, hd, q_offset, kv_len, window, dtype.
 # The first is recurrentgemma-9b's local attention at 4,096 tokens (16
@@ -3035,6 +3064,283 @@ def phase_k3_window(torch, np):
     return main
 
 
+# --------------------------------- phases 19 and 20: the hybrid family trains
+
+# K5' cases: B, S, W, xb dtype, h0 and dh_last nonzero. The first is
+# recurrentgemma-9b's training shape (4,096 tokens, lru_width 4,096) from
+# the zero state, the main path's; then float32 there from a nonzero state,
+# and K5_CASES' odd shapes: B = 2 and 3, S of one step and no multiple of
+# the kernel's 32 chunks (1,000, 37, 4,097, 129, 385), W no multiple of a
+# block's 32 channels (33, 300, 4,100).
+K5B_CASES = [(1, 4096, 4096, "bfloat16", False),
+             (1, 4096, 4096, "float32", True),
+             (2, 1000, 300, "float32", True), (2, 37, 64, "bfloat16", True),
+             (3, 4097, 96, "float32", True), (1, 1, 33, "float32", True),
+             (1, 129, 4100, "float32", True),
+             (2, 385, 300, "bfloat16", True)]
+K5B_KERNELS = ["rglru_bwd_scan", "rglru_bwd_params"]
+
+
+def phase_k5_bwd(torch, np):
+    """Phase 19(a): the RG-LRU scan's backward kernel against its plain
+    version, on the float32 states K5 writes for it."""
+    from repro_torch.kernels.rglru import (rglru_bwd_bytes, rglru_bwd_flops,
+                                           rglru_bwd_ref, rglru_bwd_sfu_ops,
+                                           rglru_ref, rglru_scan,
+                                           rglru_scan_bwd)
+    main = None
+    for i, (b, s, w, dname, warm) in enumerate(K5B_CASES):
+        dt = getattr(torch, dname)
+        rng = np.random.default_rng(500 + i)
+
+        def mk(*shape, scale=1.0, shift=0.0):
+            x = rng.standard_normal(shape, dtype=np.float32) * scale + shift
+            return torch.from_numpy(x).cuda()
+        xb = mk(b, s, w).to(dt)
+        wa, wi, lam = mk(w, scale=0.5), mk(w, scale=0.5), mk(w, shift=0.65)
+        h0 = mk(b, w) if warm else torch.zeros(b, w, device="cuda")
+        dh_last = mk(b, w) if warm else None
+        dH = mk(b, s, w).to(dt)
+        _, _, states = rglru_scan(xb, wa, wi, lam, h0, keep_states=True)
+        got = rglru_scan_bwd(xb, wa, wi, lam, h0, states, dH, dh_last)
+        again = rglru_scan_bwd(xb, wa, wi, lam, h0, states, dH, dh_last)
+        # float32 inputs of the same values: dxb before its cast
+        want = rglru_bwd_ref(xb.float(), wa, wi, lam, h0, states,
+                             dH.float(), dh_last)
+        torch.cuda.synchronize()
+        tag = f"K5' rglru_bwd B,S,W={b},{s},{w} {dname}" + (
+            " h0, dh_last != 0" if warm else "")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"{tag}: two calls are not bit-equal")
+        # the states K5 kept are its H before the cast
+        st_err = rel_err(states, rglru_ref(xb.float(), wa, wi, lam, h0)[0])
+        check(st_err <= K5_TOL, f"{tag}: K5's float32 states differ from "
+              f"the plain H by {st_err:.3e} (> {K5_TOL})")
+        errs = {}
+        for n, g, w_ in zip(("dxb", "dwa", "dwi", "dlam", "dh0"), got, want):
+            check(bool(torch.isfinite(g.float()).all()),
+                  f"{tag}: non-finite {n}")
+            scale = float(w_.abs().max().clamp_min(1e-30))
+            if g.dtype == torch.bfloat16:
+                e = float(bf16_rounding_excess(torch, g, w_).max()) / scale
+            else:
+                e = float((g - w_).abs().max()) / scale
+            errs[n] = e
+            check(e <= K5B_TOL, f"{tag}: {n} differs from the plain version "
+                  f"by {e:.3e} of its largest magnitude (> {K5B_TOL})")
+        abs_err = max(max_abs_err(g, w_.to(g.dtype)) for g, w_ in
+                      zip(got, want))
+        worst = max(errs.values())
+        line = (f"{tag}: " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                       errs.items())
+                + f" of the largest magnitude (limit {K5B_TOL}: "
+                f"{worst / K5B_TOL:.1%} of it), K5's states {st_err:.3e}, "
+                f"max abs err {abs_err:.3e}, two calls bit-equal")
+        if i == 0:
+            fn = lambda: rglru_scan_bwd(xb, wa, wi, lam, h0,   # noqa: E731
+                                        states, dH, dh_last)
+            names = kernel_basenames(torch, fn)
+            check(names == K5B_KERNELS, f"{tag}: one call ran {names}, not "
+                  f"{K5B_KERNELS}")
+            ms = time_ms(fn)
+            dev_ms = kernel_device_ms(torch, fn, "rglru_bwd")
+            fwd_ms = time_ms(lambda: rglru_scan(xb, wa, wi, lam, h0))
+            kept_ms = time_ms(lambda: rglru_scan(xb, wa, wi, lam, h0,
+                                                 keep_states=True))
+            plain = time_ms(lambda: rglru_bwd_ref(xb, wa, wi, lam, h0,
+                                                  states, dH, dh_last),
+                            reps=1, warm=1)
+            flops = rglru_bwd_flops(b, s, w)
+            nbytes = rglru_bwd_bytes(b, s, w, xb.element_size())
+            bnd, by = bound(flops, FP32_SIMT_FLOPS, nbytes)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            sfu = rglru_bwd_sfu_ops(b, s, w) / (
+                SFU_PER_CLOCK_SM * sms * BOOST_CLOCK_HZ) * 1e3
+            line += (f"; kernel {ms:.4f} ms a call ({fmt_ms(dev_ms)} on the "
+                     f"device, {len(names)} kernels: {', '.join(names)}; "
+                     f"{bnd / ms:.1%} of bound), plain {plain:.4f} ms, "
+                     f"library none, bound {bnd:.4f} ms ({by}; "
+                     f"{flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.2f} MB); "
+                     f"note, not the bound: the special-function floor "
+                     f"{sfu:.4f} ms; K5 {fwd_ms:.4f} ms a call, "
+                     f"{kept_ms:.4f} with the float32 states kept")
+            main = dict(max_abs_err=abs_err, max_rel_err=worst, ms=ms,
+                        device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
+                        bound_by=by, library_ms=None, shape=[b, s, w],
+                        kernels_per_call=len(names), fwd_ms=fwd_ms,
+                        fwd_states_ms=kept_ms)
+        print(line, flush=True)
+        main["worst_ratio"] = max(main.get("worst_ratio", 0.0),
+                                  worst / K5B_TOL)
+        del xb, dH, states, got, again, want
+    return main
+
+
+# Windowed K3' cases: B, Hq, Hkv, S, T, hd, q_offset, kv_len, window,
+# dtype. The first is recurrentgemma-9b's training shape (16 query heads
+# over one KV head of 256, window 2,048, 4,096 tokens), the main path's;
+# then float32 there; hd 256 with no window (1,000 tokens, the model's
+# plain causal attention below the window) and at a ragged S with a
+# window of 100; the window at hd 128, 64 (float32) and 32 (a window of 7)
+# with GQA; q_offset and kv_len ragged at hd 256; a ragged float32 hd 256
+# with no window.
+K3BW_CASES = [
+    (1, 16, 1, 4096, 4096, 256, 0, 0, 2048, "bfloat16"),
+    (1, 16, 1, 4096, 4096, 256, 0, 0, 2048, "float32"),
+    (1, 16, 1, 1000, 1000, 256, 0, 0, 0, "bfloat16"),
+    (1, 4, 1, 333, 333, 256, 0, 0, 100, "bfloat16"),
+    (2, 8, 2, 700, 700, 128, 0, 0, 128, "bfloat16"),
+    (1, 4, 1, 300, 300, 64, 0, 0, 50, "float32"),
+    (1, 8, 2, 300, 300, 32, 0, 0, 7, "bfloat16"),
+    (1, 4, 1, 200, 520, 256, 320, 500, 100, "bfloat16"),
+    (1, 4, 2, 129, 129, 256, 0, 0, 0, "float32"),
+]
+
+
+def phase_k3_bwd_window(torch, np):
+    """Phase 19(b): the flash-attention backward kernel with a sliding
+    window and at head dim 256 against its plain version, at phase 9's
+    limits."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_flops, attention_bwd_ref, attention_ref, dkdv_split,
+        flash_attention, flash_attention_bwd)
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version: fp32
+    main = None
+    for i, (b, hq, hkv, s, t, hd, qo, kvl, win, dname) in enumerate(
+            K3BW_CASES):
+        dt, tol = getattr(torch, dname), K3B_TOL[dname]
+        rng = np.random.default_rng(700 + i)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to("cuda", dt).transpose(1, 2)
+            for shape in ((b, s, hq, hd), (b, t, hkv, hd), (b, t, hkv, hd),
+                          (b, s, hq, hd)))
+        kw = dict(causal=True, q_offset=qo, kv_len=kvl, window=win)
+        o, lse = flash_attention(q, k, v, lse=True, **kw)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        o_ref, lse_ref = attention_ref(q, k, v, return_lse=True, **kw)
+        want = attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+        torch.cuda.synchronize()
+        tag = (f"K3' flash_attention_bwd B,Hq,Hkv,S,T,hd={b},{hq},{hkv},{s},"
+               f"{t},{hd} causal{f' window {win}' if win else ''}"
+               f"{f' q_offset {qo}' if qo else ''}"
+               f"{f' kv_len {kvl}' if kvl else ''} {dname}")
+        lse_err = max_abs_err(lse, lse_ref)
+        check(lse_err <= LSE_TOL, f"{tag}: the forward's log-sum-exp "
+              f"differs from plain by {lse_err:.3e} (> {LSE_TOL})")
+        del o_ref
+        errs = {}
+        for n, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs[n] = rel_err(g, w)
+            check(bool(torch.isfinite(g).all()) and errs[n] <= tol,
+                  f"{tag}: {n} differs from plain by {errs[n]:.3e} of its "
+                  f"largest magnitude (> {tol})")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"{tag}: two calls are not bit-equal")
+        err = max(errs.values())
+        abs_err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        del got, again, want
+        fn = lambda: flash_attention_bwd(q, k, v, o, lse, do,  # noqa: E731
+                                         **kw)
+        line = (f"{tag}: forward lse max abs err {lse_err:.3e} (tol "
+                f"{LSE_TOL}); max err / max abs " + ", ".join(
+            f"{n} {e:.3e}" for n, e in errs.items()) + f" (tol {tol}), two "
+            f"calls bit-equal")
+        if i < 2:                 # device time, plain and sdpa beside it
+            names = kernel_basenames(torch, fn)
+            want_names = list(K3B_KERNELS[dname])
+            split = 1 if dt != torch.bfloat16 else dkdv_split(
+                b, hkv, t, hd, hq // hkv, torch.cuda.get_device_properties(
+                    0).multi_processor_count)
+            if split > 1:         # the parts' summing pass after dK/dV
+                want_names.insert(2, "fa_bwd_kv_sum")
+            check(names == want_names, f"{tag}: one call ran {names}, not "
+                  f"{want_names}")
+            ms = time_ms(fn, reps=5, warm=1)
+            dev_ms = kernel_device_ms(torch, fn, "fa_bwd")
+            flops = attention_bwd_flops(b, hq, s, kvl or t, hd, causal=True,
+                                        q_offset=qo, window=win)
+            nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * \
+                q.element_size() + lse.numel() * 4
+            peak = (BF16_TENSOR_FLOPS if dt == torch.bfloat16
+                    else FP32_SIMT_FLOPS)
+            bnd, by = bound(flops, peak, nbytes)
+            plain = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse_ref,
+                                                      do, **kw),
+                            reps=2, warm=1)
+            mask = window_mask(torch, s, t, qo, kvl, win)
+            qq, kk, vv = (x.detach().clone().requires_grad_(True)
+                          for x in (q, k, v))
+            out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                                 enable_gqa=True)
+            lib = time_ms(lambda: torch.autograd.grad(
+                out, (qq, kk, vv), do, retain_graph=True), reps=3, warm=1)
+            del out, qq, kk, vv
+            line += (f"; kernel {ms:.4f} ms a call ({fmt_ms(dev_ms)} on the "
+                     f"device, {len(names)} kernels), "
+                     f"{flops / ms / 1e9:.2f} TFLOP/s, {bnd / ms:.2%} of "
+                     f"bound, bound {bnd:.4f} ms ({by}; {flops / 1e9:.3f} "
+                     f"GFLOP, {nbytes / 1e6:.2f} MB); plain {plain:.4f} ms, "
+                     f"sdpa backward with the window's boolean mask "
+                     f"{lib:.4f} ms")
+            if i == 0:
+                split_ms = kernel_split_ms(torch, fn)
+                split_ms = {n: split_ms.get(n) for n in names}
+                check(None not in split_ms.values(), f"{tag}: the device "
+                      f"split {split_ms} lacks a kernel")
+                line += (f"; the dK/dV kernel's query heads in {split} "
+                         f"parts; device split " + ", ".join(
+                             f"{n} {m:.4f} ms" for n, m in split_ms.items()))
+                main = dict(max_abs_err=abs_err, max_rel_err=err, ms=ms,
+                            device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
+                            bound_by=by, library_ms=lib,
+                            shape=[b, hq, hkv, s, t, hd, win],
+                            kernels_per_call=len(names), dkdv_split=split,
+                            device_split=split_ms)
+            else:
+                main["ms_float32"] = ms
+                main["device_ms_float32"] = dev_ms
+        print(line, flush=True)
+        main["worst_ratio"] = max(main.get("worst_ratio", 0.0), err / tol)
+        del q, k, v, do, o, lse, lse_ref
+        torch.cuda.empty_cache()
+    return main
+
+
+TRAIN_HYBRID_LAYERS = 5    # of recurrentgemma-9b's 38: a unit and the tail
+# a step: each of the unit's two rec layers and its attention layer in the
+# forward and in the recompute, each of the tail's two rec layers once; a
+# backward a layer
+HYBRID_PER_STEP = {"rglru": 6, "rglru_bwd": 4, "flash_attention": 2,
+                   "flash_attention_bwd": 1}
+
+
+def phase_train_hybrid(torch, np, counters: dict):
+    """Phase 20: recurrentgemma-9b training at full width,
+    TRAIN_HYBRID_LAYERS deep (one (rec, rec, attn) unit checkpointed as one
+    function, then the (rec, rec) tail), one TRAIN_SEQ-token sequence,
+    twice the window: one bf16 step on the kernel path against the plain
+    path at phase 10's limits, the step's operator rows, then
+    ``trainer_run``. Returns (launches of the Trainer run, numbers)."""
+    import gc
+    model, data, batch, opt, tag = train_setup(torch, "recurrentgemma-9b",
+                                               TRAIN_HYBRID_LAYERS)
+    loss_k, grads_k, loss_p, grads_p, launches = step_vs_plain(
+        torch, counters, HYBRID_PER_STEP, model, batch, tag)
+    g = step_gaps(torch, model, loss_k, grads_k, loss_p, grads_p, opt)
+    step_nums = hold_step(g, loss_k, loss_p, tag, "in bfloat16", launches)
+    del grads_k, grads_p, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_nums["step_ops"] = op_rows(
+        torch, lambda: train_step_grads(torch, model, batch), reps=1)
+    print(f"{tag} operators (device ms per step): {step_nums['step_ops']}",
+          flush=True)
+    return trainer_run(torch, np, counters, HYBRID_PER_STEP, model, data,
+                       batch, opt, tag, step_nums)
+
+
 def run_phase(torch, label: str, fn, *args):
     """Run one phase: print its start with the card's free memory, then,
     on success, its seconds and peak memory, and drop what it held. Any
@@ -3120,17 +3426,21 @@ def main() -> None:
     k5 = run_phase(torch, "17(a) rglru", phase_k5, torch, np)
     k3w = run_phase(torch, "17(b) flash_attention window", phase_k3_window,
                     torch, np)
+    k5b = run_phase(torch, "19(a) rglru_bwd", phase_k5_bwd, torch, np)
+    k3bw = run_phase(torch, "19(b) flash_attention_bwd window",
+                     phase_k3_bwd_window, torch, np)
 
     from repro_torch.kernels.fleet_score import COUNTER as C1
     from repro_torch.kernels.flash_attention import BWD_COUNTER as C3B
     from repro_torch.kernels.flash_attention import COUNTER as C3
+    from repro_torch.kernels.rglru import BWD_COUNTER as C5B
     from repro_torch.kernels.rglru import COUNTER as C5
     from repro_torch.kernels.sweep_burn import COUNTER as C2
     from repro_torch.kernels.wkv6 import BWD_COUNTER as C4B
     from repro_torch.kernels.wkv6 import COUNTER as C4
     counters = {"fleet_score": C1, "sweep_burn": C2, "flash_attention": C3,
                 "flash_attention_bwd": C3B, "wkv6": C4, "wkv6_bwd": C4B,
-                "rglru": C5}
+                "rglru": C5, "rglru_bwd": C5B}
 
     def only(**want):
         return {n: want.get(n, 0) for n in counters}
@@ -3193,6 +3503,9 @@ def main() -> None:
                                      phase_train_moe, torch, np, counters)
     hybrid, hyb_nums = run_phase(torch, "18 recurrentgemma-9b serving",
                                  serve_hybrid)
+    train_hyb, hyb_tnums = run_phase(torch, "20 recurrentgemma-9b training",
+                                     phase_train_hybrid, torch, np,
+                                     counters)
 
     kernels = [
         {"name": "fleet_score", "route": "cuda",
@@ -3226,6 +3539,7 @@ def main() -> None:
              moe["llama4-scout-17b-a16e"]["flash_attention"],
          "launches_moe_train": train_moe["flash_attention"],
          "launches_hybrid_prefill": hybrid["flash_attention"],
+         "launches_hybrid_train": train_hyb["flash_attention"],
          "window": k3w},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -3233,13 +3547,14 @@ def main() -> None:
          "launches": train["flash_attention_bwd"],
          "launches_mesh": train_mesh["flash_attention_bwd"],
          "launches_moe_train": train_moe["flash_attention_bwd"],
+         "launches_hybrid_train": train_hyb["flash_attention_bwd"],
          "max_abs_err": k3b["max_abs_err"],
          "max_rel_err": k3b["max_rel_err"], "ms": k3b["ms"],
          "device_ms": k3b["device_ms"],
          "device_kernels_per_call": k3b["kernels_per_call"],
          "plain_ms": k3b["plain_ms"], "bound_ms": k3b["bound_ms"],
          "bound_by": k3b["bound_by"], "library_ms": k3b["library_ms"],
-         "shape": k3b["shape"]},
+         "shape": k3b["shape"], "window": k3bw},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/wkv6/wkv6.py:76",
@@ -3268,7 +3583,20 @@ def main() -> None:
          "worst_limit_ratio": k5["worst_ratio"], "ms": k5["ms"],
          "device_ms": k5["device_ms"], "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
-         "library_ms": None, "shape": k5["shape"]},
+         "library_ms": None, "shape": k5["shape"],
+         "launches_train": train_hyb["rglru"]},
+        {"name": "rglru_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_bwd.cu",
+         "replaces": "src/repro/models/rglru.py:81",
+         "launches": train_hyb["rglru_bwd"],
+         "max_abs_err": k5b["max_abs_err"],
+         "max_rel_err": k5b["max_rel_err"],
+         "worst_limit_ratio": k5b["worst_ratio"], "ms": k5b["ms"],
+         "device_ms": k5b["device_ms"],
+         "device_kernels_per_call": k5b["kernels_per_call"],
+         "plain_ms": k5b["plain_ms"], "bound_ms": k5b["bound_ms"],
+         "bound_by": k5b["bound_by"], "library_ms": None,
+         "shape": k5b["shape"]},
     ]
     print(f"training (phase 10): {json.dumps(tnums)}", flush=True)
     print(f"attribution and simulation (phase 11): {json.dumps(snums)}",
@@ -3280,6 +3608,7 @@ def main() -> None:
     print(f"moe serving (phase 15): {json.dumps(moe_nums)}", flush=True)
     print(f"moe training (phase 16): {json.dumps(moe_tnums)}", flush=True)
     print(f"hybrid serving (phase 18): {json.dumps(hyb_nums)}", flush=True)
+    print(f"hybrid training (phase 20): {json.dumps(hyb_tnums)}", flush=True)
     print(f"every phase passed in {time.perf_counter() - t0:.1f} s, the "
           f"builds included; {SESSIONS['lost']} of {SESSIONS['taken']} "
           f"profiler sessions traced no whole call and were taken again",

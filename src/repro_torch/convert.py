@@ -234,8 +234,9 @@ def model_params(jax_params: Mapping, cfg, *,
 
 def named_params(jax_tree: Mapping, depth: int) -> Dict[str, np.ndarray]:
     """``{port parameter name: array}`` of a tree shaped like the JAX
-    package's parameters, whose ``layers`` leaves are stacked ``depth``
-    deep."""
+    package's parameters, whose ``layers`` leaves (the hybrid family's
+    ``units``) are stacked ``depth`` deep; the hybrid ``tail`` list
+    becomes ``tail.<i>.``."""
     out: Dict[str, np.ndarray] = {}
 
     def walk(tree: Mapping, prefix: str) -> None:
@@ -245,9 +246,13 @@ def named_params(jax_tree: Mapping, depth: int) -> Dict[str, np.ndarray]:
             else:
                 out[f"{prefix}{key}"] = np.asarray(val)
 
-    walk({k: v for k, v in jax_tree.items() if k != "layers"}, "")
+    stacked = "units" if "units" in jax_tree else "layers"
+    walk({k: v for k, v in jax_tree.items() if k not in (stacked, "tail")},
+         "")
     for i in range(depth):
-        walk(_layer(jax_tree["layers"], i, depth), f"layers.{i}.")
+        walk(_layer(jax_tree[stacked], i, depth), f"{stacked}.{i}.")
+    for i, lp in enumerate(jax_tree.get("tail", [])):
+        walk(lp, f"tail.{i}.")
     return out
 
 
@@ -257,9 +262,11 @@ def opt_state(jax_opt_state: Mapping, model: Model) -> Dict[str, object]:
     by parameter name on the model's device, a 0-d int32 count. Raises
     unless the moments cover exactly the model's parameters."""
     params = dict(model.named_parameters())
+    depth = len(model.units if model.cfg.family == "hybrid"
+                else model.layers)
     out: Dict[str, object] = {}
     for key in ("mu", "nu"):
-        flat = named_params(jax_opt_state[key], len(model.layers))
+        flat = named_params(jax_opt_state[key], depth)
         if set(flat) != set(params):
             raise KeyError(f"{key}: reference names "
                            f"{sorted(set(flat) ^ set(params))[:8]} do not "
@@ -273,31 +280,40 @@ def opt_state(jax_opt_state: Mapping, model: Model) -> Dict[str, object]:
 
 def reference_tree(named: Mapping[str, object]) -> Dict[str, object]:
     """Port-named leaves (tensors or arrays) as the JAX package's nested
-    tree of float32 numpy arrays, the ``layers.<i>.`` leaves stacked on a
-    leading layer axis."""
+    tree of float32 numpy arrays, the ``layers.<i>.`` leaves (the hybrid
+    family's ``units.<i>.``) stacked on a leading layer axis and the
+    hybrid ``tail.<i>.`` leaves a list of trees."""
     tree: Dict[str, object] = {}
-    layers: Dict[int, Dict[str, np.ndarray]] = {}
+    groups: Dict[str, Dict[int, Dict[str, np.ndarray]]] = {}
+
+    def put(node: dict, parts, arr) -> None:
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+
     for name, val in named.items():
         arr = (val.detach().float().cpu().numpy()
                if isinstance(val, torch.Tensor) else np.asarray(val))
         parts = name.split(".")
-        if parts[0] == "layers":
-            layers.setdefault(int(parts[1]), {})[".".join(parts[2:])] = arr
+        if parts[0] in ("layers", "units", "tail"):
+            groups.setdefault(parts[0], {}).setdefault(
+                int(parts[1]), {})[".".join(parts[2:])] = arr
             continue
-        node = tree
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = arr
-    if layers:
+        put(tree, parts, arr)
+    for group, layers in groups.items():
+        if group == "tail":
+            tree["tail"] = []
+            for i in sorted(layers):
+                lp: Dict[str, object] = {}
+                for key, arr in layers[i].items():
+                    put(lp, key.split("."), arr)
+                tree["tail"].append(lp)
+            continue
         stacked: Dict[str, object] = {}
         for key in layers[0]:
-            node = stacked
-            parts = key.split(".")
-            for part in parts[:-1]:
-                node = node.setdefault(part, {})
-            node[parts[-1]] = np.stack([layers[i][key]
-                                        for i in sorted(layers)])
-        tree["layers"] = stacked
+            put(stacked, key.split("."),
+                np.stack([layers[i][key] for i in sorted(layers)]))
+        tree[group] = stacked
     return tree
 
 

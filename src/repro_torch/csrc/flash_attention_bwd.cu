@@ -4,7 +4,9 @@
 // the forward's per-row log-sum-exp, never stored whole.
 //
 // Replaces: src/repro/kernels/flash_attention/ops.py `_bwd`, which has no
-// Pallas kernel there: it is `jax.vjp` of the XLA `attention_ref`. Its
+// Pallas kernel there: it is `jax.vjp` of the XLA `attention_ref`; with a
+// window, `jax.vjp` of `local_attention` (src/repro/models/attention.py:
+// 162), which XLA differentiates. Its
 // equations, with s = scale q.k and P = exp(s - lse) on the live (query,
 // key) pairs and exactly 0 on the masked ones:
 //   D  = rowsum(dO o O)          dV = P^T dO          dP = dO V^T
@@ -15,7 +17,8 @@
 // against ~170 MB of inputs and outputs, so the floor is the tensor-core
 // rate (989 TFLOP/s bf16).
 //
-// Three kernels a call, on one stream, with no atomics: D = rowsum(dO o O)
+// Three kernels a call (four with a head split, below), on one stream,
+// with no atomics: D = rowsum(dO o O)
 // (`fa_bwd_dot`, one warp per row, into a float32 (B, Hq, S) scratch), a
 // dK/dV kernel (one block per key tile, kv head and batch, walking every
 // query head of its group and, for each, the query tiles from the causal
@@ -62,12 +65,32 @@
 // the kernels mask; every mbarrier wait traps after ~2^34 cycles, so a
 // pipeline fault fails the launch instead of hanging the card.
 //
+// The sliding window (the hybrid family's local attention: query position
+// p sees keys k with p - window < k <= p): the dK/dV kernel walks the
+// query tiles from the causal limit to the last one whose first query
+// still sees the block's last key, the dQ kernel the key tiles from the
+// one holding its first query's first key; both mask k <= p - window as
+// the forward does, and skip a consumer's products where every pair is
+// dead. Head dim 256 (recurrentgemma): a dK/dV block takes 64 keys and
+// its two consumers split hd (each owns 128 columns of dK and dV and
+// computes the same S^T and dP^T: two of seven products done twice),
+// since 64 keys x 256 columns of dK and dV a consumer would take 256
+// registers a thread and 128-key K/V tiles with a Q/dO ring would take
+// 320 KB of shared memory; the dQ kernel takes 64-key tiles, as the
+// forward does, through a one-stage ring. One KV head at batch 1 leaves
+// 64 dK/dV blocks for 132 SMs: the wrapper then splits each KV head's
+// query heads into parts (`dkdv_split`), each block writing float32
+// sums of its part, which `fa_bwd_kv_sum` adds in part order (four
+// kernels a call, still no atomics).
+//
 // float32 (`fa_bwd_dkdv`, `fa_bwd_dq`): 256-thread blocks of 64 rows on
-// the CUDA cores, S and dP as 4x4 micro-tiles from shared memory, P and dS
-// through shared memory, exact to the float32 equations up to summation
-// order. Masking is the forward's: keys at or past kv_len and, when
-// causal, keys after q_offset + row are dead, and their P is set to
-// exactly 0. Tiles wholly in the causal future are skipped. Inputs and
+// the CUDA cores (32 rows at hd 256, whose four 64-row tiles would not
+// fit in shared memory), S and dP as 4x4 (2x2) micro-tiles from shared
+// memory, P and dS through shared memory, exact to the float32 equations
+// up to summation order. Masking is the forward's: keys at or past
+// kv_len, when causal keys after q_offset + row, and with a window keys
+// at or before q_offset + row - window are dead, and their P is set to
+// exactly 0. Tiles wholly outside the causal range are skipped. Inputs and
 // outputs are read and written through their (batch, head, row) strides,
 // so the model's (B, S, H, hd) layout needs no copy.
 #include <initializer_list>
@@ -76,7 +99,17 @@
 
 namespace {
 
-constexpr int BQ = 64, BK = 64, kThreads = 256;
+constexpr int kThreads = 256;
+
+// The float32 tiles: BT rows (queries or keys) a tile, each thread a
+// micro-tile of R x R of a BT x BT product (16 x 16 threads), shared rows
+// of pitch P floats (no bank conflicts). hd 256 takes 32-row tiles: four
+// 64-row tiles of 256 columns would need 266 KB of shared memory.
+template <int HD>
+struct Simt {
+  static constexpr int R = HD == 256 ? 2 : 4;
+  static constexpr int BT = 16 * R, P = BT + 1, TILE = HD * P;
+};
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
@@ -108,57 +141,64 @@ __global__ void fa_bwd_dot(const T* __restrict__ o, const T* __restrict__ dO,
 
 // --------------------------------------------- shared helpers of the tiles
 
-// Load a (64 x HD) row tile into shared memory transposed, X[d][row] with a
-// row pitch of 65 floats; rows at or past `n` read as 0.
+// Load a (BT x HD) row tile into shared memory transposed, X[d][row] with a
+// row pitch of P floats; rows at or past `n` read as 0.
 template <int HD>
 __device__ __forceinline__ void load_t(float* X, const float* base,
                                        long long rs, int r0, int n) {
-  for (int i = threadIdx.x; i < 64 * HD; i += kThreads) {
+  using T = Simt<HD>;
+  for (int i = threadIdx.x; i < T::BT * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
-    X[d * 65 + r] = r0 + r < n ? base[(long long)(r0 + r) * rs + d] : 0.0f;
+    X[d * T::P + r] = r0 + r < n ? base[(long long)(r0 + r) * rs + d] : 0.0f;
   }
 }
 
-// s[a][c] = sum_d A[d][ty + 16a] B[d][tx + 16c]: a 4x4 micro-tile of a
-// 64 x 64 product of two transposed tiles, summed in d order.
+// s[a][c] = sum_d A[d][ty + 16a] B[d][tx + 16c]: an R x R micro-tile of a
+// BT x BT product of two transposed tiles, summed in d order.
 template <int HD>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A,
-                                         const float* Bm, int ty, int tx) {
+__device__ __forceinline__ void tile_dot(float (&s)[Simt<HD>::R][Simt<HD>::R],
+                                         const float* A, const float* Bm,
+                                         int ty, int tx) {
+  using T = Simt<HD>;
+  constexpr int R = T::R;
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < R; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[a][c] = 0.0f;
+    for (int c = 0; c < R; ++c) s[a][c] = 0.0f;
 #pragma unroll 8
   for (int d = 0; d < HD; ++d) {
-    float x[4], y[4];
+    float x[R], y[R];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) x[a] = A[d * 65 + ty + 16 * a];
+    for (int a = 0; a < R; ++a) x[a] = A[d * T::P + ty + 16 * a];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) y[c] = Bm[d * 65 + tx + 16 * c];
+    for (int c = 0; c < R; ++c) y[c] = Bm[d * T::P + tx + 16 * c];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < R; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = fmaf(x[a], y[c], s[a][c]);
+      for (int c = 0; c < R; ++c) s[a][c] = fmaf(x[a], y[c], s[a][c]);
   }
 }
 
 // P and dS of one (query tile q0, key tile k0) pair at the thread's
 // micro-tile (rows ty + 16a, keys tx + 16c), from the raw scores s and
-// dP = dO V^T; dead pairs get P = dS = 0.
-__device__ __forceinline__ void p_and_ds(float (&s)[4][4], float (&dp)[4][4],
+// dP = dO V^T; dead pairs (past S or kv_len, in the causal future, or at
+// or before p - window) get P = dS = 0.
+template <int R>
+__device__ __forceinline__ void p_and_ds(float (&s)[R][R], float (&dp)[R][R],
                                          const float* lse_s, const float* D_s,
                                          int q0, int k0, int S, int kv_len,
-                                         int q_offset, int causal,
+                                         int q_offset, int causal, int window,
                                          float scale, int ty, int tx) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < R; ++a) {
     const int r = ty + 16 * a;
     const long long qpos = (long long)q_offset + q0 + r;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < R; ++c) {
       const int kpos = k0 + tx + 16 * c;
       bool live = q0 + r < S && kpos < kv_len;
       if (causal) live = live && (long long)kpos <= qpos;
+      if (window > 0) live = live && (long long)kpos > qpos - window;
       const float p = live ? expf(s[a][c] * scale - lse_s[r]) : 0.0f;
       s[a][c] = p;
       dp[a][c] = p * (dp[a][c] - D_s[r]);
@@ -167,18 +207,59 @@ __device__ __forceinline__ void p_and_ds(float (&s)[4][4], float (&dp)[4][4],
 }
 
 template <int HD>
-struct SmemDKV {  // in floats
-  static constexpr int TILE = HD * 65;
+struct SmemDKV {  // in floats: Q, dO, K, V tiles, P, dS, lse and D rows
+  using T = Simt<HD>;
   static constexpr size_t bytes =
-      sizeof(float) * (4 * TILE + 2 * 64 * 65 + 128);
+      sizeof(float) * (4 * T::TILE + 2 * T::BT * T::P + 2 * T::BT);
 };
 
 template <int HD>
-struct SmemDQ {
-  static constexpr int TILE = HD * 65;
+struct SmemDQ {   // Q, dO, K, V tiles, dS, lse and D rows
+  using T = Simt<HD>;
   static constexpr size_t bytes =
-      sizeof(float) * (4 * TILE + 64 * 65 + 128);
+      sizeof(float) * (4 * T::TILE + T::BT * T::P + 2 * T::BT);
 };
+
+// The query tiles of `bt` rows that see key tile [k0, k0 + kn): from the
+// first whose last query is not before k0 (causal) to the last whose
+// first query is not past k0 + kn - 1 + window - 1 (a window); [qt0, qt1).
+__device__ __forceinline__ void query_tiles(int k0, int kn, int S,
+                                            int q_offset, int causal,
+                                            int window, int bt, int& qt0,
+                                            int& qt1) {
+  qt0 = 0;
+  qt1 = (S + bt - 1) / bt;
+  if (causal) {
+    const long long first = (long long)k0 - q_offset;
+    qt0 = first <= 0 ? 0 : (int)((first < S ? first : S) / bt);
+  }
+  if (window > 0) {
+    const long long last = (long long)k0 + kn - 2 + window - q_offset;
+    const long long lim = last < 0 ? 0 : last / bt + 1;
+    if (lim < qt1) qt1 = (int)lim;
+  }
+}
+
+// The key tiles of `bt` keys that a query tile [q0, q0 + qn) sees: from
+// the one holding its first query's first key (a window) to the one
+// holding its last query's last key (causal), at most those below
+// kv_len; [kt0, kt1).
+__device__ __forceinline__ void key_tiles(int q0, int qn, int kv_len,
+                                          int q_offset, int causal,
+                                          int window, int bt, int& kt0,
+                                          int& kt1) {
+  kt0 = 0;
+  kt1 = (kv_len + bt - 1) / bt;
+  if (causal) {
+    const long long last = (long long)q_offset + q0 + qn - 1;
+    const long long lim = last < 0 ? 0 : last / bt + 1;
+    if (lim < kt1) kt1 = (int)lim;
+  }
+  if (window > 0) {
+    const long long first = (long long)q_offset + q0 - window + 1;
+    if (first > 0) kt0 = (int)(first / bt);
+  }
+}
 
 // ------------------------------------------------------------------ dK, dV
 
@@ -188,40 +269,37 @@ fa_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dO,
             const float* __restrict__ lse, const float* __restrict__ D,
             float* __restrict__ dk, float* __restrict__ dv, int G, int S,
-            int Tk, int kv_len, int q_offset, int causal, float scale,
-            Strides qs, Strides ks, Strides vs, Strides dos, Strides dks,
-            Strides dvs) {
-  constexpr int OJ = HD / 16;
+            int Tk, int kv_len, int q_offset, int causal, int window,
+            float scale, Strides qs, Strides ks, Strides vs, Strides dos,
+            Strides dks, Strides dvs) {
+  using T = Simt<HD>;
+  constexpr int OJ = HD / 16, R = T::R, BT = T::BT, P = T::P;
   extern __shared__ float smem[];
   float* Qs = smem;                       // Qs[d][row]
-  float* Os = Qs + SmemDKV<HD>::TILE;     // dOs[d][row]
-  float* Ks = Os + SmemDKV<HD>::TILE;     // Ks[d][key]
-  float* Vs = Ks + SmemDKV<HD>::TILE;     // Vs[d][key]
-  float* Ps = Vs + SmemDKV<HD>::TILE;     // Ps[row][key]
-  float* dSs = Ps + 64 * 65;              // dSs[row][key]
-  float* lse_s = dSs + 64 * 65;
-  float* D_s = lse_s + 64;
+  float* Os = Qs + T::TILE;               // dOs[d][row]
+  float* Ks = Os + T::TILE;               // Ks[d][key]
+  float* Vs = Ks + T::TILE;               // Vs[d][key]
+  float* Ps = Vs + T::TILE;               // Ps[row][key]
+  float* dSs = Ps + BT * P;               // dSs[row][key]
+  float* lse_s = dSs + BT * P;
+  float* D_s = lse_s + BT;
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BT, hk = blockIdx.y, b = blockIdx.z;
   const int Hq = gridDim.y * G;
 
   load_t<HD>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, Tk);
   load_t<HD>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, Tk);
 
-  float acc_k[4][OJ], acc_v[4][OJ];
+  float acc_k[R][OJ], acc_v[R][OJ];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < R; ++a)
 #pragma unroll
     for (int c = 0; c < OJ; ++c) acc_k[a][c] = acc_v[a][c] = 0.0f;
 
-  // the first query row that sees key k0, and so the first query tile
-  int qt0 = 0;
-  if (causal) {
-    const long long first = (long long)k0 - q_offset;
-    qt0 = first <= 0 ? 0 : (int)((first < S ? first : S) / BQ);
-  }
-  const int nq = (S + BQ - 1) / BQ;
+  // the query tiles that see a key of this tile
+  int qt0, qt1;
+  query_tiles(k0, BT, S, q_offset, causal, window, BT, qt0, qt1);
   const bool dead = k0 >= kv_len;
 
   for (int g = 0; g < G && !dead; ++g) {
@@ -230,47 +308,47 @@ fa_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     const float* ob = dO + b * dos.b + h * dos.h;
     const float* lrow = lse + ((long long)b * Hq + h) * S;
     const float* drow = D + ((long long)b * Hq + h) * S;
-    for (int qt = qt0; qt < nq; ++qt) {
-      const int q0 = qt * BQ;
+    for (int qt = qt0; qt < qt1; ++qt) {
+      const int q0 = qt * BT;
       __syncthreads();                  // the previous tile is consumed
       load_t<HD>(Qs, qb, qs.s, q0, S);
       load_t<HD>(Os, ob, dos.s, q0, S);
-      if (tid < 64) {
+      if (tid < BT) {
         lse_s[tid] = q0 + tid < S ? lrow[q0 + tid] : 0.0f;
         D_s[tid] = q0 + tid < S ? drow[q0 + tid] : 0.0f;
       }
       __syncthreads();
 
-      float s[4][4], dp[4][4];
+      float s[R][R], dp[R][R];
       tile_dot<HD>(s, Qs, Ks, ty, tx);
       tile_dot<HD>(dp, Os, Vs, ty, tx);
-      p_and_ds(s, dp, lse_s, D_s, q0, k0, S, kv_len, q_offset, causal,
-               scale, ty, tx);
+      p_and_ds<R>(s, dp, lse_s, D_s, q0, k0, S, kv_len, q_offset, causal,
+                  window, scale, ty, tx);
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < R; ++a)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          Ps[(ty + 16 * a) * 65 + tx + 16 * c] = s[a][c];
-          dSs[(ty + 16 * a) * 65 + tx + 16 * c] = dp[a][c];
+        for (int c = 0; c < R; ++c) {
+          Ps[(ty + 16 * a) * P + tx + 16 * c] = s[a][c];
+          dSs[(ty + 16 * a) * P + tx + 16 * c] = dp[a][c];
         }
       __syncthreads();
 
       // dV[key][d] += sum_r P[r][key] dO[r][d]; dK likewise with dS and Q
 #pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        float p[4], ds[4], o[OJ], x[OJ];
+      for (int r = 0; r < BT; ++r) {
+        float p[R], ds[R], o[OJ], x[OJ];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          p[a] = Ps[r * 65 + ty + 16 * a];
-          ds[a] = dSs[r * 65 + ty + 16 * a];
+        for (int a = 0; a < R; ++a) {
+          p[a] = Ps[r * P + ty + 16 * a];
+          ds[a] = dSs[r * P + ty + 16 * a];
         }
 #pragma unroll
         for (int c = 0; c < OJ; ++c) {
-          o[c] = Os[(tx + 16 * c) * 65 + r];
-          x[c] = Qs[(tx + 16 * c) * 65 + r];
+          o[c] = Os[(tx + 16 * c) * P + r];
+          x[c] = Qs[(tx + 16 * c) * P + r];
         }
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < R; ++a)
 #pragma unroll
           for (int c = 0; c < OJ; ++c) {
             acc_v[a][c] = fmaf(p[a], o[c], acc_v[a][c]);
@@ -283,7 +361,7 @@ fa_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   float* kb = dk + b * dks.b + hk * dks.h;
   float* vb = dv + b * dvs.b + hk * dvs.h;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < R; ++a) {
     const int key = k0 + ty + 16 * a;
     if (key >= Tk) continue;
 #pragma unroll
@@ -302,76 +380,72 @@ fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dO,
           const float* __restrict__ lse, const float* __restrict__ D,
           float* __restrict__ dq, int G, int S, int Tk, int kv_len,
-          int q_offset, int causal, float scale, Strides qs, Strides ks,
-          Strides vs, Strides dos, Strides dqs) {
-  constexpr int OJ = HD / 16;
+          int q_offset, int causal, int window, float scale, Strides qs,
+          Strides ks, Strides vs, Strides dos, Strides dqs) {
+  using T = Simt<HD>;
+  constexpr int OJ = HD / 16, R = T::R, BT = T::BT, P = T::P;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* Os = Qs + SmemDQ<HD>::TILE;
-  float* Ks = Os + SmemDQ<HD>::TILE;
-  float* Vs = Ks + SmemDQ<HD>::TILE;
-  float* dSs = Vs + SmemDQ<HD>::TILE;     // dSs[row][key]
-  float* lse_s = dSs + 64 * 65;
-  float* D_s = lse_s + 64;
+  float* Os = Qs + T::TILE;
+  float* Ks = Os + T::TILE;
+  float* Vs = Ks + T::TILE;
+  float* dSs = Vs + T::TILE;              // dSs[row][key]
+  float* lse_s = dSs + BT * P;
+  float* D_s = lse_s + BT;
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;   // longest first
   const int h = blockIdx.y, b = blockIdx.z, Hq = gridDim.y;
   const int hk = h / G;
 
   load_t<HD>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
   load_t<HD>(Os, dO + b * dos.b + h * dos.h, dos.s, q0, S);
-  if (tid < 64) {
+  if (tid < BT) {
     const long long row = ((long long)b * Hq + h) * S + q0 + tid;
     lse_s[tid] = q0 + tid < S ? lse[row] : 0.0f;
     D_s[tid] = q0 + tid < S ? D[row] : 0.0f;
   }
 
-  float acc[4][OJ];
+  float acc[R][OJ];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < R; ++a)
 #pragma unroll
     for (int c = 0; c < OJ; ++c) acc[a][c] = 0.0f;
 
-  // key tiles holding a key below kv_len and, when causal, one no later
-  // than the tile's last query
-  int nk = (kv_len + BK - 1) / BK;
-  if (causal) {
-    const long long last = (long long)q_offset + q0 + BQ - 1;
-    const long long lim = last < 0 ? 0 : last / BK + 1;
-    if (lim < nk) nk = (int)lim;
-  }
+  // the key tiles that this query tile sees
+  int kt0, kt1;
+  key_tiles(q0, BT, kv_len, q_offset, causal, window, BT, kt0, kt1);
   const float* kb = k + b * ks.b + hk * ks.h;
   const float* vb = v + b * vs.b + hk * vs.h;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * BT;
     __syncthreads();                    // the previous tile is consumed
     load_t<HD>(Ks, kb, ks.s, k0, Tk);
     load_t<HD>(Vs, vb, vs.s, k0, Tk);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[R][R], dp[R][R];
     tile_dot<HD>(s, Qs, Ks, ty, tx);
     tile_dot<HD>(dp, Os, Vs, ty, tx);
-    p_and_ds(s, dp, lse_s, D_s, q0, k0, S, kv_len, q_offset, causal, scale,
-             ty, tx);
+    p_and_ds<R>(s, dp, lse_s, D_s, q0, k0, S, kv_len, q_offset, causal,
+                window, scale, ty, tx);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < R; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        dSs[(ty + 16 * a) * 65 + tx + 16 * c] = dp[a][c];
+      for (int c = 0; c < R; ++c)
+        dSs[(ty + 16 * a) * P + tx + 16 * c] = dp[a][c];
     __syncthreads();
 
     // dQ[r][d] += sum_j dS[r][j] K[j][d]
 #pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float ds[4], x[OJ];
+    for (int j = 0; j < BT; ++j) {
+      float ds[R], x[OJ];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) ds[a] = dSs[(ty + 16 * a) * 65 + j];
+      for (int a = 0; a < R; ++a) ds[a] = dSs[(ty + 16 * a) * P + j];
 #pragma unroll
-      for (int c = 0; c < OJ; ++c) x[c] = Ks[(tx + 16 * c) * 65 + j];
+      for (int c = 0; c < OJ; ++c) x[c] = Ks[(tx + 16 * c) * P + j];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < R; ++a)
 #pragma unroll
         for (int c = 0; c < OJ; ++c) acc[a][c] = fmaf(ds[a], x[c], acc[a][c]);
     }
@@ -379,7 +453,7 @@ fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 
   float* qb = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < R; ++a) {
     const int row = q0 + ty + 16 * a;
     if (row >= S) continue;
 #pragma unroll
@@ -399,29 +473,46 @@ constexpr int kBlock = 384;          // producer + two consumer warpgroups
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;   // 168 on average
 constexpr float kLog2e = 1.4426950408889634f;
 
-// ------------------------------------------------ dK, dV: 128 keys a block
+// ------------------------------------- dK, dV: 128 keys a block (64 at hd 256)
 
-constexpr int KN = 128;              // keys per block, 64 per consumer
 constexpr int QM = 64;               // queries per tile of the ring
 
+// hd <= 128: 128 keys a block, 64 a consumer, each consumer all hd
+// columns of its keys' dK and dV (2 x 64 registers a thread at hd 128). hd
+// 256 (SPLIT): that would be 256 registers a thread, and two 128-key K/V
+// tiles with a Q/dO ring would need 320 KB of shared memory; so a block
+// takes 64 keys, both consumers compute S^T and dP^T of the same 64 keys
+// (the two products twice) and each owns 128 of the 256 columns of dK and
+// dV, with a 2-stage ring (192 KB).
 template <int HD>
 struct DkvCfg : Atom<HD> {
-  static constexpr int STAGES = 3;               // the Q/dO ring
+  static constexpr bool SPLIT = HD == 256;
+  static constexpr int KN = SPLIT ? 64 : 128;    // keys a block
+  static constexpr int DC = SPLIT ? HD / 2 : HD; // dK/dV columns a consumer
+  static constexpr int STAGES = SPLIT ? 2 : 3;   // the Q/dO ring
   static constexpr int KV_BYTES = KN * HD * 2;   // K or V, [NA][KN][AC]
   static constexpr int QT_BYTES = QM * HD * 2;   // Q or dO, [NA][QM][AC]
   static constexpr int SMEM = 2 * KV_BYTES + 2 * STAGES * QT_BYTES +
                               2 * STAGES * QM * 4 + 1024 + 64;
 };
 
-// One block per (128-key tile, kv head, batch). The producer loads the
+// One block per (KN-key tile, kv head, batch). The producer loads the
 // block's K and V tiles once, then, for each query head of the group and
-// each query tile from the causal limit on, Q and dO (TMA) and the rows'
-// log2-scaled log-sum-exp and D (ordinary loads by warp 0's lanes: the
-// float32 (B, Hq, S) rows are 16-byte aligned only when S is a multiple
-// of 4) into a ring of STAGES stages. Each consumer warpgroup owns 64
-// keys: S^T = K Q^T and dP^T = V dO^T (SS wgmma), P^T and dS^T in
-// registers, dV += P^T dO and dK += dS^T Q (RS wgmma, dO and Q MN-major).
-template <int HD>
+// each query tile from the causal limit on (to the window's end under a
+// window), Q and dO (TMA) and the rows' log2-scaled log-sum-exp and D
+// (ordinary loads by warp 0's lanes: the float32 (B, Hq, S) rows are
+// 16-byte aligned only when S is a multiple of 4) into a ring of STAGES
+// stages. Each consumer warpgroup owns 64 keys (hd 256: the block's 64,
+// and half the columns): S^T = K Q^T and dP^T = V dO^T (SS wgmma), P^T
+// and dS^T in registers, dV += P^T dO and dK += dS^T Q (RS wgmma, dO and
+// Q MN-major).
+// With `split` > 1 (hd 256 only: too few key tiles to fill the card,
+// recurrentgemma's one KV head at batch 1) a block takes 1 / split of its
+// KV head's query heads and writes its unscaled float32 sums to `part`
+// (split, B, Hkv, T, hd) for dK, then for dV; `fa_bwd_kv_sum` adds the
+// parts in order. WIN: a sliding window (window > 0); the kernels without
+// one compile none of its tests.
+template <int HD, bool WIN>
 __global__ void __launch_bounds__(kBlock, 1)
 fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
@@ -430,8 +521,10 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
                   const float* __restrict__ lse, const float* __restrict__ D,
                   bf16* __restrict__ dk, bf16* __restrict__ dv, Strides dks,
                   Strides dvs, int B, int Hkv, int G, int S, int T, int kv_len,
-                  int q_offset, int causal, float scale, float scale_log2) {
+                  int q_offset, int causal, int window, float scale,
+                  float scale_log2, int split, float* __restrict__ part) {
   using C = DkvCfg<HD>;
+  constexpr int KN = C::KN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -450,15 +543,14 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
   // first key tiles, the longest under a causal mask
   const int hb = blockIdx.x % (Hkv * B);
   const int hk = hb % Hkv, b = hb / Hkv;
-  const int k0 = (blockIdx.x / (Hkv * B)) * KN;
-  const int Hq = Hkv * G;
-  int qt0 = 0;                       // the first query tile that sees k0
-  if (causal) {
-    const long long first = (long long)k0 - q_offset;
-    qt0 = first <= 0 ? 0 : (int)((first < S ? first : S) / QM);
-  }
-  const int nqt = k0 < kv_len ? (S + QM - 1) / QM - qt0 : 0;
-  const int n_it = G * nqt;
+  const int rest = blockIdx.x / (Hkv * B);
+  const int sp = C::SPLIT ? rest % split : 0;
+  const int k0 = (C::SPLIT ? rest / split : rest) * KN;
+  const int Hq = Hkv * G, Gs = C::SPLIT ? G / split : G, g0 = sp * Gs;
+  int qt0, qt1;                      // the query tiles that see the keys
+  query_tiles(k0, KN, S, q_offset, causal, WIN ? window : 0, QM, qt0, qt1);
+  const int nqt = k0 < kv_len && qt1 > qt0 ? qt1 - qt0 : 0;
+  const int n_it = Gs * nqt;         // this block's heads g0 .. g0 + Gs - 1
 
   if (threadIdx.x == 0) {
     bar_init(kv_full, 1);
@@ -484,8 +576,8 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
       for (int j = 0; j < n_it; ++j) {
         const int s = j % C::STAGES;
         if (j >= C::STAGES) bar_wait(empty + s, (j / C::STAGES - 1) & 1);
-        const int g = j / nqt, q0 = (qt0 + j - g * nqt) * QM;
-        const int h = hk * G + g;
+        const int gi = j / nqt, q0 = (qt0 + j - gi * nqt) * QM;
+        const int h = hk * G + g0 + gi;
         const long long row = ((long long)b * Hq + h) * S + q0;
 #pragma unroll
         for (int r = lane; r < QM; r += 32) {
@@ -506,27 +598,34 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
     // ----------------------------------------------------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
                      kConsumerRegs));
-    const int w = wg - 1;                          // keys 64w .. 64w + 63
+    const int w = wg - 1;
     const int warp = (threadIdx.x / 32) % 4;
-    const int kw0 = k0 + 64 * w;
+    // keys kw0 .. kw0 + 63, and dK/dV columns col0 .. col0 + DC - 1
+    const int kw0 = k0 + (C::SPLIT ? 0 : 64 * w);
+    const int col0 = C::SPLIT ? C::DC * w : 0;
     const int key_lo = kw0 + 16 * warp + lane / 4;   // and key_lo + 8
     const int cq = 2 * (lane % 4);
-    const uint32_t k_addr = smem_u32(sK) + w * 64 * C::ATOM_B;
-    const uint32_t v_addr = smem_u32(sV) + w * 64 * C::ATOM_B;
+    const uint32_t k_addr = smem_u32(sK) + (kw0 - k0) * C::ATOM_B;
+    const uint32_t v_addr = smem_u32(sV) + (kw0 - k0) * C::ATOM_B;
+    // the consumer's columns of a Q/dO tile: atoms col0 / AC on
+    const uint32_t col_b = (col0 / C::AC) * QM * C::ATOM_B;
 
-    float dk_acc[HD / 2], dv_acc[HD / 2];
+    float dk_acc[C::DC / 2], dv_acc[C::DC / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+    for (int i = 0; i < C::DC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
 
     if (n_it > 0) bar_wait(kv_full, 0);
     for (int j = 0; j < n_it; ++j) {
       const int s = j % C::STAGES, ph = (j / C::STAGES) & 1;
-      const int g = j / nqt, q0 = (qt0 + j - g * nqt) * QM;
+      const int q0 = (qt0 + j - j / nqt * nqt) * QM;
       bar_wait(full + s, ph);
-      // keys all padded, or all after every query of the tile: P^T = 0
+      // keys all padded, all after every query of the tile, or all at or
+      // before every query's window: P^T = 0
       const bool idle = kw0 >= kv_len ||
                         (causal && (long long)kw0 >
-                                       (long long)q_offset + q0 + QM - 1);
+                                       (long long)q_offset + q0 + QM - 1) ||
+                        (WIN && (long long)kw0 + 63 <=
+                                    (long long)q_offset + q0 - window);
       if (!idle) {
         const uint32_t q_addr = smem_u32(sQ + s * C::QT_BYTES);
         const uint32_t o_addr = smem_u32(sO + s * C::QT_BYTES);
@@ -552,7 +651,10 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
         // P^T = exp(s scale - lse) on live pairs, exactly 0 elsewhere
         const bool masked = q0 + QM > S || kw0 + 64 > kv_len ||
                             (causal && (long long)kw0 + 63 >
-                                           (long long)q_offset + q0);
+                                           (long long)q_offset + q0) ||
+                            (WIN &&
+                             (long long)kw0 <=
+                                 (long long)q_offset + q0 + QM - 1 - window);
 #pragma unroll
         for (int i = 0; i < QM / 8; ++i) {
 #pragma unroll
@@ -564,10 +666,12 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
             if (masked) {
               const long long qpos = (long long)q_offset + q0 + col;
               const bool q_in = q0 + col < S;
-              if (!q_in || key_lo >= kv_len || (causal && key_lo > qpos))
+              if (!q_in || key_lo >= kv_len || (causal && key_lo > qpos) ||
+                  (WIN && key_lo <= qpos - window))
                 p_lo = 0.0f;
               if (!q_in || key_lo + 8 >= kv_len ||
-                  (causal && key_lo + 8 > qpos))
+                  (causal && key_lo + 8 > qpos) ||
+                  (WIN && key_lo + 8 <= qpos - window))
                 p_hi = 0.0f;
             }
             st[4 * i + e] = p_lo;
@@ -582,7 +686,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < QM / 16; ++kk)
-          wgmma_rs(dv_acc, fa[kk], desc_mnmajor<HD>(o_addr, QM, kk));
+          wgmma_rs(dv_acc, fa[kk], desc_mnmajor<HD>(o_addr + col_b, QM, kk));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dpt);
@@ -603,7 +707,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < QM / 16; ++kk)
-          wgmma_rs(dk_acc, fa[kk], desc_mnmajor<HD>(q_addr, QM, kk));
+          wgmma_rs(dk_acc, fa[kk], desc_mnmajor<HD>(q_addr + col_b, QM, kk));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dk_acc);
@@ -611,6 +715,24 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
       if (lane == 0) bar_arrive(empty + s);
     }
 
+    if (C::SPLIT && part != nullptr) {   // this split's float32 sums
+      const long long n = (long long)split * B * Hkv * T * HD;
+      float* pk = part + (((long long)sp * B + b) * Hkv + hk) * T * HD;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int key = key_lo + 8 * half;
+        if (key >= T) continue;
+#pragma unroll
+        for (int i = 0; i < C::DC / 8; ++i) {
+          const int c = col0 + 8 * i + cq, a = 4 * i + 2 * half;
+          float* p = pk + (long long)key * HD + c;
+          *reinterpret_cast<float2*>(p) = make_float2(dk_acc[a], dk_acc[a + 1]);
+          *reinterpret_cast<float2*>(p + n) =
+              make_float2(dv_acc[a], dv_acc[a + 1]);
+        }
+      }
+      return;
+    }
     bf16* kb = dk + b * dks.b + hk * dks.h;
     bf16* vb = dv + b * dvs.b + hk * dvs.h;
 #pragma unroll
@@ -618,8 +740,8 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
       const int key = key_lo + 8 * half;
       if (key >= T) continue;
 #pragma unroll
-      for (int i = 0; i < HD / 8; ++i) {
-        const int c = 8 * i + cq, a = 4 * i + 2 * half;
+      for (int i = 0; i < C::DC / 8; ++i) {
+        const int c = col0 + 8 * i + cq, a = 4 * i + 2 * half;
         *reinterpret_cast<__nv_bfloat162*>(kb + (long long)key * dks.s + c) =
             __floats2bfloat162_rn(dk_acc[a] * scale, dk_acc[a + 1] * scale);
         *reinterpret_cast<__nv_bfloat162*>(vb + (long long)key * dvs.s + c) =
@@ -629,14 +751,49 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
   }
 }
 
+// dK and dV of a split dK/dV call: the parts added in split order, dK
+// scaled, each rounded to bf16 once; a thread a pair of columns.
+template <int HD>
+__global__ void __launch_bounds__(256)
+fa_bwd_kv_sum(const float* __restrict__ part, bf16* __restrict__ dk,
+              bf16* __restrict__ dv, Strides dks, Strides dvs, int B,
+              int Hkv, int T, int split, float scale) {
+  const long long pairs = (long long)B * Hkv * T * HD / 2;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= pairs) return;
+  const long long n = (long long)split * B * Hkv * T * HD;
+  const long long stride = (long long)B * Hkv * T * HD;
+  const int c = (int)(i % (HD / 2)) * 2;
+  const long long r = i / (HD / 2);             // (b, hk, key) row
+  const int key = (int)(r % T), hk = (int)((r / T) % Hkv),
+            b = (int)(r / ((long long)T * Hkv));
+  float2 sk = make_float2(0.0f, 0.0f), sv = sk;
+  for (int p = 0; p < split; ++p) {
+    const float2 x = *reinterpret_cast<const float2*>(part + p * stride +
+                                                      r * HD + c);
+    const float2 y = *reinterpret_cast<const float2*>(part + n + p * stride +
+                                                      r * HD + c);
+    sk.x += x.x, sk.y += x.y, sv.x += y.x, sv.y += y.y;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(dk + b * dks.b + hk * dks.h +
+                                     (long long)key * dks.s + c) =
+      __floats2bfloat162_rn(sk.x * scale, sk.y * scale);
+  *reinterpret_cast<__nv_bfloat162*>(dv + b * dvs.b + hk * dvs.h +
+                                     (long long)key * dvs.s + c) =
+      __floats2bfloat162_rn(sv.x, sv.y);
+}
+
 // ----------------------------------------------- dQ: 128 queries a block
 
 constexpr int QB = 128;              // queries per block, 64 per consumer
-constexpr int KT = 128;              // keys per tile of the ring
 
+// hd <= 128: 128-key tiles through a 2-stage ring. hd 256: 64-key tiles,
+// as the forward takes them there, and one stage: the block's Q and dO
+// (128 KB) and two stages of K and V (128 KB) would not fit.
 template <int HD>
 struct DqCfg : Atom<HD> {
-  static constexpr int STAGES = 2;               // the K/V ring
+  static constexpr int KT = HD == 256 ? 64 : 128;  // keys a tile
+  static constexpr int STAGES = HD == 256 ? 1 : 2; // the K/V ring
   static constexpr int Q_BYTES = QB * HD * 2;    // Q or dO, [NA][QB][AC]
   static constexpr int KV_BYTES = KT * HD * 2;   // K or V, [NA][KT][AC]
   static constexpr int SMEM = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 1024 +
@@ -644,12 +801,12 @@ struct DqCfg : Atom<HD> {
 };
 
 // One block per (128 query rows, q head, batch), shaped like the forward:
-// the producer loads Q and dO once and streams the K and V tiles up to
-// the causal limit through the ring; each consumer warpgroup owns 64
-// rows: S = Q K^T and dP = dO V^T (SS wgmma), dS in registers, dQ += dS K
-// (RS wgmma, K MN-major). dQ is scaled and rounded to bf16 once, at the
-// end.
-template <int HD>
+// the producer loads Q and dO once and streams the K and V tiles from the
+// window's start (under a window) up to the causal limit through the
+// ring; each consumer warpgroup owns 64 rows: S = Q K^T and dP = dO V^T
+// (SS wgmma), dS in registers, dQ += dS K (RS wgmma, K MN-major). dQ is
+// scaled and rounded to bf16 once, at the end. WIN as the dK/dV kernel's.
+template <int HD, bool WIN>
 __global__ void __launch_bounds__(kBlock, 1)
 fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tdo,
@@ -657,9 +814,10 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tv,
                 const float* __restrict__ lse, const float* __restrict__ D,
                 bf16* __restrict__ dq, Strides dqs, int B, int Hq, int G, int S,
-                int kv_len, int q_offset, int causal, float scale,
+                int kv_len, int q_offset, int causal, int window, float scale,
                 float scale_log2) {
   using C = DqCfg<HD>;
+  constexpr int KT = C::KT;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -677,11 +835,10 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   const int hb = blockIdx.x % (Hq * B);
   const int h = hb % Hq, b = hb / Hq;
   const int q0 = ((S + QB - 1) / QB - 1 - (int)(blockIdx.x / (Hq * B))) * QB;
-  int nk = (kv_len + KT - 1) / KT;
-  if (causal) {
-    const long long lim = ((long long)q_offset + q0 + QB - 1) / KT + 1;
-    if (lim < nk) nk = (int)lim;
-  }
+  int kt0, kt1;                      // the key tiles the block's rows see
+  key_tiles(q0, QB, kv_len, q_offset, causal, WIN ? window : 0, KT, kt0,
+            kt1);
+  const int nk = kt1 > kt0 ? kt1 - kt0 : 0;
 
   if (threadIdx.x == 0) {
     bar_init(q_full, 1);
@@ -704,11 +861,11 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       tma_tile<HD>(sQ, &tq, QB, q0, h, b, q_full);
       tma_tile<HD>(sO, &tdo, QB, q0, h, b, q_full);
       for (int j = 0; j < nk; ++j) {
-        const int s = j % C::STAGES;
+        const int s = j % C::STAGES, k0 = (kt0 + j) * KT;
         if (j >= C::STAGES) bar_wait(empty + s, (j / C::STAGES - 1) & 1);
         bar_expect_tx(full + s, 2 * C::KV_BYTES);
-        tma_tile<HD>(sK + s * C::KV_BYTES, &tk, KT, j * KT, hk, b, full + s);
-        tma_tile<HD>(sV + s * C::KV_BYTES, &tv, KT, j * KT, hk, b, full + s);
+        tma_tile<HD>(sK + s * C::KV_BYTES, &tk, KT, k0, hk, b, full + s);
+        tma_tile<HD>(sV + s * C::KV_BYTES, &tv, KT, k0, hk, b, full + s);
       }
     }
   } else {
@@ -737,10 +894,12 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     bar_wait(q_full, 0);
     for (int j = 0; j < nk; ++j) {
       const int s = j % C::STAGES, ph = (j / C::STAGES) & 1;
-      const int k0 = j * KT;
+      const int k0 = (kt0 + j) * KT;
       bar_wait(full + s, ph);
-      // every key of the tile after every row of this warpgroup: P = 0
-      const bool idle = causal && (long long)k0 > first_pos + 63;
+      // every key of the tile after every row of this warpgroup, or at or
+      // before every row's window: P = 0
+      const bool idle = (causal && (long long)k0 > first_pos + 63) ||
+                        (WIN && (long long)k0 + KT - 1 <= first_pos - window);
       if (!idle) {
         const uint32_t k_addr = smem_u32(sK + s * C::KV_BYTES);
         const uint32_t v_addr = smem_u32(sV + s * C::KV_BYTES);
@@ -763,7 +922,8 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
 
         // P = exp(s scale - lse) on live pairs, exactly 0 elsewhere
         const bool masked = k0 + KT > kv_len ||
-                            (causal && (long long)k0 + KT - 1 > first_pos);
+                            (causal && (long long)k0 + KT - 1 > first_pos) ||
+                            (WIN && (long long)k0 <= first_pos + 63 - window);
 #pragma unroll
         for (int i = 0; i < KT / 8; ++i) {
 #pragma unroll
@@ -773,8 +933,12 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
             if (masked) {
               const int kpos = k0 + 8 * i + cq + e;
               const bool pad = kpos >= kv_len;
-              if (pad || (causal && kpos > pos_lo)) p_lo = 0.0f;
-              if (pad || (causal && kpos > pos_lo + 8)) p_hi = 0.0f;
+              if (pad || (causal && kpos > pos_lo) ||
+                  (WIN && kpos <= pos_lo - window))
+                p_lo = 0.0f;
+              if (pad || (causal && kpos > pos_lo + 8) ||
+                  (WIN && kpos <= pos_lo + 8 - window))
+                p_hi = 0.0f;
             }
             sacc[4 * i + e] = p_lo;
             sacc[4 * i + 2 + e] = p_hi;
@@ -829,21 +993,25 @@ struct Args {
   const float* lse;
   float* D;
   void *dq, *dk, *dv;
-  int B, Hq, Hkv, S, T, kv_len, q_offset, causal;
+  int B, Hq, Hkv, S, T, kv_len, q_offset, causal, window;
   float scale;
+  int split;        // the bf16 dK/dV kernel's head-group split (1: none)
+  float* part;      // its float32 (2, split, B, Hkv, T, hd) parts, or null
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
 };
 
-template <int HD>
+template <int HD, bool WIN>
 int launch_tc(const Args& a, cudaStream_t stream) {
   using namespace tc;
   if (!encode_fn()) return (int)cudaErrorSymbolNotFound;
-  // boxes: 128-row K/V tiles (both kernels), 64-row Q/dO tiles (dK/dV),
-  // 128-row Q/dO tiles (dQ)
-  static_assert(KT == KN, "both kernels read K and V in boxes of KN rows");
-  CUtensorMap k128, v128, q64, do64, q128, do128;
-  if (!make_map<HD>(&k128, a.k, a.T, a.Hkv, a.B, a.ks, KN) ||
-      !make_map<HD>(&v128, a.v, a.T, a.Hkv, a.B, a.vs, KN) ||
+  // boxes: KN-row K/V tiles (both kernels: 128 rows, 64 at hd 256),
+  // 64-row Q/dO tiles (dK/dV), 128-row Q/dO tiles (dQ)
+  constexpr int KN = DkvCfg<HD>::KN;
+  static_assert(DqCfg<HD>::KT == KN,
+                "both kernels read K and V in boxes of KN rows");
+  CUtensorMap kkn, vkn, q64, do64, q128, do128;
+  if (!make_map<HD>(&kkn, a.k, a.T, a.Hkv, a.B, a.ks, KN) ||
+      !make_map<HD>(&vkn, a.v, a.T, a.Hkv, a.B, a.vs, KN) ||
       !make_map<HD>(&q64, a.q, a.S, a.Hq, a.B, a.qs, QM) ||
       !make_map<HD>(&do64, a.dO, a.S, a.Hq, a.B, a.dos, QM) ||
       !make_map<HD>(&q128, a.q, a.S, a.Hq, a.B, a.qs, QB) ||
@@ -853,31 +1021,49 @@ int launch_tc(const Args& a, cudaStream_t stream) {
   const float scale_log2 = (float)((double)a.scale * 1.4426950408889634);
 
   cudaError_t e = cudaFuncSetAttribute(
-      fa_bwd_dkdv_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      DkvCfg<HD>::SMEM);
+      fa_bwd_dkdv_wgmma<HD, WIN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, DkvCfg<HD>::SMEM);
   if (e != cudaSuccess) return (int)e;
-  e = check_regs(fa_bwd_dkdv_wgmma<HD>, kBlock, kProducerRegs, kConsumerRegs);
+  e = check_regs(fa_bwd_dkdv_wgmma<HD, WIN>, kBlock, kProducerRegs,
+                 kConsumerRegs);
   if (e != cudaSuccess) return (int)e;
-  const long long nkv = (long long)(a.T + KN - 1) / KN * a.Hkv * a.B;
+  const long long nkv =
+      (long long)(a.T + KN - 1) / KN * a.Hkv * a.B * a.split;
   const long long nq = (long long)(a.S + QB - 1) / QB * a.Hq * a.B;
-  if (nkv > 0x7fffffffLL || nq > 0x7fffffffLL)
+  const long long pairs = (long long)a.B * a.Hkv * a.T * HD / 2;
+  if (nkv > 0x7fffffffLL || nq > 0x7fffffffLL ||
+      (pairs + 255) / 256 > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  fa_bwd_dkdv_wgmma<HD><<<(unsigned)nkv, kBlock, DkvCfg<HD>::SMEM, stream>>>(
-      k128, v128, q64, do64, a.lse, a.D, (bf16*)a.dk, (bf16*)a.dv, a.dks,
+  fa_bwd_dkdv_wgmma<HD, WIN>
+      <<<(unsigned)nkv, kBlock, DkvCfg<HD>::SMEM, stream>>>(
+      kkn, vkn, q64, do64, a.lse, a.D, (bf16*)a.dk, (bf16*)a.dv, a.dks,
       a.dvs, a.B, a.Hkv, G, a.S, a.T, a.kv_len, a.q_offset, a.causal,
-      a.scale, scale_log2);
+      a.window, a.scale, scale_log2, a.split,
+      a.split > 1 ? a.part : nullptr);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  if constexpr (DkvCfg<HD>::SPLIT) {   // the only head dim that splits
+    if (a.split > 1) {
+      fa_bwd_kv_sum<HD><<<(unsigned)((pairs + 255) / 256), 256, 0,
+                          stream>>>(a.part, (bf16*)a.dk, (bf16*)a.dv, a.dks,
+                                    a.dvs, a.B, a.Hkv, a.T, a.split,
+                                    a.scale);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
+  }
 
-  e = cudaFuncSetAttribute(fa_bwd_dq_wgmma<HD>,
+  e = cudaFuncSetAttribute(fa_bwd_dq_wgmma<HD, WIN>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            DqCfg<HD>::SMEM);
   if (e != cudaSuccess) return (int)e;
-  e = check_regs(fa_bwd_dq_wgmma<HD>, kBlock, kProducerRegs, kConsumerRegs);
+  e = check_regs(fa_bwd_dq_wgmma<HD, WIN>, kBlock, kProducerRegs,
+                 kConsumerRegs);
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dq_wgmma<HD><<<(unsigned)nq, kBlock, DqCfg<HD>::SMEM, stream>>>(
-      q128, do128, k128, v128, a.lse, a.D, (bf16*)a.dq, a.dqs, a.B, a.Hq, G,
-      a.S, a.kv_len, a.q_offset, a.causal, a.scale, scale_log2);
+  fa_bwd_dq_wgmma<HD, WIN>
+      <<<(unsigned)nq, kBlock, DqCfg<HD>::SMEM, stream>>>(
+      q128, do128, kkn, vkn, a.lse, a.D, (bf16*)a.dq, a.dqs, a.B, a.Hq, G,
+      a.S, a.kv_len, a.q_offset, a.causal, a.window, a.scale, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -891,19 +1077,22 @@ int launch(const Args& a, cudaStream_t stream) {
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if constexpr (sizeof(T) == 2) {
-    return launch_tc<HD>(a, stream);
+    if (a.split > 1 && HD != 256) return (int)cudaErrorInvalidValue;
+    return a.window > 0 ? launch_tc<HD, true>(a, stream)
+                        : launch_tc<HD, false>(a, stream);
   } else {                    // float32 on the CUDA cores
     const int G = a.Hq / a.Hkv;
     e = cudaFuncSetAttribute(fa_bwd_dkdv<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)SmemDKV<HD>::bytes);
     if (e != cudaSuccess) return (int)e;
-    const dim3 gkv((a.T + BK - 1) / BK, a.Hkv, a.B);
+    constexpr int BT = Simt<HD>::BT;
+    const dim3 gkv((a.T + BT - 1) / BT, a.Hkv, a.B);
     fa_bwd_dkdv<HD><<<gkv, kThreads, SmemDKV<HD>::bytes, stream>>>(
         (const float*)a.q, (const float*)a.k, (const float*)a.v,
         (const float*)a.dO, a.lse, a.D, (float*)a.dk, (float*)a.dv, G, a.S,
-        a.T, a.kv_len, a.q_offset, a.causal, a.scale, a.qs, a.ks, a.vs,
-        a.dos, a.dks, a.dvs);
+        a.T, a.kv_len, a.q_offset, a.causal, a.window, a.scale, a.qs, a.ks,
+        a.vs, a.dos, a.dks, a.dvs);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
 
@@ -911,11 +1100,12 @@ int launch(const Args& a, cudaStream_t stream) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)SmemDQ<HD>::bytes);
     if (e != cudaSuccess) return (int)e;
-    const dim3 gq((a.S + BQ - 1) / BQ, a.Hq, a.B);
+    const dim3 gq((a.S + BT - 1) / BT, a.Hq, a.B);
     fa_bwd_dq<HD><<<gq, kThreads, SmemDQ<HD>::bytes, stream>>>(
         (const float*)a.q, (const float*)a.k, (const float*)a.v,
         (const float*)a.dO, a.lse, a.D, (float*)a.dq, G, a.S, a.T, a.kv_len,
-        a.q_offset, a.causal, a.scale, a.qs, a.ks, a.vs, a.dos, a.dqs);
+        a.q_offset, a.causal, a.window, a.scale, a.qs, a.ks, a.vs, a.dos,
+        a.dqs);
     return (int)cudaGetLastError();
   }
 }
@@ -926,6 +1116,7 @@ int dispatch_hd(int hd, const Args& a, cudaStream_t stream) {
     case 32: return launch<32, T>(a, stream);
     case 64: return launch<64, T>(a, stream);
     case 128: return launch<128, T>(a, stream);
+    case 256: return launch<256, T>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -939,7 +1130,11 @@ extern "C" {
 // row) element strides with a contiguous last dimension, all of one dtype
 // (0: float32, 1: bfloat16). lse is the forward's contiguous float32 (B,
 // Hq, S) log-sum-exp; D a float32 (B, Hq, S) scratch this call fills. hd in
-// {32, 64, 128}; Hq a multiple of Hkv; 1 <= kv_len <= T; q_offset >= 0.
+// {32, 64, 128, 256}; Hq a multiple of Hkv; 1 <= kv_len <= T; q_offset >=
+// 0; window 0 (none) or the sliding window's length, which needs causal.
+// split: how many parts the bf16 dK/dV kernel cuts each KV head's G query
+// heads into (a divisor of G; 1: none, and float32 takes only 1); part:
+// with split > 1, a float32 scratch of 2 * split * B * Hkv * T * hd.
 // Three launches on `stream` (D, then dK/dV, then dQ). Returns the first
 // CUDA error (cudaSuccess = 0), cudaErrorInvalidValue for a shape the
 // kernels do not take.
@@ -947,15 +1142,17 @@ int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* D, void* dq, void* dk, void* dv,
     int dtype, int B, int Hq, int Hkv, int S, int T, int hd, int kv_len,
-    int q_offset, int causal, float scale, const long long* strides,
-    void* stream) {
+    int q_offset, int causal, int window, float scale, int split,
+    void* part, const long long* strides, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || S <= 0 || T <= 0 ||
       kv_len <= 0 || kv_len > T || q_offset < 0 || B > 65535 ||
-      Hq > 65535)
+      Hq > 65535 || window < 0 || (window > 0 && !causal) || split < 1 ||
+      (Hq / Hkv) % split || (split > 1 && (part == nullptr || dtype != 1)))
     return (int)cudaErrorInvalidValue;
   const long long* sd = strides;        // 8 tensors x (batch, head, row)
   Args a{q, k, v, o, dO, (const float*)lse, (float*)D, dq, dk, dv,
-         B, Hq, Hkv, S, T, kv_len, q_offset, causal, scale,
+         B, Hq, Hkv, S, T, kv_len, q_offset, causal, window, scale,
+         split, (float*)part,
          {sd[0], sd[1], sd[2]}, {sd[3], sd[4], sd[5]},
          {sd[6], sd[7], sd[8]}, {sd[9], sd[10], sd[11]},
          {sd[12], sd[13], sd[14]}, {sd[15], sd[16], sd[17]},

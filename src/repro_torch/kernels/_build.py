@@ -43,6 +43,7 @@ FLAGS: Dict[str, Tuple[str, ...]] = {
     "wkv6": _COMMON,
     "wkv6_bwd": _COMMON,
     "rglru": _COMMON,
+    "rglru_bwd": _COMMON,
 }
 
 

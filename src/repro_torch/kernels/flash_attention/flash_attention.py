@@ -16,12 +16,20 @@ cores).
 Backward (``csrc/flash_attention_bwd.cu``): dQ, dK, dV from the forward's
 output and log-sum-exp, three launches per call (D = rowsum(dO o O), a
 dK/dV kernel per 128-key tile, a dQ kernel per 128-query tile), float32
-sums in a fixed order with no atomics, so two calls are bit-equal.
+sums in a fixed order with no atomics, so two calls are bit-equal. In
+bfloat16, where the key tiles are too few to fill the card (one KV head
+at batch 1, as recurrentgemma's), the dK/dV kernel splits each KV head's
+query heads (``dkdv_split``) into float32 parts that a fourth launch adds
+in order.
 bfloat16 runs on the tensor cores like the forward (a TMA producer
 warpgroup and two ``wgmma`` consumer warpgroups a block; P and dS rounded
 to bfloat16 before their products) and needs 16-byte aligned rows of q,
 k, v, o and do; float32 runs on the CUDA cores. ``BWD_COUNTER`` counts its
-calls; it takes no window and head dims up to 128 (``BWD_HEAD_DIMS``).
+calls. It takes the forward's ``window`` (the dK/dV kernel walks the query
+tiles from the causal limit to the window's end, the dQ kernel the key
+tiles from the window's start) and every head dim of the forward
+(``BWD_HEAD_DIMS``): at 256 a dK/dV block takes 64 keys and its two
+consumers split the head dim, and the dQ kernel 64-key tiles.
 
 The library is built with ``nvcc`` at the first launch (see
 ``repro_torch.kernels._build``). The wrapper checks its inputs, allocates
@@ -39,7 +47,7 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (32, 64, 128, 256)
-BWD_HEAD_DIMS = (32, 64, 128)
+BWD_HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 COUNTER = _build.LaunchCounter()
@@ -64,7 +72,7 @@ def _bwd_lib() -> ctypes.CDLL:
     fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 10 + [i] * 10 + [ctypes.c_float]
+        fn.argtypes = ([p] * 10 + [i] * 11 + [ctypes.c_float, i, p]
                        + [ctypes.POINTER(ctypes.c_longlong), p])
         fn.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
@@ -157,12 +165,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out if rows is None else (out, rows)
 
 
+def dkdv_split(B: int, Hkv: int, T: int, hd: int, G: int, sms: int) -> int:
+    """How many parts the bfloat16 dK/dV kernel cuts each KV head's G query
+    heads into. At hd 256 (64-key blocks, each walking every query head of
+    its group) where the blocks do not fill the card's ``sms``
+    multiprocessors: doubled (as G allows) until they fill it twice over
+    (at recurrentgemma's shape, on an H100: 1.59 ms device for the dK/dV
+    kernel unsplit, 0.80 at 2 parts, 0.76 at 4, 0.63 at 8, 0.67 at 16);
+    else 1. The parts' float32 sums are added in order by a fourth kernel,
+    so two calls stay bit-equal."""
+    blocks = -(-T // 64) * Hkv * B
+    split = 1
+    if hd == 256 and blocks < sms:
+        while blocks * split < 2 * sms and G % (2 * split) == 0:
+            split *= 2
+    return split
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True, q_offset: int = 0,
-                        kv_len: int = 0):
+                        kv_len: int = 0, window: int = 0):
     """dq, dk, dv of ``flash_attention`` for the upstream gradient ``do``:
-    the same function as ``ref.attention_bwd_ref``. q, k, v, o, do are CUDA
+    the same function as ``ref.attention_bwd_ref``, ``window`` as the
+    forward's. q, k, v, o, do are CUDA
     tensors in the forward's layouts (strided views with a contiguous last
     dimension, one dtype); ``o`` and ``lse`` are what the forward returned
     with ``lse=True``. Needs ``q_offset >= 0`` when causal, so that every
@@ -188,6 +214,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q_offset < 0:
         raise ValueError(f"q_offset={q_offset}: the backward needs every "
                          f"query row to see a key (q_offset >= 0)")
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window={window}: a sliding window is >= 0 and "
+                         f"needs causal=True")
     if q.dtype == torch.bfloat16:      # TMA reads 16-byte aligned rows
         for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
             if not aligned16(t):
@@ -201,6 +230,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk, dv = (torch.empty((B, T, Hkv, hd), dtype=q.dtype,
                           device=q.device).transpose(1, 2) for _ in range(2))
     scratch = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    split, part = 1, None
+    if q.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        split = dkdv_split(B, Hkv, T, hd, Hq // Hkv, sms)
+    if split > 1:
+        part = torch.empty((2, split, B, Hkv, T, hd), dtype=torch.float32,
+                           device=q.device)
     strides = (ctypes.c_longlong * 24)(
         *[s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
     lib = _bwd_lib()
@@ -209,7 +245,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, Hq, Hkv, S, T,
-        hd, kv_len, int(q_offset), int(bool(causal)), 1.0 / math.sqrt(hd),
+        hd, kv_len, int(q_offset), int(bool(causal)), int(window),
+        1.0 / math.sqrt(hd), split, None if part is None else part.data_ptr(),
         strides, stream)
     if err:
         raise RuntimeError(
@@ -236,13 +273,14 @@ def attention_flops(B: int, Hq: int, S: int, T: int, hd: int, *,
 
 
 def attention_bwd_flops(B: int, Hq: int, S: int, T: int, hd: int, *,
-                        causal: bool, q_offset: int = 0) -> float:
+                        causal: bool, q_offset: int = 0, window: int = 0
+                        ) -> float:
     """The backward's five products (S, dP, dV, dK, dQ) over the live
     pairs: 2.5 times the forward's two."""
     return 2.5 * attention_flops(B, Hq, S, T, hd, causal=causal,
-                                 q_offset=q_offset)
+                                 q_offset=q_offset, window=window)
 
 
 __all__ = ["BWD_COUNTER", "BWD_HEAD_DIMS", "COUNTER", "HEAD_DIMS",
-           "aligned16", "attention_bwd_flops", "attention_flops", "flash_attention",
-           "flash_attention_bwd"]
+           "aligned16", "attention_bwd_flops", "attention_flops",
+           "dkdv_split", "flash_attention", "flash_attention_bwd"]

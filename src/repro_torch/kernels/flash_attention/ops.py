@@ -8,9 +8,8 @@ version. On the card, when a gradient is wanted, the call is a
 ``torch.autograd.Function`` whose forward is the forward kernel (which
 then also writes the rows' log-sum-exp) and whose backward is the
 backward kernel; without a gradient (prefill, decode) it is the forward
-kernel alone, with no log-sum-exp. A sliding ``window`` runs the forward
-kernel with its window; the backward kernel takes none yet, so on the
-card a windowed call that wants a gradient raises.
+kernel alone, with no log-sum-exp. A sliding ``window`` runs both
+kernels with that window.
 """
 from __future__ import annotations
 
@@ -25,11 +24,11 @@ class _FlashAttention(torch.autograd.Function):
     """Kernel layout q (B, Hq, S, hd), k/v (B, Hkv, T, hd) on the card."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_offset, kv_len):
-        o, lse = flash_attention(q, k, v, causal=causal, q_offset=q_offset,
-                                 kv_len=kv_len, lse=True)
+    def forward(ctx, q, k, v, causal, q_offset, kv_len, window):
+        ctx.kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
+                      window=window)
+        o, lse = flash_attention(q, k, v, lse=True, **ctx.kw)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
         return o
 
     @staticmethod
@@ -39,7 +38,7 @@ class _FlashAttention(torch.autograd.Function):
                                   and not aligned16(do)):
             do = do.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -58,13 +57,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
-            if window:
-                raise NotImplementedError(
-                    "the flash-attention backward kernel takes no sliding "
-                    "window yet (it comes with the hybrid family's "
-                    "training slice)")
             return _FlashAttention.apply(qt, kt, vt, causal, q_offset,
-                                         kv_len).transpose(1, 2)
+                                         kv_len, window).transpose(1, 2)
         return flash_attention(qt, kt, vt, window=window,
                                **kw).transpose(1, 2)
     raise ValueError(f"attention: unsupported device {q.device}")

@@ -61,18 +61,19 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                       *, causal: bool = True, q_offset: int = 0,
-                      kv_len: int = 0
+                      kv_len: int = 0, window: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel's equations in float32: with P = exp(s - lse)
     on the live pairs (exactly 0 elsewhere) and D = rowsum(dO o O),
     dV = P^T dO, dS = P o (dO V^T - D), dQ = scale dS K, dK = scale dS^T Q
-    (summed over the query heads of each kv head). Layouts as
-    ``attention_ref``; ``o`` and ``lse`` are the forward's. Returns dq,
+    (summed over the query heads of each kv head). Layouts and ``window``
+    as ``attention_ref``; ``o`` and ``lse`` are the forward's. Returns dq,
     dk, dv in the inputs' dtype."""
     B, Hq, S, hd = q.shape
     _, Hkv, T, _ = k.shape
     G, scale = Hq // Hkv, 1.0 / math.sqrt(hd)
-    s, mask = _scores(q, k, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    s, mask = _scores(q, k, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                      window=window)
     p = torch.exp(s - lse.float().reshape(B, Hkv, G, S)[..., None])
     p = p.masked_fill(~mask, 0.0)
     dof = do.float().reshape(B, Hkv, G, S, hd)

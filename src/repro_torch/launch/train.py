@@ -7,8 +7,10 @@ gradients, float32 master weights and the two moments: ~70 GB for
 qwen3-4b before activations). ``--arch`` takes the dense family
 (qwen3-4b, phi3-mini-3.8b, ...), the moe family (deepseek-moe-16b,
 llama4-scout-17b-a16e: routed experts, whose loss adds the router's aux
-term) and the ssm family (rwkv6-7b, whose WKV6 runs through the forward
-and backward kernels on the card). Guard is wired in as the per-step
+term), the ssm family (rwkv6-7b, whose WKV6 runs through the forward
+and backward kernels on the card) and the hybrid family
+(recurrentgemma-9b, whose RG-LRU scan and windowed attention do too; a
+sequence longer than its window must be a multiple of it). Guard is wired in as the per-step
 hook: step times stream into the online monitor, and an IMMEDIATE-tier
 event restarts from the last checkpoint, the closed loop of Fig. 1 at
 single-host scale.
@@ -68,9 +70,10 @@ class GuardStepHook:
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b",
-                    help="a dense, moe or ssm architecture id, e.g. "
-                         "qwen3-4b, deepseek-moe-16b, "
-                         "llama4-scout-17b-a16e, rwkv6-7b")
+                    help="a dense, moe, ssm or hybrid architecture id, "
+                         "e.g. qwen3-4b, deepseek-moe-16b, "
+                         "llama4-scout-17b-a16e, rwkv6-7b, "
+                         "recurrentgemma-9b")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)

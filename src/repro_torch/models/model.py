@@ -31,9 +31,11 @@ WKV6 kernel included, runs again in the backward; the moe family's
 loss adds ``router_aux_loss`` times the MoE layers' summed aux. The
 hybrid family (recurrentgemma: units of (rec, rec, attn) layers, a tail
 of the pattern's first layers, the gemma embedding scale, the attention
-in a sliding window) serves here; its ``train_loss``, ``param_axes`` and
-``zero3_units`` come with its training slice. The audio and vlm families
-come with their slices.
+in a sliding window) checkpoints each unit as one function, as the
+reference's remat wraps its unit scan, and runs the tail outside any
+checkpoint, as the reference runs it after the scan; its RG-LRU calls
+differentiate through K5' and its attention through K3' with the window
+on the card. The audio and vlm families come with their slices.
 
   param_axes()               -> {parameter name: logical axes}, the
                                 reference's ``Model.param_axes()`` without
@@ -43,8 +45,9 @@ Under a mesh (``repro_torch.dist``), ``train_loss`` constrains the
 activations at the reference's sites, and a sharded training step sets
 ``zero3`` (``repro_torch.train.trainer``) to gather each unit of
 ``zero3_units`` just in time: "in" (the token table, ``ln0``) before the
-embedding, "dense0" before that layer, each layer at its start, inside
-the checkpointed function so that the recompute gathers again, and "out"
+embedding, "dense0" before that layer, each layer (the hybrid family:
+each unit) at its start, inside the checkpointed function so that the
+recompute gathers again, the hybrid "tail" once before it, and "out"
 (``ln_f``, the head) after the layers. After such a step the working
 weights hold no storage (``weights_released``) and every entry point
 raises until ``repro_torch.train.load_working`` brings them back.
@@ -151,18 +154,10 @@ class Model(nn.Module):
             return tfm.DecoderLayer(init, self.cfg)
         return rglru.RecLayer(init, self.cfg)
 
-    def _require_trainable(self, what: str) -> None:
-        if self.cfg.family == "hybrid":
-            raise NotImplementedError(
-                f"{what} of the hybrid family ({self.cfg.name}) comes with "
-                f"its training slice (the RG-LRU scan's backward and a "
-                f"windowed flash-attention backward)")
-
     def param_axes(self) -> Dict[str, dist.Axes]:
         """``{parameter name: logical axes}`` from each module's ``AXES``
         table (the axes the reference initializes each parameter with);
         the port's layers are not stacked, so no axis is "layer"."""
-        self._require_trainable("param_axes")
         return {f"{mod}.{name}" if mod else name: type(m).AXES[name]
                 for mod, m in self.named_modules()
                 for name, _ in m.named_parameters(recurse=False)}
@@ -171,21 +166,28 @@ class Model(nn.Module):
         """The sharded step's units, each gathered as one, in the order
         the forward reads them: {unit: parameter names}. "in" is what it
         reads before the layers, "dense0" the moe family's dense first
-        layer, "layers.<i>" each layer, "out" what it reads after them
-        (``ln_f`` and an untied head). "in", "dense0" and "out" are not
-        checkpointed: their gathered weights stay until their
-        gradients arrive."""
-        self._require_trainable("zero3_units")
+        layer, "layers.<i>" each layer (the hybrid family: "units.<u>"
+        each unit of its pattern, then "tail" its remaining layers), "out"
+        what it reads after them (``ln_f`` and an untied head). "in",
+        "dense0", "tail" and "out" are not checkpointed: their gathered
+        weights stay until their gradients arrive."""
         names = [n for n, _ in self.named_parameters()]
         late = ("ln_f", "embed.head")
+        stacks = ("layers.", "dense0.", "units.", "tail.")
         units = {"in": [n for n in names
-                        if not n.startswith(("layers.", "dense0."))
-                        and n not in late]}
+                        if not n.startswith(stacks) and n not in late]}
         if hasattr(self, "dense0"):
             units["dense0"] = [n for n in names if n.startswith("dense0.")]
-        for i in range(len(self.layers)):
-            units[f"layers.{i}"] = [n for n in names
-                                    if n.startswith(f"layers.{i}.")]
+        if self.cfg.family == "hybrid":
+            for u in range(len(self.units)):
+                units[f"units.{u}"] = [n for n in names
+                                       if n.startswith(f"units.{u}.")]
+            if len(self.tail):
+                units["tail"] = [n for n in names if n.startswith("tail.")]
+        else:
+            for i in range(len(self.layers)):
+                units[f"layers.{i}"] = [n for n in names
+                                        if n.startswith(f"layers.{i}.")]
         units["out"] = [n for n in names if n in late]
         return units
 
@@ -264,16 +266,17 @@ class Model(nn.Module):
         return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype,
                                 device=x.device)
 
-    def _rec_layer(self, lp: rglru.RecLayer, x: torch.Tensor
+    def _rec_layer(self, lp: rglru.RecLayer, x: torch.Tensor,
+                   collect: bool = True
                    ) -> Tuple[torch.Tensor, rglru.State]:
         """A rec layer over a sequence from a zero state -> (x, its decode
-        state {"h", "conv"})."""
+        state {"h", "conv"}; "conv" None unless ``collect``)."""
         cfg = self.cfg
         h = rms_norm(x, lp.ln_rec, cfg.norm_eps)
         h0 = torch.zeros((x.shape[0], cfg.lru_width or cfg.d_model),
                          dtype=torch.float32, device=x.device)
         out, h_last, conv = rglru.rec_block(lp.rec, cfg, h, h0,
-                                            collect_state=True)
+                                            collect_state=collect)
         x = x + out
         x = x + lp.mlp(rms_norm(x, lp.ln_mlp, cfg.norm_eps))
         return x, {"h": h_last, "conv": conv}
@@ -351,16 +354,19 @@ class Model(nn.Module):
         ``_forward_rwkv`` (``ln0``, then each block from a zero WKV
         state), whose WKV6 call differentiates through K4' on the card.
         The moe family's loss is ``ce + router_aux_loss * aux``, aux the
-        sum of its MoE layers' (``dense0``'s is not counted)."""
+        sum of its MoE layers' (``dense0``'s is not counted). The hybrid
+        family runs the reference's ``_forward_hybrid`` (the gemma
+        embedding scale, each unit checkpointed as one function, the tail
+        outside the checkpoints); its aux is 0."""
         cfg = self.cfg
-        self._require_trainable("train_loss")
         tokens = self._tokens(batch["tokens"])
         labels = self._tokens(batch["labels"])
         B, S = tokens.shape
         self.require_weights()
         self._gather("in")
-        x = dist.constraint(embed_tokens(self.embed, tokens), "act_batch",
-                            "act_seq", "act_embed")
+        x = (self._embed_hybrid(tokens) if cfg.family == "hybrid"
+             else embed_tokens(self.embed, tokens))
+        x = dist.constraint(x, "act_batch", "act_seq", "act_embed")
         if cfg.family == "ssm":
             x = layer_norm(x, 1.0 + self.ln0, torch.zeros_like(self.ln0),
                            cfg.norm_eps)
@@ -372,11 +378,13 @@ class Model(nn.Module):
             extra = (rope_tables(positions, cfg.resolved_head_dim,
                                  cfg.rope_theta),)
         auxes = []
+        if cfg.family == "hybrid":
+            x = self._train_hybrid(x, *extra)
         if hasattr(self, "dense0"):
             # outside the checkpoint, as in the reference; its aux is 0
             self._gather("dense0")
             x = tfm.decoder_layer(self.dense0, cfg, x, *extra)[0]
-        for i, lp in enumerate(self.layers):
+        for i, lp in enumerate(getattr(self, "layers", ())):
             if self.remat == "full" and torch.is_grad_enabled():
                 # no randomness inside a layer: the RNG state need not be
                 # saved for the recompute
@@ -410,6 +418,38 @@ class Model(nn.Module):
         x, aux, _ = tfm.decoder_layer(lp, self.cfg, x, rope,
                                       token_shard=self._token_shard())
         return (x, aux) if self.cfg.moe else x
+
+    def _train_hybrid(self, x: torch.Tensor, rope) -> torch.Tensor:
+        """The units, each one checkpointed function with remat "full"
+        (the reference's remat of its unit scan), then the tail, outside
+        any checkpoint (it runs after the reference's scan)."""
+        for u, unit in enumerate(self.units):
+            if self.remat == "full" and torch.is_grad_enabled():
+                x = checkpoint(self._train_unit, u, unit, x, rope,
+                               use_reentrant=False, preserve_rng_state=False)
+                if self.zero3 is not None:
+                    self.zero3.release(f"units.{u}")   # gathered again
+            else:
+                x = self._train_unit(u, unit, x, rope)
+        if len(self.tail):
+            self._gather("tail")
+        for lp, kind in zip(self.tail, self._hybrid_tail_kinds()):
+            x = self._train_hybrid_layer(lp, kind, x, rope)
+        return x
+
+    def _train_unit(self, u: int, unit: nn.ModuleDict, x: torch.Tensor,
+                    rope) -> torch.Tensor:
+        self._gather(f"units.{u}")
+        for key, kind in self._hybrid_keys():
+            x = self._train_hybrid_layer(unit[key], kind, x, rope)
+        return x
+
+    def _train_hybrid_layer(self, lp, kind: str, x: torch.Tensor,
+                            rope) -> torch.Tensor:
+        if kind == "attn":
+            return tfm.decoder_layer(lp, self.cfg, x, rope,
+                                     window=self.cfg.window)[0]
+        return self._rec_layer(lp, x, collect=False)[0]
 
     def _train_rwkv_layer(self, i: int, lp, x: torch.Tensor) -> torch.Tensor:
         self._gather(f"layers.{i}")

@@ -3,9 +3,11 @@ port's single-process step and the JAX package.
 
 One spawn of four gloo ranks (``tests/torch_dist_workers.py``: a
 ``FileStore`` in the test's temporary directory, a join limit of
-``JOIN_S``) runs reduced qwen3-4b, rwkv6-7b and deepseek-moe-16b (also
-with its capacity factor cut to 0.5, so that full experts drop slots:
-``workers.RUNS``) from the reference's weights, float32,
+``JOIN_S``) runs reduced qwen3-4b, rwkv6-7b, deepseek-moe-16b (also
+with its capacity factor cut to 0.5, so that full experts drop slots)
+and recurrentgemma-9b (5 layers: a unit and the tail, whose ZeRO-3 units
+are "units.0" and "tail"; ``workers.RUNS``) from the reference's weights,
+float32,
 ``DataConfig(vocab, 32, 4)`` (one sequence a rank), two ``Trainer`` steps
 under ``make_cpu_mesh()`` of (4, 1), the plain versions of the kernels.
 The reference routes the whole batch in one call; the port's ranks

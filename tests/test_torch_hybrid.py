@@ -36,7 +36,8 @@ the first layer's state), greedy token streams equal.
 - the hybrid ``Model``: prefill (logits and every cache) then decode
   steps past the window, float32 and bfloat16; the ``BatchedServer``
   token for token; ``train_loss``, ``param_axes`` and ``zero3_units``
-  raise (the family's training slice comes later).
+  run and give the reference's answers (the training checks are in
+  ``tests/test_torch_hybrid_train.py``).
 
 The RG-LRU kernel and the windowed flash-attention kernel are held to
 their plain versions on the card (marked ``cuda``: skips here).
@@ -438,12 +439,32 @@ def test_convert_fills_every_parameter_from_the_reference_tree():
 @pytest.mark.parametrize("entry", ["train_loss", "param_axes",
                                    "zero3_units"])
 def test_training_entry_points_raise_for_the_hybrid_family(entry):
-    _, _, model = _pair("float32")
-    args = ({"tokens": np.zeros((1, 8), np.int32),
-             "labels": np.zeros((1, 8), np.int32)},) \
-        if entry == "train_loss" else ()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        getattr(model, entry)(*args)
+    """Each training entry point of the hybrid family runs and gives the
+    reference's answer: the loss (float32 1e-5), the axes of a unit's and
+    of the tail's parameters (the reference's without its stacked axis),
+    the ZeRO-3 units over every parameter. The full checks are in
+    ``tests/test_torch_hybrid_train.py``."""
+    jm, params, model = _pair("float32")
+    if entry == "train_loss":
+        rng = np.random.default_rng(5)
+        batch = {"tokens": rng.integers(0, 512, (1, 16), dtype=np.int32),
+                 "labels": rng.integers(0, 512, (1, 16), dtype=np.int32)}
+        want, _ = jm.train_loss(params, {k: jnp.asarray(v)
+                                         for k, v in batch.items()})
+        loss, metrics = model.train_loss(batch)
+        assert float(loss) == pytest.approx(float(want), rel=1e-5)
+        assert float(metrics["aux"]) == 0.0
+    elif entry == "param_axes":
+        axes, want = model.param_axes(), jm.param_axes()
+        assert tuple(axes["units.0.l0_rec.rec.wx"]) == tuple(
+            want["units"]["l0_rec"]["rec"]["wx"])[1:]
+        assert tuple(axes["tail.1.rec.lam"]) == tuple(
+            want["tail"][1]["rec"]["lam"])
+    else:
+        units = model.zero3_units()
+        assert list(units) == ["in", "units.0", "tail", "out"]
+        assert sorted(sum(units.values(), [])) == sorted(
+            n for n, _ in model.named_parameters())
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

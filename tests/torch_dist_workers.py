@@ -20,19 +20,24 @@ import numpy as np
 
 OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)
 SEQ = 32
-# run name -> (arch, MoE capacity factor or None): "deepseek-moe-16b-drops"
-# cuts the capacity so that full experts drop slots of every rank
-RUNS = {"qwen3-4b": ("qwen3-4b", None), "rwkv6-7b": ("rwkv6-7b", None),
-        "deepseek-moe-16b": ("deepseek-moe-16b", None),
-        "deepseek-moe-16b-drops": ("deepseek-moe-16b", 0.5)}
+# run name -> (arch, MoE capacity factor or None, ``reduced`` overrides):
+# "deepseek-moe-16b-drops" cuts the capacity so that full experts drop
+# slots of every rank; recurrentgemma-9b takes 5 layers, a (rec, rec,
+# attn) unit and the (rec, rec) tail, its window (64) above SEQ
+RUNS = {"qwen3-4b": ("qwen3-4b", None, {}),
+        "rwkv6-7b": ("rwkv6-7b", None, {}),
+        "deepseek-moe-16b": ("deepseek-moe-16b", None, {}),
+        "deepseek-moe-16b-drops": ("deepseek-moe-16b", 0.5, {}),
+        "recurrentgemma-9b": ("recurrentgemma-9b", None,
+                              {"num_layers": 5})}
 
 
 def run_config(run: str, package):
     """The reduced config of ``run`` from ``package``'s configs (the
     port's ``repro_torch.configs`` or the reference's)."""
     import dataclasses
-    arch, cf = RUNS[run]
-    cfg = package.reduced(package.get_config(arch))
+    arch, cf, overrides = RUNS[run]
+    cfg = package.reduced(package.get_config(arch), **overrides)
     if cf is not None:
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))

@@ -7,7 +7,12 @@ it to its plain PyTorch version at the kernel's own limits:
   8e-3 for bfloat16 dr, dk, dv;
 - ``rglru`` (csrc/rglru.cu): H and h_last against ``rglru_ref``, 1e-5 of
   the largest magnitude (``chip_smoke.K5_TOL``; a bfloat16 H by the
-  float32 error its rounding implies), from a nonzero h0.
+  float32 error its rounding implies), from a nonzero h0; in bfloat16 also
+  the float32 states it writes for the backward;
+- ``rglru_bwd`` (csrc/rglru_bwd.cu): dxb, dwa, dwi, dlam and dh0 against
+  ``rglru_bwd_ref``, 1e-4 of each gradient's largest magnitude
+  (``chip_smoke.K5B_TOL``; a bfloat16 dxb by the float32 error its
+  rounding implies), from a nonzero h0 and dh_last.
 
 Needs g++ (C++20) and PyTorch for the CPU; no card, no nvcc.
 
@@ -32,8 +37,9 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
-from chip_smoke import K5_TOL, bf16_rounding_excess  # noqa: E402
-from repro_torch.kernels.rglru.ref import rglru_ref  # noqa: E402
+from chip_smoke import K5_TOL, K5B_TOL, bf16_rounding_excess  # noqa: E402
+from repro_torch.kernels.rglru.ref import (rglru_bwd_ref, rglru_ref,  # noqa
+                                           rglru_states_ref)
 from repro_torch.kernels.wkv6.ref import _clip_exp, wkv6_bwd_ref  # noqa: E402
 
 OUT = ROOT / "build" / "cpu_shim"
@@ -60,6 +66,14 @@ WKV6_CASES = [
 # vectors, two full blocks).
 RGLRU_CASES = [(2, s, w, dt) for s in (1, 37, 300, 769) for w in (33, 64)
                for dt in (torch.float32, torch.bfloat16)]
+
+# rglru_bwd: B, S, W, dtype. S: one step (31 of the 32 chunks empty), 15
+# (chunks of one step, 17 empty), 37 (chunks of two steps, the last live
+# one of one), 300 (ten steps a chunk, two empty) and 385 (13 a chunk, the
+# last live one of 8); W 33 (a block with one live channel) and 64.
+RGLRU_BWD_CASES = [(2, s, w, dt) for s in (1, 15, 37, 300, 385)
+                   for w in (33, 64) for dt in (torch.float32,
+                                                torch.bfloat16)]
 
 
 def build(name: str) -> ctypes.CDLL:
@@ -148,12 +162,21 @@ def rglru_case(lib, B, S, W, dtype, seed) -> bool:
     wa, wi, lam = mk(W, scale=0.5), mk(W, scale=0.5), mk(W, shift=0.65)
     h0 = mk(B, W)
     H, hl = torch.empty_like(xb), torch.empty((B, W))
+    states = torch.empty((B, S, W)) if dtype == torch.bfloat16 else None
     err = lib.rglru_launch(xb.data_ptr(), wa.data_ptr(), wi.data_ptr(),
                            lam.data_ptr(), h0.data_ptr(), H.data_ptr(),
-                           hl.data_ptr(), 1 if dtype == torch.bfloat16
-                           else 0, B, S, W, None)
+                           hl.data_ptr(),
+                           None if states is None else states.data_ptr(),
+                           1 if dtype == torch.bfloat16 else 0, B, S, W,
+                           None)
     assert err == 0, err
     want, want_hl = rglru_ref(xb.float(), wa, wi, lam, h0)
+    if states is not None:               # the float32 states the backward
+        want_s = want.float()            # reads: H before its cast
+        err_s = float((states - want_s).abs().max()) / float(
+            want_s.abs().max().clamp_min(1e-30))
+        ok_s = err_s <= K5_TOL and torch.equal(states[:, -1], hl) and \
+            torch.equal(states.to(dtype), H)
     scale = float(want.abs().max().clamp_min(1e-30))
     if dtype == torch.float32:
         err_h = float((H - want).abs().max()) / scale
@@ -165,9 +188,53 @@ def rglru_case(lib, B, S, W, dtype, seed) -> bool:
           and err_l <= K5_TOL)
     if dtype == torch.float32:           # h_last is H's last step
         ok = ok and torch.equal(hl, H[:, -1])
+    else:
+        ok = ok and ok_s
     print(f"rglru B,S,W={B},{S},{W} {str(dtype)[6:]} h0 != 0: H {err_h:.2e}, "
           f"h_last {err_l:.2e} of the largest magnitude"
+          + (f", float32 states {err_s:.2e} (H their cast, h_last their "
+             f"last step)" if states is not None else "")
           + (" ok" if ok else " FAIL"), flush=True)
+    return ok
+
+
+def rglru_bwd_case(lib, B, S, W, dtype, seed) -> bool:
+    """phase 19(a)'s inputs and measure, at a small shape: the float32
+    gradients within K5B_TOL of their largest magnitude, a bfloat16 dxb by
+    the error its rounding implies; a nonzero h0 and dh_last."""
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32) * scale + shift)
+    xb = mk(B, S, W).to(dtype)
+    wa, wi, lam = mk(W, scale=0.5), mk(W, scale=0.5), mk(W, shift=0.65)
+    h0, dh_last = mk(B, W), mk(B, W)
+    dH = mk(B, S, W).to(dtype)
+    H, _ = rglru_states_ref(xb.float(), wa, wi, lam, h0)
+    dxb = torch.empty_like(xb)
+    dwa, dwi, dlam = (torch.empty(W) for _ in range(3))
+    dh0, part = torch.empty((B, W)), torch.empty((B, 3, W))
+    err = lib.rglru_bwd_launch(*(t.data_ptr() for t in (
+        xb, wa, wi, lam, h0, H, dH, dh_last, dxb, dwa, dwi, dlam, dh0,
+        part)), 1 if dtype == torch.bfloat16 else 0, B, S, W, None)
+    assert err == 0, err
+    # float32 inputs of the same values: dxb before its cast
+    want = rglru_bwd_ref(xb.float(), wa, wi, lam, h0, H, dH.float(),
+                         dh_last)
+    errs, ok = {}, True
+    for n, g, w in zip(("dxb", "dwa", "dwi", "dlam", "dh0"),
+                       (dxb, dwa, dwi, dlam, dh0), want):
+        if g.dtype == torch.bfloat16:
+            e = float(bf16_rounding_excess(torch, g, w).max())
+        else:
+            e = float((g - w).abs().max())
+        errs[n] = e / float(w.float().abs().max().clamp_min(1e-30))
+        ok &= bool(torch.isfinite(g.float()).all()) and errs[n] <= K5B_TOL
+    print(f"rglru_bwd B,S,W={B},{S},{W} {str(dtype)[6:]} h0, dh_last != 0: "
+          + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+          + " of the largest magnitude" + (" ok" if ok else " FAIL"),
+          flush=True)
     return ok
 
 
@@ -177,8 +244,12 @@ SUITES = {
                  + [ctypes.c_int] * 6
                  + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]),
     "rglru": (RGLRU_CASES, rglru_case, lambda lib: lib.rglru_launch,
-              [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+              [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
               + [ctypes.c_void_p]),
+    "rglru_bwd": (RGLRU_BWD_CASES, rglru_bwd_case,
+                  lambda lib: lib.rglru_bwd_launch,
+                  [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p]),
 }
 
 

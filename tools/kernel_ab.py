@@ -82,8 +82,14 @@ def build_parent(parent: Path, names) -> dict:
         libs["fleet_score"].fleet_score_launch.argtypes = (
             [p, p, i, i, i, i, f, f, f, p, p, p, p])
     if "flash_attention_bwd" in libs:
+        # the window, split and part arguments came with the hybrid
+        # family's training
+        src = parent / "src" / "repro_torch" / "csrc" / \
+            "flash_attention_bwd.cu"
+        windowed = "int window, float scale, int split" in src.read_text()
         libs["flash_attention_bwd"].flash_attention_bwd_launch.argtypes = (
-            [p] * 10 + [i] * 10 + [f, ctypes.POINTER(ll), p])
+            [p] * 10 + [i] * (11 if windowed else 10) + [f]
+            + ([i, p] if windowed else []) + [ctypes.POINTER(ll), p])
     if "wkv6_bwd" in libs:
         libs["wkv6_bwd"].wkv6_bwd_launch.argtypes = (
             [p] * 18 + [i] * 6 + [ctypes.POINTER(ll), p])
@@ -91,7 +97,10 @@ def build_parent(parent: Path, names) -> dict:
         libs["flash_attention"].flash_attention_launch.argtypes = (
             [p] * 5 + [i] * 11 + [f] + [ll] * 12 + [p])
     if "rglru" in libs:
-        libs["rglru"].rglru_launch.argtypes = [p] * 7 + [i] * 4 + [p]
+        # the float32 states pointer came with the scan's backward
+        src = (parent / "src" / "repro_torch" / "csrc" / "rglru.cu")
+        n_ptr = 8 if "void* Hs" in src.read_text() else 7
+        libs["rglru"].rglru_launch.argtypes = [p] * n_ptr + [i] * 4 + [p]
     return libs
 
 
@@ -164,13 +173,17 @@ def k3b_ab(torch, np, lib, time_ms) -> list:
         strides = (ctypes.c_longlong * 24)(
             *[x for t in (q, k, v, o, do, dq, dk, dv) for x in t.stride()[:3]])
 
+        # window 0 and split 1 (no parts) where the earlier source takes them
+        windowed = len(lib.flash_attention_bwd_launch.argtypes) == 26
+        extra = ([0], [1, None]) if windowed else ([], [])
+
         def earlier():
             err = lib.flash_attention_bwd_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1, b, hq, hkv, s,
-                s, hd, s, 0, 1, 1.0 / math.sqrt(hd), strides,
-                torch.cuda.current_stream().cuda_stream)
+                s, hd, s, 0, 1, *extra[0], 1.0 / math.sqrt(hd), *extra[1],
+                strides, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"earlier flash_attention_bwd failed: "
                                    f"{err}")
@@ -355,10 +368,12 @@ def k5_ab(torch, np, lib, time_ms) -> list:
 
         def launcher(which, H, hl):
             def run():
+                states = [None] * (len(which.rglru_launch.argtypes) - 12)
                 err = which.rglru_launch(
                     xb.data_ptr(), wa.data_ptr(), wi.data_ptr(),
                     lam.data_ptr(), h0.data_ptr(), H.data_ptr(),
-                    hl.data_ptr(), 1 if dt == torch.bfloat16 else 0, b, s, w,
+                    hl.data_ptr(), *states,
+                    1 if dt == torch.bfloat16 else 0, b, s, w,
                     torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"rglru launch failed: {err}")
