@@ -140,7 +140,8 @@ order, it
  19. holds the RG-LRU scan's backward kernel against its plain version on
      the card at recurrentgemma-9b's training shape (bfloat16, and
      float32 from a nonzero state and h_last cotangent) and at the other
-     ``K5B_CASES`` (``K5_CASES``' odd shapes), on the float32 states the
+     ``K5B_CASES`` (``K5_CASES``' odd shapes and the edges of the kernel's
+     ring of tiles), on the float32 states the
      forward kernel keeps for it, two calls bit-equal, two launches a
      call, and times it beside the forward; then holds the
      flash-attention backward kernel with a sliding window and at head
@@ -3070,15 +3071,22 @@ def phase_k3_window(torch, np):
 # recurrentgemma-9b's training shape (4,096 tokens, lru_width 4,096) from
 # the zero state, the main path's; then float32 there from a nonzero state,
 # and K5_CASES' odd shapes: B = 2 and 3, S of one step and no multiple of
-# the kernel's 32 chunks (1,000, 37, 4,097, 129, 385), W no multiple of a
-# block's 32 channels (33, 300, 4,100).
+# the kernel's tiles (1,000, 37, 4,097, 129, 385), W no multiple of a
+# block's 32 channels (33, 300, 4,100); then the ring's edges (the kernel
+# walks the sequence from its end in tiles of 88 bfloat16 or 44 float32
+# steps through two slots): one step in bfloat16, one step past a tile
+# (89, 45), the ring wrapped more than once plus one step (441 = 5 x 88
+# + 1 = 10 x 44 + 1).
 K5B_CASES = [(1, 4096, 4096, "bfloat16", False),
              (1, 4096, 4096, "float32", True),
              (2, 1000, 300, "float32", True), (2, 37, 64, "bfloat16", True),
              (3, 4097, 96, "float32", True), (1, 1, 33, "float32", True),
              (1, 129, 4100, "float32", True),
-             (2, 385, 300, "bfloat16", True)]
-K5B_KERNELS = ["rglru_bwd_scan", "rglru_bwd_params"]
+             (2, 385, 300, "bfloat16", True),
+             (1, 1, 40, "bfloat16", True), (2, 89, 4096, "bfloat16", True),
+             (1, 45, 300, "float32", True), (2, 441, 1000, "bfloat16", True),
+             (1, 441, 64, "float32", True)]
+K5B_KERNELS = ["rglru_bwd_ring", "rglru_bwd_params"]
 
 
 def phase_k5_bwd(torch, np):
@@ -3183,7 +3191,11 @@ def phase_k5_bwd(torch, np):
 # plain causal attention below the window) and at a ragged S with a
 # window of 100; the window at hd 128, 64 (float32) and 32 (a window of 7)
 # with GQA; q_offset and kv_len ragged at hd 256; a ragged float32 hd 256
-# with no window.
+# with no window; at hd 256 in bfloat16, S = 707 (no multiple of the dQ
+# kernel's 48-key tiles, its 128-query blocks or the dK/dV kernel's 64-key
+# blocks) with a window of 300, and a window of 77 (starting inside a
+# 48-key tile at every row, shorter than one query tile and two key tiles)
+# over 4 query heads in 4 parts.
 K3BW_CASES = [
     (1, 16, 1, 4096, 4096, 256, 0, 0, 2048, "bfloat16"),
     (1, 16, 1, 4096, 4096, 256, 0, 0, 2048, "float32"),
@@ -3194,7 +3206,11 @@ K3BW_CASES = [
     (1, 8, 2, 300, 300, 32, 0, 0, 7, "bfloat16"),
     (1, 4, 1, 200, 520, 256, 320, 500, 100, "bfloat16"),
     (1, 4, 2, 129, 129, 256, 0, 0, 0, "float32"),
+    (1, 8, 1, 707, 707, 256, 0, 0, 300, "bfloat16"),
+    (1, 4, 1, 640, 640, 256, 0, 0, 77, "bfloat16"),
 ]
+# hd 256's own bfloat16 dK/dV kernel, in place of K3B_KERNELS' second
+K3B_DKDV_HD256 = "fa_bwd_dkdv_hd256"
 
 
 def phase_k3_bwd_window(torch, np):
@@ -3250,6 +3266,8 @@ def phase_k3_bwd_window(torch, np):
         if i < 2:                 # device time, plain and sdpa beside it
             names = kernel_basenames(torch, fn)
             want_names = list(K3B_KERNELS[dname])
+            if dt == torch.bfloat16 and hd == 256:
+                want_names[1] = K3B_DKDV_HD256
             split = 1 if dt != torch.bfloat16 else dkdv_split(
                 b, hkv, t, hd, hq // hkv, torch.cuda.get_device_properties(
                     0).multi_processor_count)

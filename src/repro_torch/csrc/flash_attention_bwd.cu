@@ -30,7 +30,8 @@
 // at qwen3-4b's shape), the price of summing every gradient in float32 in
 // one fixed order, so that two calls are bit-equal.
 //
-// bfloat16 (`fa_bwd_dkdv_wgmma`, `fa_bwd_dq_wgmma`): both kernels have the
+// bfloat16 (`fa_bwd_dkdv_wgmma` or, at hd 256, `fa_bwd_dkdv_hd256`, and
+// `fa_bwd_dq_wgmma`): both kernels have the
 // forward's warp-specialised shape (flash_attention.cu, helpers in
 // hopper.cuh). What held the earlier `mma.sync` design at ~9x its bound:
 // products issued a warp at a time (no wgmma), tiles staged by 16-byte
@@ -71,17 +72,19 @@
 // still sees the block's last key, the dQ kernel the key tiles from the
 // one holding its first query's first key; both mask k <= p - window as
 // the forward does, and skip a consumer's products where every pair is
-// dead. Head dim 256 (recurrentgemma): a dK/dV block takes 64 keys and
-// its two consumers split hd (each owns 128 columns of dK and dV and
-// computes the same S^T and dP^T: two of seven products done twice),
-// since 64 keys x 256 columns of dK and dV a consumer would take 256
-// registers a thread and 128-key K/V tiles with a Q/dO ring would take
-// 320 KB of shared memory; the dQ kernel takes 64-key tiles, as the
-// forward does, through a one-stage ring. One KV head at batch 1 leaves
-// 64 dK/dV blocks for 132 SMs: the wrapper then splits each KV head's
-// query heads into parts (`dkdv_split`), each block writing float32
-// sums of its part, which `fa_bwd_kv_sum` adds in part order (four
-// kernels a call, still no atomics).
+// dead. Head dim 256 (recurrentgemma) has a dK/dV kernel of its own
+// (`fa_bwd_dkdv_hd256`): a block takes 64 keys, since 64 keys x 256
+// columns of dK and dV a consumer would take 256 registers a thread and
+// 128-key K/V tiles with a Q/dO ring 320 KB of shared memory; one
+// consumer computes S^T and P^T, the other dP^T and dS^T, they hand P^T
+// and dS^T to each other through shared memory, and each owns 128 columns
+// of dK and dV (the earlier design had both compute S^T and dP^T: two of
+// seven products done twice). The dQ kernel takes 48-key tiles through a
+// two-stage ring there. One KV head at batch 1 leaves 64 dK/dV blocks for
+// 132 SMs: the wrapper then splits each KV head's query heads into parts
+// (`dkdv_split`), each block writing float32 sums of its part, which
+// `fa_bwd_kv_sum` adds in part order (four kernels a call, still no
+// atomics).
 //
 // float32 (`fa_bwd_dkdv`, `fa_bwd_dq`): 256-thread blocks of 64 rows on
 // the CUDA cores (32 rows at hd 256, whose four 64-row tiles would not
@@ -478,18 +481,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int QM = 64;               // queries per tile of the ring
 
 // hd <= 128: 128 keys a block, 64 a consumer, each consumer all hd
-// columns of its keys' dK and dV (2 x 64 registers a thread at hd 128). hd
-// 256 (SPLIT): that would be 256 registers a thread, and two 128-key K/V
-// tiles with a Q/dO ring would need 320 KB of shared memory; so a block
-// takes 64 keys, both consumers compute S^T and dP^T of the same 64 keys
-// (the two products twice) and each owns 128 of the 256 columns of dK and
-// dV, with a 2-stage ring (192 KB).
+// columns of its keys' dK and dV (2 x 64 registers a thread at hd 128),
+// with a 3-stage Q/dO ring. hd 256 has a kernel of its own
+// (fa_bwd_dkdv_hd256, below).
 template <int HD>
 struct DkvCfg : Atom<HD> {
-  static constexpr bool SPLIT = HD == 256;
-  static constexpr int KN = SPLIT ? 64 : 128;    // keys a block
-  static constexpr int DC = SPLIT ? HD / 2 : HD; // dK/dV columns a consumer
-  static constexpr int STAGES = SPLIT ? 2 : 3;   // the Q/dO ring
+  static_assert(HD <= 128, "hd 256 runs fa_bwd_dkdv_hd256");
+  static constexpr int KN = 128;                 // keys a block
+  static constexpr int STAGES = 3;               // the Q/dO ring
   static constexpr int KV_BYTES = KN * HD * 2;   // K or V, [NA][KN][AC]
   static constexpr int QT_BYTES = QM * HD * 2;   // Q or dO, [NA][QM][AC]
   static constexpr int SMEM = 2 * KV_BYTES + 2 * STAGES * QT_BYTES +
@@ -502,16 +501,100 @@ struct DkvCfg : Atom<HD> {
 // window), Q and dO (TMA) and the rows' log2-scaled log-sum-exp and D
 // (ordinary loads by warp 0's lanes: the float32 (B, Hq, S) rows are
 // 16-byte aligned only when S is a multiple of 4) into a ring of STAGES
-// stages. Each consumer warpgroup owns 64 keys (hd 256: the block's 64,
-// and half the columns): S^T = K Q^T and dP^T = V dO^T (SS wgmma), P^T
-// and dS^T in registers, dV += P^T dO and dK += dS^T Q (RS wgmma, dO and
-// Q MN-major).
-// With `split` > 1 (hd 256 only: too few key tiles to fill the card,
-// recurrentgemma's one KV head at batch 1) a block takes 1 / split of its
-// KV head's query heads and writes its unscaled float32 sums to `part`
-// (split, B, Hkv, T, hd) for dK, then for dV; `fa_bwd_kv_sum` adds the
-// parts in order. WIN: a sliding window (window > 0); the kernels without
-// one compile none of its tests.
+// stages. Each consumer warpgroup owns 64 keys: S^T = K Q^T and dP^T =
+// V dO^T (SS wgmma), P^T and dS^T in registers, dV += P^T dO and dK +=
+// dS^T Q (RS wgmma, dO and Q MN-major). WIN: a sliding window (window >
+// 0); the kernels without one compile none of its tests.
+// The dK/dV producer (warp 0 of warpgroup 0): K and V of the block's KN
+// keys once, then Q and dO of each of the n_it (query head, query tile)
+// pairs, with their rows' log2-scaled lse and D, into a ring of STAGES
+// stages behind full/empty mbarriers. h0: the block's first query head.
+template <int HD, int KN, int STAGES>
+__device__ __forceinline__ void dkdv_produce(
+    const CUtensorMap* tk, const CUtensorMap* tv, const CUtensorMap* tq,
+    const CUtensorMap* tdo, const float* __restrict__ lse,
+    const float* __restrict__ D, uint8_t* sK, uint8_t* sV, uint8_t* sQ,
+    uint8_t* sO, float* sL, float* sD, uint64_t* kv_full, uint64_t* full,
+    uint64_t* empty, int n_it, int nqt, int qt0, int k0, int hk, int b,
+    int h0, int Hq, int S) {
+  constexpr int KV_BYTES = KN * HD * 2, QT_BYTES = QM * HD * 2;
+  const int lane = threadIdx.x % 32;
+  if (lane == 0 && n_it > 0) {
+    bar_expect_tx(kv_full, 2 * KV_BYTES);
+    tma_tile<HD>(sK, tk, KN, k0, hk, b, kv_full);
+    tma_tile<HD>(sV, tv, KN, k0, hk, b, kv_full);
+  }
+  for (int j = 0; j < n_it; ++j) {
+    const int s = j % STAGES;
+    if (j >= STAGES) bar_wait(empty + s, (j / STAGES - 1) & 1);
+    const int gi = j / nqt, q0 = (qt0 + j - gi * nqt) * QM;
+    const int h = h0 + gi;
+    const long long row = ((long long)b * Hq + h) * S + q0;
+#pragma unroll
+    for (int r = lane; r < QM; r += 32) {
+      const bool in = q0 + r < S;
+      sL[s * QM + r] = in ? lse[row + r] * kLog2e : 0.0f;
+      sD[s * QM + r] = in ? D[row + r] : 0.0f;
+    }
+    if (lane == 0) {
+      bar_expect_tx(full + s, 2 * QT_BYTES);
+      tma_tile<HD>(sQ + s * QT_BYTES, tq, QM, q0, h, b, full + s);
+      tma_tile<HD>(sO + s * QT_BYTES, tdo, QM, q0, h, b, full + s);
+    } else {
+      bar_arrive(full + s);
+    }
+  }
+}
+
+// 2^x for P: at hd 256 the bare special-function instruction (ex2.approx
+// with denormal results flushed to 0), as the forward takes it there;
+// exp2f (the same instruction with a fixup of arguments below -126) at the
+// other head dims, which keep their bits.
+template <bool APPROX>
+__device__ __forceinline__ float exp2_p(float x) {
+  if constexpr (APPROX) {
+    float r;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+    return r;
+  } else {
+    return exp2f(x);
+  }
+}
+
+// P^T = exp(s scale - lse) of a consumer's 64 keys (the thread's rows
+// key_lo and key_lo + 8) and a query tile (from q0), in place of the
+// scores S^T in the accumulator layout; exactly 0 on dead pairs when
+// `masked` (some pair of the tile is dead).
+template <bool WIN, bool APPROX>
+__device__ __forceinline__ void p_tile(float (&st)[QM / 2], const float* lrow,
+                                       bool masked, int key_lo, int cq,
+                                       int q0, int S, int kv_len,
+                                       int q_offset, int causal, int window,
+                                       float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < QM / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * i + cq + e;
+      const float l2 = lrow[col];
+      float p_lo = exp2_p<APPROX>(st[4 * i + e] * scale_log2 - l2);
+      float p_hi = exp2_p<APPROX>(st[4 * i + 2 + e] * scale_log2 - l2);
+      if (masked) {
+        const long long qpos = (long long)q_offset + q0 + col;
+        const bool q_in = q0 + col < S;
+        if (!q_in || key_lo >= kv_len || (causal && key_lo > qpos) ||
+            (WIN && key_lo <= qpos - window))
+          p_lo = 0.0f;
+        if (!q_in || key_lo + 8 >= kv_len || (causal && key_lo + 8 > qpos) ||
+            (WIN && key_lo + 8 <= qpos - window))
+          p_hi = 0.0f;
+      }
+      st[4 * i + e] = p_lo;
+      st[4 * i + 2 + e] = p_hi;
+    }
+  }
+}
+
 template <int HD, bool WIN>
 __global__ void __launch_bounds__(kBlock, 1)
 fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
@@ -522,7 +605,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
                   bf16* __restrict__ dk, bf16* __restrict__ dv, Strides dks,
                   Strides dvs, int B, int Hkv, int G, int S, int T, int kv_len,
                   int q_offset, int causal, int window, float scale,
-                  float scale_log2, int split, float* __restrict__ part) {
+                  float scale_log2) {
   using C = DkvCfg<HD>;
   constexpr int KN = C::KN;
   extern __shared__ uint8_t smem_raw[];
@@ -543,14 +626,12 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
   // first key tiles, the longest under a causal mask
   const int hb = blockIdx.x % (Hkv * B);
   const int hk = hb % Hkv, b = hb / Hkv;
-  const int rest = blockIdx.x / (Hkv * B);
-  const int sp = C::SPLIT ? rest % split : 0;
-  const int k0 = (C::SPLIT ? rest / split : rest) * KN;
-  const int Hq = Hkv * G, Gs = C::SPLIT ? G / split : G, g0 = sp * Gs;
+  const int k0 = blockIdx.x / (Hkv * B) * KN;
+  const int Hq = Hkv * G;
   int qt0, qt1;                      // the query tiles that see the keys
   query_tiles(k0, KN, S, q_offset, causal, WIN ? window : 0, QM, qt0, qt1);
   const int nqt = k0 < kv_len && qt1 > qt0 ? qt1 - qt0 : 0;
-  const int n_it = Gs * nqt;         // this block's heads g0 .. g0 + Gs - 1
+  const int n_it = G * nqt;          // every query head of the group
 
   if (threadIdx.x == 0) {
     bar_init(kv_full, 1);
@@ -567,52 +648,25 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
                      kProducerRegs));
-    if (threadIdx.x < 32) {
-      if (lane == 0 && n_it > 0) {
-        bar_expect_tx(kv_full, 2 * C::KV_BYTES);
-        tma_tile<HD>(sK, &tk, KN, k0, hk, b, kv_full);
-        tma_tile<HD>(sV, &tv, KN, k0, hk, b, kv_full);
-      }
-      for (int j = 0; j < n_it; ++j) {
-        const int s = j % C::STAGES;
-        if (j >= C::STAGES) bar_wait(empty + s, (j / C::STAGES - 1) & 1);
-        const int gi = j / nqt, q0 = (qt0 + j - gi * nqt) * QM;
-        const int h = hk * G + g0 + gi;
-        const long long row = ((long long)b * Hq + h) * S + q0;
-#pragma unroll
-        for (int r = lane; r < QM; r += 32) {
-          const bool in = q0 + r < S;
-          sL[s * QM + r] = in ? lse[row + r] * kLog2e : 0.0f;
-          sD[s * QM + r] = in ? D[row + r] : 0.0f;
-        }
-        if (lane == 0) {
-          bar_expect_tx(full + s, 2 * C::QT_BYTES);
-          tma_tile<HD>(sQ + s * C::QT_BYTES, &tq, QM, q0, h, b, full + s);
-          tma_tile<HD>(sO + s * C::QT_BYTES, &tdo, QM, q0, h, b, full + s);
-        } else {
-          bar_arrive(full + s);
-        }
-      }
-    }
+    if (threadIdx.x < 32)
+      dkdv_produce<HD, KN, C::STAGES>(
+          &tk, &tv, &tq, &tdo, lse, D, sK, sV, sQ, sO, sL, sD, kv_full, full,
+          empty, n_it, nqt, qt0, k0, hk, b, hk * G, Hq, S);
   } else {
     // ----------------------------------------------------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
                      kConsumerRegs));
     const int w = wg - 1;
     const int warp = (threadIdx.x / 32) % 4;
-    // keys kw0 .. kw0 + 63, and dK/dV columns col0 .. col0 + DC - 1
-    const int kw0 = k0 + (C::SPLIT ? 0 : 64 * w);
-    const int col0 = C::SPLIT ? C::DC * w : 0;
+    const int kw0 = k0 + 64 * w;                     // keys kw0 .. kw0 + 63
     const int key_lo = kw0 + 16 * warp + lane / 4;   // and key_lo + 8
     const int cq = 2 * (lane % 4);
     const uint32_t k_addr = smem_u32(sK) + (kw0 - k0) * C::ATOM_B;
     const uint32_t v_addr = smem_u32(sV) + (kw0 - k0) * C::ATOM_B;
-    // the consumer's columns of a Q/dO tile: atoms col0 / AC on
-    const uint32_t col_b = (col0 / C::AC) * QM * C::ATOM_B;
 
-    float dk_acc[C::DC / 2], dv_acc[C::DC / 2];
+    float dk_acc[HD / 2], dv_acc[HD / 2];
 #pragma unroll
-    for (int i = 0; i < C::DC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+    for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
 
     if (n_it > 0) bar_wait(kv_full, 0);
     for (int j = 0; j < n_it; ++j) {
@@ -655,29 +709,8 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
                             (WIN &&
                              (long long)kw0 <=
                                  (long long)q_offset + q0 + QM - 1 - window);
-#pragma unroll
-        for (int i = 0; i < QM / 8; ++i) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = 8 * i + cq + e;
-            const float l2 = lrow[col];
-            float p_lo = exp2f(st[4 * i + e] * scale_log2 - l2);
-            float p_hi = exp2f(st[4 * i + 2 + e] * scale_log2 - l2);
-            if (masked) {
-              const long long qpos = (long long)q_offset + q0 + col;
-              const bool q_in = q0 + col < S;
-              if (!q_in || key_lo >= kv_len || (causal && key_lo > qpos) ||
-                  (WIN && key_lo <= qpos - window))
-                p_lo = 0.0f;
-              if (!q_in || key_lo + 8 >= kv_len ||
-                  (causal && key_lo + 8 > qpos) ||
-                  (WIN && key_lo + 8 <= qpos - window))
-                p_hi = 0.0f;
-            }
-            st[4 * i + e] = p_lo;
-            st[4 * i + 2 + e] = p_hi;
-          }
-        }
+        p_tile<WIN, false>(st, lrow, masked, key_lo, cq, q0, S, kv_len,
+                           q_offset, causal, window, scale_log2);
 
         // dV += P^T dO (P^T rounded to bf16)
         uint32_t fa[QM / 16][4];
@@ -686,7 +719,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < QM / 16; ++kk)
-          wgmma_rs(dv_acc, fa[kk], desc_mnmajor<HD>(o_addr + col_b, QM, kk));
+          wgmma_rs(dv_acc, fa[kk], desc_mnmajor<HD>(o_addr, QM, kk));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dpt);
@@ -707,7 +740,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < QM / 16; ++kk)
-          wgmma_rs(dk_acc, fa[kk], desc_mnmajor<HD>(q_addr + col_b, QM, kk));
+          wgmma_rs(dk_acc, fa[kk], desc_mnmajor<HD>(q_addr, QM, kk));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dk_acc);
@@ -715,7 +748,263 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
       if (lane == 0) bar_arrive(empty + s);
     }
 
-    if (C::SPLIT && part != nullptr) {   // this split's float32 sums
+    bf16* kb = dk + b * dks.b + hk * dks.h;
+    bf16* vb = dv + b * dvs.b + hk * dvs.h;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = key_lo + 8 * half;
+      if (key >= T) continue;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        const int c = 8 * i + cq, a = 4 * i + 2 * half;
+        *reinterpret_cast<__nv_bfloat162*>(kb + (long long)key * dks.s + c) =
+            __floats2bfloat162_rn(dk_acc[a] * scale, dk_acc[a + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(vb + (long long)key * dvs.s + c) =
+            __floats2bfloat162_rn(dv_acc[a], dv_acc[a + 1]);
+      }
+    }
+  }
+}
+
+// ------------------------------------ dK, dV at hd 256: 64 keys a block
+
+// 64 keys x 256 columns of dK and dV a consumer would take 256 registers
+// a thread, and two 128-key K/V tiles with a Q/dO ring 320 KB of shared
+// memory; so a block takes 64 keys, and each of its two consumers owns 128
+// of the 256 columns of dK and dV. The score products are not computed
+// twice: consumer 0 computes S^T = K Q^T and P^T, consumer 1 dP^T = V dO^T
+// and dS^T = P^T o (dP^T - D), and each hands its result to the other
+// through shared memory. Both products' accumulators have one layout, so
+// thread t of one consumer holds the very elements that thread t of the
+// other needs: P^T goes over in float32 (dS^T is formed from it, as
+// before), dS^T as its bf16 A fragments, each thread its own column of
+// the exchange buffers (no bank conflicts, no swizzle, no async proxy:
+// both sides read and write them with ordinary instructions). Two named
+// barriers of both consumers a tile (P^T written; dS^T written) order the
+// handoffs, and since every thread meets both each tile, one buffer of
+// each suffices: consumer 0 writes the next P^T only after the dS^T
+// barrier, which consumer 1 meets after reading this P^T; consumer 1
+// writes the next dS^T only after the next P^T barrier, which consumer 0
+// meets after reading this dS^T. Each consumer then runs dV += P^T dO and
+// dK += dS^T Q over its 128 columns, both from registers (RS), the dV
+// product issued before the dS^T barrier. Four products of a 64 x 64 tile
+// over hd 256 a tile where the earlier design ran six, the values entering
+// each product unchanged. P's exponentials are ex2.approx, as the forward's
+// at hd 256 (exp2f added 0.06 ms to this kernel's 0.54 on an H100).
+// What sets the pace (variants of this source timed in one call on an
+// H100 at recurrentgemma-9b's training shape, 0.54 ms then): the two score
+// products, whose operands both come from shared memory (4 KB a k16 step
+// for a 64 x 64 x 16 product, about what the tensor cores take in the same
+// time, and both consumers issue them): they and the softmax and the
+// handoffs alone took 0.45 ms, the dV and dK products 0.09 more; loading
+// the Q/dO ring alone took 0.24 ms and overlaps the rest (without the
+// loads the kernel took no less, nor with each tile's copies issued
+// before its rows' loads); the handoffs' barriers cost 0.07.
+struct DkvHd256 : Atom<256> {
+  static constexpr int HD = 256;
+  static constexpr int KN = 64;                  // keys a block
+  static constexpr int DC = HD / 2;              // dK/dV columns a consumer
+  static constexpr int STAGES = 2;               // the Q/dO ring
+  static constexpr int KV_BYTES = KN * HD * 2;   // K or V, [NA][KN][AC]
+  static constexpr int QT_BYTES = QM * HD * 2;   // Q or dO, [NA][QM][AC]
+  static constexpr int XP_BYTES = 128 * (QM / 2) * 4;    // P^T, float32
+  static constexpr int XS_BYTES = 128 * (QM / 16) * 16;  // dS^T fragments
+  static constexpr int SMEM = 2 * KV_BYTES + 2 * STAGES * QT_BYTES +
+                              2 * STAGES * QM * 4 + XP_BYTES + XS_BYTES +
+                              1024 + 64;
+};
+constexpr int kBarP = 1, kBarS = 2;  // named barriers: P^T, dS^T written
+
+// One block per (64-key tile, kv head, batch), or with `split` > 1 (too
+// few key tiles to fill the card: recurrentgemma's one KV head at batch
+// 1) per (64-key tile, 1 / split of the KV head's query heads, kv head,
+// batch), writing unscaled float32 sums to `part` (split, B, Hkv, T, hd)
+// for dK, then for dV, which `fa_bwd_kv_sum` adds in part order. The
+// producer and the ring are fa_bwd_dkdv_wgmma's, with two stages.
+template <bool WIN>
+__global__ void __launch_bounds__(kBlock, 1)
+fa_bwd_dkdv_hd256(const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse, const float* __restrict__ D,
+                  bf16* __restrict__ dk, bf16* __restrict__ dv, Strides dks,
+                  Strides dvs, int B, int Hkv, int G, int S, int T, int kv_len,
+                  int q_offset, int causal, int window, float scale,
+                  float scale_log2, int split, float* __restrict__ part) {
+  using C = DkvHd256;
+  constexpr int HD = C::HD, KN = C::KN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sK = smem;
+  uint8_t* sV = sK + C::KV_BYTES;
+  uint8_t* sQ = sV + C::KV_BYTES;                   // [stage]
+  uint8_t* sO = sQ + C::STAGES * C::QT_BYTES;       // [stage]
+  float* sL = reinterpret_cast<float*>(sO + C::STAGES * C::QT_BYTES);
+  float* sD = sL + C::STAGES * QM;
+  float4* xp = reinterpret_cast<float4*>(sD + C::STAGES * QM);  // [8][128]
+  uint4* xs = reinterpret_cast<uint4*>(sD + C::STAGES * QM +
+                                       C::XP_BYTES / 4);        // [4][128]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(xs) + C::XS_BYTES);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + C::STAGES;
+
+  // block order: key tile slowest, then the split's part
+  const int hb = blockIdx.x % (Hkv * B);
+  const int hk = hb % Hkv, b = hb / Hkv;
+  const int rest = blockIdx.x / (Hkv * B);
+  const int sp = rest % split, k0 = rest / split * KN;
+  const int Hq = Hkv * G, Gs = G / split;
+  int qt0, qt1;                      // the query tiles that see the keys
+  query_tiles(k0, KN, S, q_offset, causal, WIN ? window : 0, QM, qt0, qt1);
+  const int nqt = k0 < kv_len && qt1 > qt0 ? qt1 - qt0 : 0;
+  const int n_it = Gs * nqt;         // heads sp Gs .. sp Gs + Gs - 1
+
+  if (threadIdx.x == 0) {
+    bar_init(kv_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      bar_init(full + s, 32);                      // warp 0's lanes
+      bar_init(empty + s, 8);                      // the consumers' warps
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     kProducerRegs));
+    if (threadIdx.x < 32)
+      dkdv_produce<HD, KN, C::STAGES>(
+          &tk, &tv, &tq, &tdo, lse, D, sK, sV, sQ, sO, sL, sD, kv_full, full,
+          empty, n_it, nqt, qt0, k0, hk, b, hk * G + sp * Gs, Hq, S);
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     kConsumerRegs));
+    const int w = wg - 1;            // 0: S^T and P^T; 1: dP^T and dS^T
+    const int t = threadIdx.x % 128, warp = t / 32;
+    const int col0 = C::DC * w;      // dK/dV columns col0 .. col0 + 127
+    const int key_lo = k0 + 16 * warp + lane / 4;   // and key_lo + 8
+    const int cq = 2 * (lane % 4);
+    // this consumer's score product: K Q^T or V dO^T
+    const uint32_t a_addr = smem_u32(w == 0 ? sK : sV);
+    // the consumer's columns of a Q/dO tile: atoms col0 / AC on
+    const uint32_t col_b = (col0 / C::AC) * QM * C::ATOM_B;
+
+    float dk_acc[C::DC / 2], dv_acc[C::DC / 2];
+#pragma unroll
+    for (int i = 0; i < C::DC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+    if (n_it > 0) bar_wait(kv_full, 0);
+    for (int j = 0; j < n_it; ++j) {
+      const int s = j % C::STAGES, ph = (j / C::STAGES) & 1;
+      const int q0 = (qt0 + j - j / nqt * nqt) * QM;
+      bar_wait(full + s, ph);
+      // keys all padded, all after every query of the tile, or all at or
+      // before every query's window: P^T = 0 (both consumers agree)
+      const bool idle = k0 >= kv_len ||
+                        (causal && (long long)k0 >
+                                       (long long)q_offset + q0 + QM - 1) ||
+                        (WIN && (long long)k0 + 63 <=
+                                    (long long)q_offset + q0 - window);
+      if (!idle) {
+        const uint32_t q_addr = smem_u32(sQ + s * C::QT_BYTES);
+        const uint32_t o_addr = smem_u32(sO + s * C::QT_BYTES);
+
+        // S^T = K Q^T (consumer 0) or dP^T = V dO^T (consumer 1) over hd
+        float sc[QM / 2];
+        const uint32_t b_addr = w == 0 ? q_addr : o_addr;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss(sc, desc_kmajor<HD>(a_addr, KN, kk),
+                   desc_kmajor<HD>(b_addr, QM, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+
+        uint32_t fp[QM / 16][4], fs[QM / 16][4];   // P^T, dS^T in bf16
+        if (w == 0) {
+          // P^T = exp(s scale - lse) on live pairs, exactly 0 elsewhere
+          const bool masked =
+              q0 + QM > S || k0 + 64 > kv_len ||
+              (causal && (long long)k0 + 63 > (long long)q_offset + q0) ||
+              (WIN && (long long)k0 <=
+                          (long long)q_offset + q0 + QM - 1 - window);
+          p_tile<WIN, true>(sc, sL + s * QM, masked, key_lo, cq, q0, S,
+                            kv_len, q_offset, causal, window, scale_log2);
+#pragma unroll
+          for (int i = 0; i < QM / 8; ++i)
+            xp[i * 128 + t] = make_float4(sc[4 * i], sc[4 * i + 1],
+                                          sc[4 * i + 2], sc[4 * i + 3]);
+          named_sync(kBarP, 256);
+          to_a_frags(fp, sc);
+        } else {
+          named_sync(kBarP, 256);
+          float p[QM / 2];
+#pragma unroll
+          for (int i = 0; i < QM / 8; ++i) {
+            const float4 v = xp[i * 128 + t];
+            p[4 * i] = v.x, p[4 * i + 1] = v.y;
+            p[4 * i + 2] = v.z, p[4 * i + 3] = v.w;
+          }
+          // dS^T = P^T o (dP^T - D)
+          const float* drow = sD + s * QM;
+#pragma unroll
+          for (int i = 0; i < QM / 8; ++i) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float d = drow[8 * i + cq + e];
+              sc[4 * i + e] = p[4 * i + e] * (sc[4 * i + e] - d);
+              sc[4 * i + 2 + e] = p[4 * i + 2 + e] * (sc[4 * i + 2 + e] - d);
+            }
+          }
+          to_a_frags(fp, p);
+          to_a_frags(fs, sc);
+#pragma unroll
+          for (int k = 0; k < QM / 16; ++k)
+            xs[k * 128 + t] = make_uint4(fs[k][0], fs[k][1], fs[k][2],
+                                         fs[k][3]);
+        }
+
+        // dV += P^T dO over the consumer's columns (P^T rounded to bf16)
+        fence_regs(dv_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < QM / 16; ++kk)
+          wgmma_rs(dv_acc, fp[kk], desc_mnmajor<HD>(o_addr + col_b, QM, kk));
+        wgmma_commit();
+
+        // dK += dS^T Q over the consumer's columns (dS^T rounded)
+        named_sync(kBarS, 256);
+        if (w == 0) {
+#pragma unroll
+          for (int k = 0; k < QM / 16; ++k) {
+            const uint4 v = xs[k * 128 + t];
+            fs[k][0] = v.x, fs[k][1] = v.y, fs[k][2] = v.z, fs[k][3] = v.w;
+          }
+        }
+        fence_regs(dk_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < QM / 16; ++kk)
+          wgmma_rs(dk_acc, fs[kk], desc_mnmajor<HD>(q_addr + col_b, QM, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(fp);
+        fence_regs(fs);
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+      }
+      if (lane == 0) bar_arrive(empty + s);
+    }
+
+    if (part != nullptr) {           // this split's float32 sums
       const long long n = (long long)split * B * Hkv * T * HD;
       float* pk = part + (((long long)sp * B + b) * Hkv + hk) * T * HD;
 #pragma unroll
@@ -783,17 +1072,44 @@ fa_bwd_kv_sum(const float* __restrict__ part, bf16* __restrict__ dk,
       __floats2bfloat162_rn(sv.x, sv.y);
 }
 
+// D (64 x 48, fp32) {=, +=} A (64 x 16) . B (16 x 48); A and B K-major in
+// shared memory (descriptors da, db): the dQ kernel's scores over a 48-key
+// tile at hd 256.
+__device__ __forceinline__ void wgmma_ss(float (&d)[24], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+using hopper::wgmma_ss;   // beside the overloads hopper.cuh defines
+
 // ----------------------------------------------- dQ: 128 queries a block
 
 constexpr int QB = 128;              // queries per block, 64 per consumer
 
-// hd <= 128: 128-key tiles through a 2-stage ring. hd 256: 64-key tiles,
-// as the forward takes them there, and one stage: the block's Q and dO
-// (128 KB) and two stages of K and V (128 KB) would not fit.
+// hd <= 128: 128-key tiles through a 2-stage ring. hd 256: 48-key tiles
+// through a 2-stage ring, so that the next tile lands while the consumers
+// work on this one: the block's Q and dO take 128 KB, and two stages of
+// 64-key K and V tiles (128 KB) would not fit beside them; two of 48 keys
+// take 96 KB. Timed at recurrentgemma-9b's training shape on an H100, the
+// dQ kernel took 0.304 ms with 48-key tiles, 0.384 with 32 (m64n32
+// products, each reading its 2 KB A tile for half the work of an m64n64)
+// and 0.330 with one stage of 64 (the earlier design: the consumers waited
+// for every tile's loads).
 template <int HD>
 struct DqCfg : Atom<HD> {
-  static constexpr int KT = HD == 256 ? 64 : 128;  // keys a tile
-  static constexpr int STAGES = HD == 256 ? 1 : 2; // the K/V ring
+  static constexpr int KT = HD == 256 ? 48 : 128;  // keys a tile
+  static constexpr int STAGES = 2;                 // the K/V ring
   static constexpr int Q_BYTES = QB * HD * 2;    // Q or dO, [NA][QB][AC]
   static constexpr int KV_BYTES = KT * HD * 2;   // K or V, [NA][KT][AC]
   static constexpr int SMEM = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 1024 +
@@ -928,8 +1244,10 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
         for (int i = 0; i < KT / 8; ++i) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            float p_lo = exp2f(sacc[4 * i + e] * scale_log2 - l2_lo);
-            float p_hi = exp2f(sacc[4 * i + 2 + e] * scale_log2 - l2_hi);
+            float p_lo =
+                exp2_p<HD == 256>(sacc[4 * i + e] * scale_log2 - l2_lo);
+            float p_hi =
+                exp2_p<HD == 256>(sacc[4 * i + 2 + e] * scale_log2 - l2_hi);
             if (masked) {
               const int kpos = k0 + 8 * i + cq + e;
               const bool pad = kpos >= kv_len;
@@ -1000,18 +1318,77 @@ struct Args {
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
 };
 
+// The dK/dV kernel of a head dim (launched with its shared memory and
+// register check): fa_bwd_dkdv_hd256 at hd 256, with its head split and
+// the parts' sum; fa_bwd_dkdv_wgmma below.
+template <int HD, bool WIN>
+int launch_dkdv(const Args& a, const CUtensorMap& tk, const CUtensorMap& tv,
+                const CUtensorMap& tq, const CUtensorMap& tdo, int G,
+                float scale_log2, cudaStream_t stream) {
+  using namespace tc;
+  if constexpr (HD == 256) {
+    constexpr int KN = DkvHd256::KN;
+    cudaError_t e = cudaFuncSetAttribute(
+        fa_bwd_dkdv_hd256<WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        DkvHd256::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    e = check_regs(fa_bwd_dkdv_hd256<WIN>, kBlock, kProducerRegs,
+                   kConsumerRegs);
+    if (e != cudaSuccess) return (int)e;
+    const long long nkv =
+        (long long)(a.T + KN - 1) / KN * a.Hkv * a.B * a.split;
+    const long long pairs = (long long)a.B * a.Hkv * a.T * HD / 2;
+    if (nkv > 0x7fffffffLL || (pairs + 255) / 256 > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    fa_bwd_dkdv_hd256<WIN><<<(unsigned)nkv, kBlock, DkvHd256::SMEM,
+                             stream>>>(
+        tk, tv, tq, tdo, a.lse, a.D, (bf16*)a.dk, (bf16*)a.dv, a.dks, a.dvs,
+        a.B, a.Hkv, G, a.S, a.T, a.kv_len, a.q_offset, a.causal, a.window,
+        a.scale, scale_log2, a.split, a.split > 1 ? a.part : nullptr);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || a.split == 1) return (int)e;
+    fa_bwd_kv_sum<HD><<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
+        a.part, (bf16*)a.dk, (bf16*)a.dv, a.dks, a.dvs, a.B, a.Hkv, a.T,
+        a.split, a.scale);
+    return (int)cudaGetLastError();
+  } else {
+    constexpr int KN = DkvCfg<HD>::KN;
+    if (a.split > 1) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        fa_bwd_dkdv_wgmma<HD, WIN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, DkvCfg<HD>::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    e = check_regs(fa_bwd_dkdv_wgmma<HD, WIN>, kBlock, kProducerRegs,
+                   kConsumerRegs);
+    if (e != cudaSuccess) return (int)e;
+    const long long nkv = (long long)(a.T + KN - 1) / KN * a.Hkv * a.B;
+    if (nkv > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    fa_bwd_dkdv_wgmma<HD, WIN>
+        <<<(unsigned)nkv, kBlock, DkvCfg<HD>::SMEM, stream>>>(
+        tk, tv, tq, tdo, a.lse, a.D, (bf16*)a.dk, (bf16*)a.dv, a.dks, a.dvs,
+        a.B, a.Hkv, G, a.S, a.T, a.kv_len, a.q_offset, a.causal, a.window,
+        a.scale, scale_log2);
+    return (int)cudaGetLastError();
+  }
+}
+
 template <int HD, bool WIN>
 int launch_tc(const Args& a, cudaStream_t stream) {
   using namespace tc;
   if (!encode_fn()) return (int)cudaErrorSymbolNotFound;
-  // boxes: KN-row K/V tiles (both kernels: 128 rows, 64 at hd 256),
-  // 64-row Q/dO tiles (dK/dV), 128-row Q/dO tiles (dQ)
-  constexpr int KN = DkvCfg<HD>::KN;
-  static_assert(DqCfg<HD>::KT == KN,
-                "both kernels read K and V in boxes of KN rows");
-  CUtensorMap kkn, vkn, q64, do64, q128, do128;
+  // boxes: K/V tiles of the dK/dV kernel's KN rows (128, 64 at hd 256) and
+  // of the dQ kernel's KT rows (128, 48 at hd 256), 64-row Q/dO tiles
+  // (dK/dV), 128-row Q/dO tiles (dQ)
+  constexpr int KN = [] {
+    if constexpr (HD == 256) return DkvHd256::KN;
+    else return DkvCfg<HD>::KN;
+  }();
+  constexpr int KT = DqCfg<HD>::KT;
+  CUtensorMap kkn, vkn, kkt, vkt, q64, do64, q128, do128;
   if (!make_map<HD>(&kkn, a.k, a.T, a.Hkv, a.B, a.ks, KN) ||
       !make_map<HD>(&vkn, a.v, a.T, a.Hkv, a.B, a.vs, KN) ||
+      !make_map<HD>(&kkt, a.k, a.T, a.Hkv, a.B, a.ks, KT) ||
+      !make_map<HD>(&vkt, a.v, a.T, a.Hkv, a.B, a.vs, KT) ||
       !make_map<HD>(&q64, a.q, a.S, a.Hq, a.B, a.qs, QM) ||
       !make_map<HD>(&do64, a.dO, a.S, a.Hq, a.B, a.dos, QM) ||
       !make_map<HD>(&q128, a.q, a.S, a.Hq, a.B, a.qs, QB) ||
@@ -1019,50 +1396,23 @@ int launch_tc(const Args& a, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   const int G = a.Hq / a.Hkv;
   const float scale_log2 = (float)((double)a.scale * 1.4426950408889634);
+  const long long nq = (long long)(a.S + QB - 1) / QB * a.Hq * a.B;
+  if (nq > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+
+  int err = launch_dkdv<HD, WIN>(a, kkn, vkn, q64, do64, G, scale_log2,
+                                 stream);
+  if (err) return err;
 
   cudaError_t e = cudaFuncSetAttribute(
-      fa_bwd_dkdv_wgmma<HD, WIN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, DkvCfg<HD>::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  e = check_regs(fa_bwd_dkdv_wgmma<HD, WIN>, kBlock, kProducerRegs,
-                 kConsumerRegs);
-  if (e != cudaSuccess) return (int)e;
-  const long long nkv =
-      (long long)(a.T + KN - 1) / KN * a.Hkv * a.B * a.split;
-  const long long nq = (long long)(a.S + QB - 1) / QB * a.Hq * a.B;
-  const long long pairs = (long long)a.B * a.Hkv * a.T * HD / 2;
-  if (nkv > 0x7fffffffLL || nq > 0x7fffffffLL ||
-      (pairs + 255) / 256 > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  fa_bwd_dkdv_wgmma<HD, WIN>
-      <<<(unsigned)nkv, kBlock, DkvCfg<HD>::SMEM, stream>>>(
-      kkn, vkn, q64, do64, a.lse, a.D, (bf16*)a.dk, (bf16*)a.dv, a.dks,
-      a.dvs, a.B, a.Hkv, G, a.S, a.T, a.kv_len, a.q_offset, a.causal,
-      a.window, a.scale, scale_log2, a.split,
-      a.split > 1 ? a.part : nullptr);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  if constexpr (DkvCfg<HD>::SPLIT) {   // the only head dim that splits
-    if (a.split > 1) {
-      fa_bwd_kv_sum<HD><<<(unsigned)((pairs + 255) / 256), 256, 0,
-                          stream>>>(a.part, (bf16*)a.dk, (bf16*)a.dv, a.dks,
-                                    a.dvs, a.B, a.Hkv, a.T, a.split,
-                                    a.scale);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return (int)e;
-    }
-  }
-
-  e = cudaFuncSetAttribute(fa_bwd_dq_wgmma<HD, WIN>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           DqCfg<HD>::SMEM);
+      fa_bwd_dq_wgmma<HD, WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DqCfg<HD>::SMEM);
   if (e != cudaSuccess) return (int)e;
   e = check_regs(fa_bwd_dq_wgmma<HD, WIN>, kBlock, kProducerRegs,
                  kConsumerRegs);
   if (e != cudaSuccess) return (int)e;
   fa_bwd_dq_wgmma<HD, WIN>
       <<<(unsigned)nq, kBlock, DqCfg<HD>::SMEM, stream>>>(
-      q128, do128, kkn, vkn, a.lse, a.D, (bf16*)a.dq, a.dqs, a.B, a.Hq, G,
+      q128, do128, kkt, vkt, a.lse, a.D, (bf16*)a.dq, a.dqs, a.B, a.Hq, G,
       a.S, a.kv_len, a.q_offset, a.causal, a.window, a.scale, scale_log2);
   return (int)cudaGetLastError();
 }
@@ -1077,7 +1427,6 @@ int launch(const Args& a, cudaStream_t stream) {
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if constexpr (sizeof(T) == 2) {
-    if (a.split > 1 && HD != 256) return (int)cudaErrorInvalidValue;
     return a.window > 0 ? launch_tc<HD, true>(a, stream)
                         : launch_tc<HD, false>(a, stream);
   } else {                    // float32 on the CUDA cores

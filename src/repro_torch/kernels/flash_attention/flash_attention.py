@@ -28,8 +28,10 @@ k, v, o and do; float32 runs on the CUDA cores. ``BWD_COUNTER`` counts its
 calls. It takes the forward's ``window`` (the dK/dV kernel walks the query
 tiles from the causal limit to the window's end, the dQ kernel the key
 tiles from the window's start) and every head dim of the forward
-(``BWD_HEAD_DIMS``): at 256 a dK/dV block takes 64 keys and its two
-consumers split the head dim, and the dQ kernel 64-key tiles.
+(``BWD_HEAD_DIMS``): at 256 a dK/dV block takes 64 keys, one consumer
+computes the scores and P, the other dP and dS, they hand them to each
+other through shared memory and each owns half the head dim of dK and dV;
+the dQ kernel takes 48-key tiles through a two-stage ring there.
 
 The library is built with ``nvcc`` at the first launch (see
 ``repro_torch.kernels._build``). The wrapper checks its inputs, allocates
@@ -170,10 +172,10 @@ def dkdv_split(B: int, Hkv: int, T: int, hd: int, G: int, sms: int) -> int:
     heads into. At hd 256 (64-key blocks, each walking every query head of
     its group) where the blocks do not fill the card's ``sms``
     multiprocessors: doubled (as G allows) until they fill it twice over
-    (at recurrentgemma's shape, on an H100: 1.59 ms device for the dK/dV
-    kernel unsplit, 0.80 at 2 parts, 0.76 at 4, 0.63 at 8, 0.67 at 16);
-    else 1. The parts' float32 sums are added in order by a fourth kernel,
-    so two calls stay bit-equal."""
+    (at recurrentgemma's shape, on an H100, a whole call by
+    ``tools/kernel_ab.py``: 1.58 ms unsplit, 0.99 at 2 parts, 0.96 at 4,
+    0.86 at 8, 0.92 at 16); else 1. The parts' float32 sums are added in
+    order by a fourth kernel, so two calls stay bit-equal."""
     blocks = -(-T // 64) * Hkv * B
     split = 1
     if hd == 256 and blocks < sms:

@@ -135,22 +135,20 @@ def rglru_bytes(B: int, S: int, W: int, itemsize: int) -> int:
 
 
 def rglru_bwd_flops(B: int, S: int, W: int) -> float:
-    """Float32 operations of a backward call, ~60 an element: a first walk
-    that maps each chunk's carry (the decay's sigmoid and exponential, the
-    carry's sum and product and the decays' product, ~10), and a second
-    that recomputes the gates (~20) and runs the chain and the gradients
-    of beta, the input gate, the decay and x with the parameters' sums
-    (~30)."""
-    return 60.0 * B * S * W
+    """Float32 operations of a backward call, ~50 an element: the gates
+    (~20, the forward's), the four coefficients the element's dh_t
+    multiplies (the derivatives of beta, the input gate and the decay,
+    ~20), the reverse chain's multiply-add, and dxb's product with the
+    parameters' three sums (~8)."""
+    return 50.0 * B * S * W
 
 
 def rglru_bwd_sfu_ops(B: int, S: int, W: int) -> float:
-    """Special-function operations of a backward call, 11 an element: the
-    first walk's two exponentials and a division, the second walk's four
-    exponentials, three divisions (two sigmoids and 0.5 / beta) and a
-    square root. Not a bound by the port's rule, but what paces the
-    kernel, as in the forward."""
-    return 11.0 * B * S * W
+    """Special-function operations of a backward call, 8 an element: four
+    exponentials (two inside the sigmoids), three divisions (the sigmoids'
+    and 1 / beta: a reciprocal each) and beta's square root. Not a bound
+    by the port's rule, but what paces the kernel, as in the forward."""
+    return 8.0 * B * S * W
 
 
 def rglru_bwd_bytes(B: int, S: int, W: int, itemsize: int) -> int:

@@ -9,12 +9,13 @@ runs the chain, store warps write H). When a gradient is wanted
 (``keep_states``) its store warps also write H in float32, which K5'
 reads: the states before the cast.
 
-K5': dxb and the gates' parameters' gradients, two launches a call: the
-reverse chain dh_t = dH_t + a_{t+1} dh_{t+1} in a block per 32 channels of
-a batch row, the sequence cut into 32 chunks, a warp a chunk (each warp
-maps its chunk's carry, one warp chains the 32 maps, each warp walks its
-chunk again with its carry and the gates' derivatives), then a small pass
-that sums the per-row parameter sums over the batch in order.
+K5': dxb and the gates' parameters' gradients, two launches a call: one
+pass over the sequence from its end in a block per 32 channels of a batch
+row, on K5's tiled ring (worker warps load xb, dH and the states a tile
+ahead and compute each element's gates once, with the four coefficients
+its dh multiplies; one walker warp runs the reverse chain, one FMA a step;
+the workers then write dxb and keep the parameters' sums), then a small
+pass that sums the per-row parameter sums over the batch in order.
 
 The library is built with ``nvcc`` at the first launch (see
 ``repro_torch.kernels._build``). The wrapper checks its inputs, allocates

@@ -15,11 +15,12 @@ tail, d 64, 4 query heads over 1 KV head of 16, window 8, ``lru_width``
   whose beta takes the 1e-12 clip: each float32 gradient within 1e-5 of
   its largest magnitude; the plain autograd function (``rglru_plain``)
   against ordinary autograd of a ``torch.stack``-built loop, the same;
-- a plain emulation of K5''s decomposition (32 chunks a row, each chunk's
-  map of its incoming carry, the maps chained from the last chunk, each
-  chunk walked again with its carry, per-chunk parameter sums added in
-  chunk order) against ``rglru_bwd_ref`` at S = 127, 128, 129, 383 and
-  385, 1e-5 (the kernel's own source runs on the CPU in
+- a plain emulation of K5''s decomposition (one walk from the end in
+  tiles of 44 steps, each element's gates once as a decay and the four
+  coefficients its dh multiplies, the chain dh_t = dH_t + a_{t+1}
+  dh_{t+1}, each tile row's parameter sums kept apart and added in row
+  order) against ``rglru_bwd_ref`` at S = 127, 128, 129, 383 and 385,
+  1e-5 (the kernel's own source runs on the CPU in
   ``tests/test_torch_rglru_shim.py``);
 - the plain windowed attention backward (autograd of ``attention_ref``
   with the window, and ``attention_bwd_ref`` with it, K3''s equations)
@@ -193,59 +194,48 @@ def test_plain_autograd_function_matches_autograd_of_a_loop(with_last):
         assert _rel(g, w) <= FN_TOL, (name, _rel(g, w))
 
 
-def _chunked_like_the_kernel(xb, wa, wi, lam, h0, H, dH, dh_last,
-                             chunks=32):
-    """K5''s decomposition in plain float32: each batch row's sequence in
-    ``chunks`` chunks of ceil(S / chunks) steps; (1) each chunk, walked
-    from its last step with no carry in, maps an incoming carry c to
-    alpha + beta c; (2) the maps chained from the last chunk, from
-    dh_last, give each chunk its carry and dh0; (3) each chunk walked
-    again with its carry gives dxb and its parameter sums, added in chunk
-    order, then over the batch in order. This holds the decomposition,
-    not the kernel: the kernel's own source runs on the CPU in
-    ``tests/test_torch_rglru_shim.py``."""
+def _walked_like_the_kernel(xb, wa, wi, lam, h0, H, dH, dh_last,
+                            steps=44):
+    """K5''s decomposition in plain float32: each batch row walked once
+    from its end in tiles of ``steps`` steps (its float32 tile); every
+    element's gates computed once, as its decay a and the four
+    coefficients that its dh multiplies (dxb's, and the dwa, dwi and dlam
+    terms': all linear in dh); the chain dh_t = dH_t + a_{t+1} dh_{t+1};
+    the parameter sums kept apart for each row of a tile (a worker's) over
+    the tiles in walk order, then added in row order, then over the batch
+    in order. This holds the decomposition, not the kernel: the kernel's
+    own source runs on the CPU in ``tests/test_torch_rglru_shim.py``."""
     B, S, W = xb.shape
     c = -DECAY_SCALE * torch.nn.functional.softplus(lam)
-    L = -(-S // chunks)
-    bounds = [(min(S, k * L), min(S, k * L + L)) for k in range(chunks)]
-    alpha, beta = [], []
-    for t0, t1 in bounds:
-        carry, prod = torch.zeros(B, W), torch.ones(B, W)
-        for t in range(t1 - 1, t0 - 1, -1):
-            a = torch.exp(c * torch.sigmoid(xb[:, t] * wa))
-            carry = a * (dH[:, t] + carry)
-            prod = prod * a
-        alpha.append(carry)
-        beta.append(prod)
-    cin, carry = [None] * chunks, dh_last.clone()
-    for k in range(chunks - 1, -1, -1):
-        cin[k] = carry
-        carry = alpha[k] + beta[k] * carry
-    dh0, dxb = carry, torch.empty_like(xb)
-    sums = torch.zeros(3, B, W)
-    for k, (t0, t1) in enumerate(bounds):
-        carry, part = cin[k], torch.zeros(3, B, W)
-        for t in range(t1 - 1, t0 - 1, -1):
-            x = xb[:, t]
-            ra = torch.sigmoid(x * wa)
-            log_a = c * ra
-            a, e2 = torch.exp(log_a), torch.exp(2.0 * log_a)
-            u = 1.0 - e2
-            bt = torch.sqrt(torch.clamp_min(u, 1e-12))
-            gi = torch.sigmoid(x * wi)
-            hp = H[:, t - 1] if t > 0 else h0
-            dh = dH[:, t] + carry
-            carry = a * dh
-            du = torch.where(u > 1e-12, dh * gi * x * 0.5 / bt,
+    ra = torch.sigmoid(xb * wa)
+    log_a = c * ra
+    a, e2 = torch.exp(log_a), torch.exp(2.0 * log_a)
+    u = 1.0 - e2
+    bt = torch.sqrt(torch.clamp_min(u, 1e-12))
+    gi = torch.sigmoid(xb * wi)
+    hp = torch.cat([h0[:, None], H[:, :-1]], dim=1)
+    m = hp * a - torch.where(u > 1e-12, e2 * gi * xb / bt,
                              torch.zeros_like(u))
-            dlog_a = dh * hp * a - 2.0 * e2 * du
-            dza = dlog_a * c * ra * (1.0 - ra)
-            dzi = dh * bt * x * gi * (1.0 - gi)
-            dxb[:, t] = dh * bt * gi + dza * wa + dzi * wi
-            part += torch.stack([dza * x, dzi * x, dlog_a * ra])
-        sums += part
+    sa = c * ra * (1.0 - ra) * m
+    si = bt * xb * gi * (1.0 - gi)
+    k_dx = bt * gi + sa * wa + si * wi
+    k_sum = torch.stack([sa * xb, si * xb, m * ra])          # (3, B, S, W)
+    dh = torch.empty_like(xb)
+    g, a_next = dh_last.clone(), torch.ones(B, W)
+    for t in range(S - 1, -1, -1):
+        g = dH[:, t] + a_next * g
+        dh[:, t], a_next = g, a[:, t]
+    rows = torch.zeros(steps, 3, B, W)           # a tile row's sums
+    nt = -(-S // steps)
+    for i in range(nt):                          # walk order
+        for r in range(steps):
+            t = S - (i + 1) * steps + r
+            if t >= 0:
+                rows[r] += dh[:, t] * k_sum[:, :, t]
+    sums = rows.sum(0)                           # in row order
     dlam = -DECAY_SCALE * torch.sigmoid(lam) * sums[2].sum(0)
-    return dxb, sums[0].sum(0), sums[1].sum(0), dlam, dh0
+    return (dh * k_dx, sums[0].sum(0), sums[1].sum(0), dlam,
+            a[:, 0] * dh[:, 0])
 
 
 @pytest.mark.parametrize("S", [127, 128, 129, 383, 385])
@@ -254,8 +244,8 @@ def test_kernel_chunk_decomposition_matches_plain(S):
                                         _lru_inputs(50 + S, 2, S))
     states, _ = rglru_states_ref(xb, wa, wi, lam, h0)
     want = rglru_bwd_ref(xb, wa, wi, lam, h0, states, dH, dh_last)
-    got = _chunked_like_the_kernel(xb, wa, wi, lam, h0, states, dH,
-                                   dh_last)
+    got = _walked_like_the_kernel(xb, wa, wi, lam, h0, states, dH,
+                                  dh_last)
     for name, g, w in zip(("dxb", "dwa", "dwi", "dlam", "dh0"), got, want):
         assert _rel(g, w) <= FN_TOL, (name, _rel(g, w))
 

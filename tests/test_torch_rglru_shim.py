@@ -13,9 +13,13 @@ case by case, to their plain versions at the kernels' own limits:
   block with one live channel) and 64 (16-byte vectors);
 - K5' against ``rglru_bwd_ref`` (``chip_smoke.K5B_TOL``): dxb, dwa, dwi,
   dlam and dh0 from a nonzero h0 and h_last cotangent, float32 and
-  bfloat16, at S of 1, 15, 37, 300 and 385 (of its 32 chunks a row: one
-  of one step; 15 of one step; 18 of two and one of one; 30 of ten; 29
-  of 13 and one of 8, the rest empty) and W of 33 and 64.
+  bfloat16, at S of 1, 15, 37, 44, 45, 88, 89, 300, 385 and 441 (it walks
+  the sequence from its end in tiles of 44 float32 or 88 bfloat16 steps
+  through a ring of two slots: one live row of a tile; one partial tile;
+  a whole tile of either dtype; one step past a tile; several tiles and a
+  part; 10 or 5 tiles and one step, the ring wrapped more than once) and
+  W of 33 and 64; and at S = 89, W = 64 with every fifth x at +-400, where
+  exp(-x w) overflows and the sigmoids' reciprocals take their clamp.
 
 ``tools/cpu_shim/check.py <kernel>`` runs in a subprocess under a time
 limit: a handoff that deadlocks fails the cases instead of hanging the
@@ -87,10 +91,11 @@ def test_rglru_kernel_on_cpu_shim_matches_plain(shim_lines, j):
 
 
 @pytest.mark.parametrize("j", range(len(BWD_CASES)),
-                         ids=[f"B{b}-S{s}-W{w}-{str(dt)[6:]}"
-                              for b, s, w, dt in BWD_CASES])
+                         ids=[f"B{c[0]}-S{c[1]}-W{c[2]}-{str(c[3])[6:]}"
+                              + ("-big" if c[4:] else "")
+                              for c in BWD_CASES])
 def test_rglru_bwd_kernel_on_cpu_shim_matches_plain(shim_bwd_lines, j):
-    b, s, w, dt = BWD_CASES[j]
+    b, s, w, dt = BWD_CASES[j][:4]
     line = shim_bwd_lines[j]
     assert line.startswith(f"rglru_bwd B,S,W={b},{s},{w} {str(dt)[6:]} "), \
         line

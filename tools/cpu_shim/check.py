@@ -67,13 +67,21 @@ WKV6_CASES = [
 RGLRU_CASES = [(2, s, w, dt) for s in (1, 37, 300, 769) for w in (33, 64)
                for dt in (torch.float32, torch.bfloat16)]
 
-# rglru_bwd: B, S, W, dtype. S: one step (31 of the 32 chunks empty), 15
-# (chunks of one step, 17 empty), 37 (chunks of two steps, the last live
-# one of one), 300 (ten steps a chunk, two empty) and 385 (13 a chunk, the
-# last live one of 8); W 33 (a block with one live channel) and 64.
-RGLRU_BWD_CASES = [(2, s, w, dt) for s in (1, 15, 37, 300, 385)
+# rglru_bwd: B, S, W, dtype[, big]. The kernel walks the sequence from its
+# end in tiles of 44 (float32) or 88 (bfloat16) steps through a ring of two
+# slots. S: one step (a tile of one live row), 15 and 37 (one partial
+# tile), 44 and 88 (one whole tile of either dtype), 45 and 89 (one step
+# past a tile: a last tile of one step), 300 (float32: 6 tiles and 36
+# steps; bfloat16: 3 and 36), 385 (8 tiles and 33 steps; 4 and 33) and 441
+# (10 tiles and one step; 5 and one: the ring wrapped more than once, plus
+# one step); W 33 (a block with one live channel, element accesses) and
+# 64 (16-byte vectors, two full blocks). `big`: every fifth x is +-400, so
+# that exp(-x w) overflows and the sigmoids' reciprocals meet their clamp.
+RGLRU_BWD_CASES = [(2, s, w, dt) for s in (1, 15, 37, 300, 385, 44, 45,
+                                           88, 89, 441)
                    for w in (33, 64) for dt in (torch.float32,
-                                                torch.bfloat16)]
+                                                torch.bfloat16)] + [
+    (2, 89, 64, dt, True) for dt in (torch.float32, torch.bfloat16)]
 
 
 def build(name: str) -> ctypes.CDLL:
@@ -198,16 +206,20 @@ def rglru_case(lib, B, S, W, dtype, seed) -> bool:
     return ok
 
 
-def rglru_bwd_case(lib, B, S, W, dtype, seed) -> bool:
+def rglru_bwd_case(lib, B, S, W, dtype, big=False, *, seed) -> bool:
     """phase 19(a)'s inputs and measure, at a small shape: the float32
     gradients within K5B_TOL of their largest magnitude, a bfloat16 dxb by
-    the error its rounding implies; a nonzero h0 and dh_last."""
+    the error its rounding implies; a nonzero h0 and dh_last. `big`: every
+    fifth x +-400."""
     rng = np.random.default_rng(seed)
 
     def mk(*shape, scale=1.0, shift=0.0):
         return torch.from_numpy(
             rng.standard_normal(shape, dtype=np.float32) * scale + shift)
-    xb = mk(B, S, W).to(dtype)
+    xb = mk(B, S, W)
+    if big:
+        xb.view(-1)[::5] = 400.0 * torch.sign(xb.view(-1)[::5])
+    xb = xb.to(dtype)
     wa, wi, lam = mk(W, scale=0.5), mk(W, scale=0.5), mk(W, shift=0.65)
     h0, dh_last = mk(B, W), mk(B, W)
     dH = mk(B, S, W).to(dtype)
@@ -231,7 +243,8 @@ def rglru_bwd_case(lib, B, S, W, dtype, seed) -> bool:
             e = float((g - w).abs().max())
         errs[n] = e / float(w.float().abs().max().clamp_min(1e-30))
         ok &= bool(torch.isfinite(g.float()).all()) and errs[n] <= K5B_TOL
-    print(f"rglru_bwd B,S,W={B},{S},{W} {str(dtype)[6:]} h0, dh_last != 0: "
+    print(f"rglru_bwd B,S,W={B},{S},{W} {str(dtype)[6:]} h0, dh_last != 0"
+          + (", |x| = 400 at every fifth" if big else "") + ": "
           + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
           + " of the largest magnitude" + (" ok" if ok else " FAIL"),
           flush=True)

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Time an earlier design of the fleet_score (K1), flash-attention forward
-(K3) and backward (K3'), WKV6 backward (K4') and RG-LRU scan (K5) kernels
-beside this tree's, in turns, on one card.
+(K3) and backward (K3'), WKV6 backward (K4'), RG-LRU scan (K5) and RG-LRU
+scan backward (K5') kernels beside this tree's, in turns, on one card.
 
 Run from the repository root:
 
     mkdir -p build/parent
-    git archive <commit> src/repro_torch/csrc | tar -x -C build/parent
+    git archive <commit> src/repro_torch | tar -x -C build/parent
     python3 tools/kernel_ab.py --parent build/parent
 
 Both designs are built by nvcc with the flags of
@@ -18,15 +18,23 @@ K3 at recurrentgemma-9b's local attention (q (1, 16, 4096, 256) over one
 KV head, window 2,048) within ``chip_smoke.K3_TOL`` of the largest
 magnitude, the largest difference printed with whether it is 0, and at
 qwen3-4b's prefill (q (1, 32, 4096, 128), k/v 8 heads, causal) bit for
-bit; K3' (qwen3-4b's training shape, causal, bfloat16) each of dq, dk, dv
-within 2e-2 of its largest magnitude (a redesign may sum in another
-order); K4' (rwkv6-7b's training shape, bfloat16 and float32, the inputs
-of ``chip_smoke.py`` phase 13(a)) each of its six gradients within
+bit; K3' at qwen3-4b's training shape (causal, bfloat16) bit for bit, and
+at recurrentgemma-9b's (q (1, 16, 4096, 256) over one KV head, window
+2,048) each of dq, dk, dv within 2e-2 of its largest magnitude (a
+redesign may sum in another order), with each design's head split (the
+earlier tree's ``dkdv_split`` where it holds
+``kernels/flash_attention/flash_attention.py``), each design's device
+split by kernel, and this tree's call at 1, 2, 4, 8 and 16 parts; K4'
+(rwkv6-7b's training shape, bfloat16 and float32, the inputs of
+``chip_smoke.py`` phase 13(a)) each of its six gradients within
 ``chip_smoke.K4B_TOL`` of its largest magnitude; K5 at recurrentgemma-9b's
 prefill (1, 4096, 4096), bfloat16 and float32 (phase 17(a)'s inputs), H
 and h_last within ``chip_smoke.K5_TOL`` of the largest magnitude (a
-bfloat16 H by the float32 difference its two roundings imply). K3, K4'
-and K5 are timed by their C entry points on both sides, into buffers
+bfloat16 H by the float32 difference its two roundings imply); K5' at
+recurrentgemma-9b's training shape, bfloat16 and float32 (phase 19(a)'s
+first two cases), each gradient within ``chip_smoke.K5B_TOL`` of its
+largest magnitude (a bfloat16 dxb by its two roundings). K3', K4', K5
+and K5' are timed by their C entry points on both sides, into buffers
 allocated once, so the times are the device's. A kernel is compared only
 when the earlier tree holds its source and that source differs from this
 tree's. K5's gates run the compiler's division 1 / y and ``sqrtf``
@@ -50,11 +58,14 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 K1_SHAPES = [(1, 8, 16_384), (6, 8, 16_384), (1, 8, 131_072)]
-K3B_SHAPES = [(1, 32, 8, 4096, 128)]      # B, Hq, Hkv, S = T, hd; causal
+# B, Hq, Hkv, S = T, hd, window; causal, bfloat16
+K3B_SHAPES = [(1, 32, 8, 4096, 128, 0), (1, 16, 1, 4096, 256, 2048)]
+K3B_SPLITS = (1, 2, 4, 8, 16)   # head splits timed at hd 256
 K4B_CASES = [0, 1]        # chip_smoke.K4B_CASES: the training shape, bf16, fp32
 K3_SHAPES = [(1, 16, 1, 4096, 256, 2048),    # B, Hq, Hkv, S = T, hd, window
              (1, 32, 8, 4096, 128, 0)]       # causal, bfloat16
 K5_SHAPES = [(1, 4096, 4096, "bfloat16"), (1, 4096, 4096, "float32")]
+K5B_CASES = [0, 1]        # chip_smoke.K5B_CASES: the training shape, bf16, fp32
 
 
 def build_parent(parent: Path, names) -> dict:
@@ -96,6 +107,8 @@ def build_parent(parent: Path, names) -> dict:
     if "flash_attention" in libs:
         libs["flash_attention"].flash_attention_launch.argtypes = (
             [p] * 5 + [i] * 11 + [f] + [ll] * 12 + [p])
+    if "rglru_bwd" in libs:
+        libs["rglru_bwd"].rglru_bwd_launch.argtypes = [p] * 14 + [i] * 4 + [p]
     if "rglru" in libs:
         # the float32 states pointer came with the scan's backward
         src = (parent / "src" / "repro_torch" / "csrc" / "rglru.cu")
@@ -151,64 +164,197 @@ def k1_ab(torch, lib, time_ms, k1_inputs) -> list:
     return rows
 
 
-def k3b_ab(torch, np, lib, time_ms) -> list:
+def parent_split(parent: Path):
+    """The earlier tree's ``dkdv_split``, where it holds the wrapper, else
+    None."""
+    import importlib.util
+    src = (parent / "src" / "repro_torch" / "kernels" / "flash_attention"
+           / "flash_attention.py")
+    if not src.exists():
+        return None
+    spec = importlib.util.spec_from_file_location("earlier_flash_attention",
+                                                  src)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return getattr(mod, "dkdv_split", None)
+
+
+def k3b_ab(torch, np, lib, time_ms, parent: Path) -> list:
     import math
 
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
+    from chip_smoke import kernel_split_ms
+    from repro_torch.kernels.flash_attention import dkdv_split, flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import _bwd_lib
+    current_lib = _bwd_lib()
+    # window, split and part arguments came with the hybrid family's training
+    windowed = len(lib.flash_attention_bwd_launch.argtypes) == 26
+    earlier_split = parent_split(parent) or dkdv_split
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    for i, (b, hq, hkv, s, hd) in enumerate(K3B_SHAPES):
+    for i, (b, hq, hkv, s, hd, win) in enumerate(K3B_SHAPES):
+        if win and not windowed:
+            continue
         rng = np.random.default_rng(300 + i)
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
             shape, dtype=np.float32)).to("cuda", torch.bfloat16)
             .transpose(1, 2) for shape in ((b, s, hq, hd), (b, s, hkv, hd),
                                            (b, s, hkv, hd), (b, s, hq, hd)))
-        o, lse = flash_attention(q, k, v, lse=True)
-        dq = torch.empty((b, s, hq, hd), dtype=q.dtype,
-                         device="cuda").transpose(1, 2)
-        dk, dv = (torch.empty((b, s, hkv, hd), dtype=q.dtype,
-                              device="cuda").transpose(1, 2)
-                  for _ in range(2))
-        scratch = torch.empty((b, hq, s), device="cuda")
-        strides = (ctypes.c_longlong * 24)(
-            *[x for t in (q, k, v, o, do, dq, dk, dv) for x in t.stride()[:3]])
+        o, lse = flash_attention(q, k, v, lse=True, window=win)
+        g = hq // hkv
+        splits = {"earlier": earlier_split(b, hkv, s, hd, g, sms)
+                  if windowed else 1, "this": dkdv_split(b, hkv, s, hd, g, sms)}
 
-        # window 0 and split 1 (no parts) where the earlier source takes them
-        windowed = len(lib.flash_attention_bwd_launch.argtypes) == 26
-        extra = ([0], [1, None]) if windowed else ([], [])
+        def outputs():
+            dq = torch.empty((b, s, hq, hd), dtype=q.dtype,
+                             device="cuda").transpose(1, 2)
+            dk, dv = (torch.empty((b, s, hkv, hd), dtype=q.dtype,
+                                  device="cuda").transpose(1, 2)
+                      for _ in range(2))
+            scratch = torch.empty((b, hq, s), device="cuda")
+            part = torch.empty((2, max(K3B_SPLITS), b, hkv, s, hd),
+                               device="cuda") if hd == 256 else None
+            return dq, dk, dv, scratch, part
 
-        def earlier():
-            err = lib.flash_attention_bwd_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1, b, hq, hkv, s,
-                s, hd, s, 0, 1, *extra[0], 1.0 / math.sqrt(hd), *extra[1],
-                strides, torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"earlier flash_attention_bwd failed: "
-                                   f"{err}")
+        def launcher(which, out, split, new_args=True):
+            dq, dk, dv, scratch, part = out
+            strides = (ctypes.c_longlong * 24)(
+                *[x for t in (q, k, v, o, do, dq, dk, dv)
+                  for x in t.stride()[:3]])
+            extra = ([win], [split, None if split == 1 else
+                             part.data_ptr()]) if new_args else ([], [])
 
-        def current():
-            return flash_attention_bwd(q, k, v, o, lse, do)
+            def run():
+                err = which.flash_attention_bwd_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1, b, hq,
+                    hkv, s, s, hd, s, 0, 1, *extra[0], 1.0 / math.sqrt(hd),
+                    *extra[1], strides,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"flash_attention_bwd launch failed: "
+                                       f"{err}")
+            return run
+        got, want = outputs(), outputs()
+        earlier = launcher(lib, want, splits["earlier"], windowed)
+        current = launcher(current_lib, got, splits["this"])
         earlier()
-        got = current()
+        current()
+        torch.cuda.synchronize()
+        errs, equal = {}, {}
+        for n, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+            equal[n] = torch.equal(g_, w_)
+            g_, w_ = g_.float(), w_.float()
+            errs[n] = float((g_ - w_).abs().max() / w_.abs().max())
+            if not (bool(torch.isfinite(g_).all()) and errs[n] <= 2e-2
+                    and (hd == 256 or equal[n])):
+                raise RuntimeError(f"K3' designs disagree at "
+                                   f"{(b, hq, hkv, s, hd, win)}: {n} "
+                                   f"{errs[n]}, bit-equal {equal[n]}")
+        row = {"kernel": "flash_attention_bwd",
+               "shape": [b, hq, hkv, s, hd], "window": win,
+               "max_rel_diff": errs, "bit_equal": equal, "splits": splits,
+               **turns(time_ms, earlier, current)}
+        row["earlier_over_this"] = sum(row["earlier_ms"]) / sum(row["ms"])
+        line = (f"K3' flash_attention_bwd B,Hq,Hkv,S,hd={b},{hq},{hkv},{s},"
+                f"{hd} causal{f' window {win}' if win else ''} bfloat16: "
+                f"largest difference over largest magnitude "
+                + ", ".join(f"{n} {e:.2e}" + (" (bit-equal)" if equal[n]
+                                              else "")
+                            for n, e in errs.items())
+                + f"; earlier {row['earlier_ms']} ms, this tree "
+                f"{row['ms']} ms, earlier / this tree "
+                f"{row['earlier_over_this']:.2f}x")
+        if hd == 256:
+            row["device_split"] = {
+                "earlier": kernel_split_ms(torch, earlier),
+                "this": kernel_split_ms(torch, current)}
+            row["split_ms"] = {
+                sp: time_ms(launcher(current_lib, got, sp))
+                for sp in K3B_SPLITS if g % sp == 0}
+            line += (f"; head splits {splits}; device split (ms) earlier "
+                     + ", ".join(f"{n} {m:.4f}" for n, m in
+                                 row["device_split"]["earlier"].items())
+                     + ", this tree " + ", ".join(
+                         f"{n} {m:.4f}" for n, m in
+                         row["device_split"]["this"].items())
+                     + "; this tree at each split " + ", ".join(
+                         f"{sp} parts {m:.4f} ms"
+                         for sp, m in row["split_ms"].items()))
+        print(line, flush=True)
+        rows.append(row)
+    return rows
+
+
+def k5b_ab(torch, np, lib, time_ms) -> list:
+    from chip_smoke import K5B_CASES as CASES
+    from chip_smoke import K5B_TOL
+    from repro_torch.kernels.rglru import rglru_scan
+    from repro_torch.kernels.rglru.rglru import _bwd_lib
+    current_lib = _bwd_lib()
+    rows = []
+    for i in K5B_CASES:
+        b, s, w, dname, warm = CASES[i]
+        dt = getattr(torch, dname)
+        rng = np.random.default_rng(500 + i)      # phase 19(a)'s inputs
+
+        def mk(*shape, scale=1.0, shift=0.0):
+            x = rng.standard_normal(shape, dtype=np.float32) * scale + shift
+            return torch.from_numpy(x).cuda()
+        xb = mk(b, s, w).to(dt)
+        wa, wi, lam = mk(w, scale=0.5), mk(w, scale=0.5), mk(w, shift=0.65)
+        h0 = mk(b, w) if warm else torch.zeros(b, w, device="cuda")
+        dh_last = mk(b, w) if warm else None
+        dH = mk(b, s, w).to(dt)
+        _, _, states = rglru_scan(xb, wa, wi, lam, h0, keep_states=True)
+
+        def outputs():
+            f32 = dict(dtype=torch.float32, device="cuda")
+            return [torch.empty_like(xb)] + [torch.empty(w, **f32)
+                                             for _ in range(3)] + [
+                torch.empty((b, w), **f32), torch.empty((b, 3, w), **f32)]
+
+        def launcher(which, out):
+            def run():
+                err = which.rglru_bwd_launch(
+                    xb.data_ptr(), wa.data_ptr(), wi.data_ptr(),
+                    lam.data_ptr(), h0.data_ptr(), states.data_ptr(),
+                    dH.data_ptr(),
+                    None if dh_last is None else dh_last.data_ptr(),
+                    *[t.data_ptr() for t in out],
+                    1 if dt == torch.bfloat16 else 0, b, s, w,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"rglru_bwd launch failed: {err}")
+            return run
+        got, want = outputs(), outputs()
+        earlier, current = launcher(lib, want), launcher(current_lib, got)
+        earlier()
+        current()
         torch.cuda.synchronize()
         errs = {}
-        for n, g, w in zip(("dq", "dk", "dv"), got, (dq, dk, dv)):
-            g, w = g.float(), w.float()
-            errs[n] = float((g - w).abs().max() / w.abs().max())
-            if not (bool(torch.isfinite(g).all()) and errs[n] <= 2e-2):
-                raise RuntimeError(f"K3' designs disagree at "
-                                   f"{(b, hq, hkv, s, hd)}: {n} {errs[n]}")
-        row = {"kernel": "flash_attention_bwd", "shape": [b, hq, hkv, s, hd],
+        for n, g_, w_ in zip(("dxb", "dwa", "dwi", "dlam", "dh0"), got,
+                             want):
+            scale = float(w_.float().abs().max().clamp_min(1e-30))
+            if g_.dtype == torch.bfloat16:
+                e = float(_bf16_pair_excess(torch, g_, w_).max()) / scale
+            else:
+                e = float((g_ - w_).abs().max()) / scale
+            errs[n] = e
+            if not (bool(torch.isfinite(g_.float()).all()) and e <= K5B_TOL):
+                raise RuntimeError(f"K5' designs disagree at "
+                                   f"{(b, s, w, dname)}: {n} {e}")
+        row = {"kernel": "rglru_bwd", "shape": [b, s, w], "dtype": dname,
                "max_rel_diff": errs, **turns(time_ms, earlier, current)}
-        print(f"K3' flash_attention_bwd B,Hq,Hkv,S,hd={b},{hq},{hkv},{s},{hd} "
-              f"causal bfloat16: agree (largest difference over largest "
-              f"magnitude " + ", ".join(f"{n} {e:.2e}" for n, e in
-                                         errs.items())
-              + f"); earlier {row['earlier_ms']} ms, this tree {row['ms']} ms",
-              flush=True)
+        row["earlier_over_this"] = sum(row["earlier_ms"]) / sum(row["ms"])
+        print(f"K5' rglru_bwd B,S,W={b},{s},{w} {dname}: agree within "
+              f"K5B_TOL (" + ", ".join(f"{n} {e:.2e}" for n, e in
+                                       errs.items())
+              + f" of the largest magnitude); earlier {row['earlier_ms']} "
+              f"ms, this tree {row['ms']} ms, earlier / this tree "
+              f"{row['earlier_over_this']:.2f}x", flush=True)
         rows.append(row)
+        del xb, dH, states, got, want
     return rows
 
 
@@ -488,11 +634,13 @@ def main() -> None:
     from repro_torch.kernels import _build
     csrc = Path("src") / "repro_torch" / "csrc"
     names = [n for n in ("fleet_score", "flash_attention",
-                         "flash_attention_bwd", "wkv6_bwd", "rglru")
+                         "flash_attention_bwd", "wkv6_bwd", "rglru",
+                         "rglru_bwd")
              if (args.parent / csrc / f"{n}.cu").exists()
              and (args.parent / csrc / f"{n}.cu").read_bytes()
              != (ROOT / csrc / f"{n}.cu").read_bytes()]
-    forwards = {"flash_attention_bwd": "flash_attention", "wkv6_bwd": "wkv6"}
+    forwards = {"flash_attention_bwd": "flash_attention", "wkv6_bwd": "wkv6",
+                "rglru_bwd": "rglru"}
     _build.build_all(sorted({forwards.get(n, n) for n in names} |
                             set(names)))
     libs = build_parent(args.parent, names)
@@ -506,11 +654,14 @@ def main() -> None:
     if "flash_attention" in libs:
         rows += k3_ab(torch, np, libs["flash_attention"], time_ms)
     if "flash_attention_bwd" in libs:
-        rows += k3b_ab(torch, np, libs["flash_attention_bwd"], time_ms)
+        rows += k3b_ab(torch, np, libs["flash_attention_bwd"], time_ms,
+                       args.parent)
     if "wkv6_bwd" in libs:
         rows += k4b_ab(torch, np, libs["wkv6_bwd"], time_ms)
     if "rglru" in libs:
         rows += k5_ab(torch, np, libs["rglru"], time_ms)
+    if "rglru_bwd" in libs:
+        rows += k5b_ab(torch, np, libs["rglru_bwd"], time_ms)
     print(json.dumps({"card": smi, "ab": rows}), flush=True)
 
 
