@@ -15,10 +15,11 @@ moves both across without importing ``repro``:
       the inverse: that dict, from a port detector or a reference one.
   model_params(jax_params, cfg, policy=..., device=...)
       a port ``Model`` holding the JAX package's parameter tree (nested
-      dicts of numpy arrays): the stacked ``layers`` axis (the hybrid
-      family's ``units`` axis) unstacked, the hybrid ``tail`` list taken
-      layer by layer, every (in, out) matrix kept as it is, each leaf cast
-      to the compute dtype once.
+      dicts of numpy arrays): each stacked axis unstacked (``layers``,
+      the hybrid family's ``units``, the audio family's ``enc_layers``
+      and ``dec_layers``), the hybrid ``tail`` list taken layer by layer,
+      every (in, out) matrix kept as it is, each leaf cast to the compute
+      dtype once.
   named_params(jax_tree, depth)
       any tree shaped like the parameters (float32 master weights, AdamW
       moments, gradients) as ``{port parameter name: array}``;
@@ -46,7 +47,7 @@ moves both across without importing ``repro``:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Set
+from typing import Dict, Mapping, Optional, Set, Union
 
 import numpy as np
 import torch
@@ -212,13 +213,13 @@ def model_params(jax_params: Mapping, cfg, *,
     its shape, and every parameter of the port is set."""
     model = Model(cfg, policy, device=device, seed=None)
     loaded: Set[str] = set()
-    stacked = "units" if cfg.family == "hybrid" else "layers"
     _copy_tree(model, {k: v for k, v in jax_params.items()
-                       if k not in (stacked, "tail")}, "", loaded)
-    layers = getattr(model, stacked)
-    for i, lp in enumerate(layers):
-        _copy_tree(lp, _layer(jax_params[stacked], i, len(layers)),
-                   f"{stacked}.{i}.", loaded)
+                       if k not in model.stacks() + ("tail",)}, "", loaded)
+    for stacked in model.stacks():
+        layers = getattr(model, stacked)
+        for i, lp in enumerate(layers):
+            _copy_tree(lp, _layer(jax_params[stacked], i, len(layers)),
+                       f"{stacked}.{i}.", loaded)
     tail = jax_params.get("tail", [])
     if len(tail) != len(getattr(model, "tail", [])):
         raise ValueError(f"reference tail of {len(tail)} layers, port "
@@ -232,10 +233,13 @@ def model_params(jax_params: Mapping, cfg, *,
     return model
 
 
-def named_params(jax_tree: Mapping, depth: int) -> Dict[str, np.ndarray]:
+def named_params(jax_tree: Mapping, depth: Union[int, Mapping[str, int]]
+                 ) -> Dict[str, np.ndarray]:
     """``{port parameter name: array}`` of a tree shaped like the JAX
-    package's parameters, whose ``layers`` leaves (the hybrid family's
-    ``units``) are stacked ``depth`` deep; the hybrid ``tail`` list
+    package's parameters, whose stacked subtree (``layers``, the hybrid
+    family's ``units``) has leaves ``depth`` deep, or, with ``depth`` a
+    mapping (the audio family's ``{"enc_layers": ..., "dec_layers":
+    ...}``), each named subtree that deep; the hybrid ``tail`` list
     becomes ``tail.<i>.``."""
     out: Dict[str, np.ndarray] = {}
 
@@ -246,11 +250,13 @@ def named_params(jax_tree: Mapping, depth: int) -> Dict[str, np.ndarray]:
             else:
                 out[f"{prefix}{key}"] = np.asarray(val)
 
-    stacked = "units" if "units" in jax_tree else "layers"
-    walk({k: v for k, v in jax_tree.items() if k not in (stacked, "tail")},
-         "")
-    for i in range(depth):
-        walk(_layer(jax_tree[stacked], i, depth), f"{stacked}.{i}.")
+    if not isinstance(depth, Mapping):
+        depth = {"units" if "units" in jax_tree else "layers": depth}
+    walk({k: v for k, v in jax_tree.items()
+          if k not in tuple(depth) + ("tail",)}, "")
+    for stacked, n in depth.items():
+        for i in range(n):
+            walk(_layer(jax_tree[stacked], i, n), f"{stacked}.{i}.")
     for i, lp in enumerate(jax_tree.get("tail", [])):
         walk(lp, f"tail.{i}.")
     return out
@@ -262,8 +268,7 @@ def opt_state(jax_opt_state: Mapping, model: Model) -> Dict[str, object]:
     by parameter name on the model's device, a 0-d int32 count. Raises
     unless the moments cover exactly the model's parameters."""
     params = dict(model.named_parameters())
-    depth = len(model.units if model.cfg.family == "hybrid"
-                else model.layers)
+    depth = {s: len(getattr(model, s)) for s in model.stacks()}
     out: Dict[str, object] = {}
     for key in ("mu", "nu"):
         flat = named_params(jax_opt_state[key], depth)
@@ -280,9 +285,11 @@ def opt_state(jax_opt_state: Mapping, model: Model) -> Dict[str, object]:
 
 def reference_tree(named: Mapping[str, object]) -> Dict[str, object]:
     """Port-named leaves (tensors or arrays) as the JAX package's nested
-    tree of float32 numpy arrays, the ``layers.<i>.`` leaves (the hybrid
-    family's ``units.<i>.``) stacked on a leading layer axis and the
-    hybrid ``tail.<i>.`` leaves a list of trees."""
+    tree of float32 numpy arrays: the leaves of each list of layers
+    (``<stack>.<i>.``: ``layers``, the hybrid family's ``units``, the
+    audio family's ``enc_layers`` and ``dec_layers``) stacked on a
+    leading layer axis, and the hybrid ``tail.<i>.`` leaves a list of
+    trees."""
     tree: Dict[str, object] = {}
     groups: Dict[str, Dict[int, Dict[str, np.ndarray]]] = {}
 
@@ -295,7 +302,7 @@ def reference_tree(named: Mapping[str, object]) -> Dict[str, object]:
         arr = (val.detach().float().cpu().numpy()
                if isinstance(val, torch.Tensor) else np.asarray(val))
         parts = name.split(".")
-        if parts[0] in ("layers", "units", "tail"):
+        if len(parts) > 2 and parts[1].isdigit():
             groups.setdefault(parts[0], {}).setdefault(
                 int(parts[1]), {})[".".join(parts[2:])] = arr
             continue

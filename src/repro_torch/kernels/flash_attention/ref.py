@@ -61,14 +61,18 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                       *, causal: bool = True, q_offset: int = 0,
-                      kv_len: int = 0, window: int = 0
+                      kv_len: int = 0, window: int = 0,
+                      bf16_operands: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel's equations in float32: with P = exp(s - lse)
     on the live pairs (exactly 0 elsewhere) and D = rowsum(dO o O),
     dV = P^T dO, dS = P o (dO V^T - D), dQ = scale dS K, dK = scale dS^T Q
     (summed over the query heads of each kv head). Layouts and ``window``
-    as ``attention_ref``; ``o`` and ``lse`` are the forward's. Returns dq,
-    dk, dv in the inputs' dtype."""
+    as ``attention_ref``; ``o`` and ``lse`` are the forward's. With
+    ``bf16_operands`` P and dS are rounded to bfloat16 before their
+    products, as the bfloat16 kernel feeds them to the tensor cores (each
+    product still sums in float32). Returns dq, dk, dv in the inputs'
+    dtype."""
     B, Hq, S, hd = q.shape
     _, Hkv, T, _ = k.shape
     G, scale = Hq // Hkv, 1.0 / math.sqrt(hd)
@@ -78,9 +82,12 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = p.masked_fill(~mask, 0.0)
     dof = do.float().reshape(B, Hkv, G, S, hd)
     d = (dof * o.float().reshape(B, Hkv, G, S, hd)).sum(dim=-1)
-    dv = torch.einsum("bhgst,bhgsd->bhtd", p, dof)
-    ds = p * (torch.einsum("bhgsd,bhtd->bhgst", dof, v.float())
-              - d[..., None])
+
+    def operand(x):
+        return x.bfloat16().float() if bf16_operands else x
+    dv = torch.einsum("bhgst,bhgsd->bhtd", operand(p), dof)
+    ds = operand(p * (torch.einsum("bhgsd,bhtd->bhgst", dof, v.float())
+                      - d[..., None]))
     dq = torch.einsum("bhgst,bhtd->bhgsd", ds, k.float()) * scale
     dk = torch.einsum("bhgst,bhgsd->bhtd", ds,
                       q.float().reshape(B, Hkv, G, S, hd)) * scale

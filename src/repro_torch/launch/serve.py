@@ -4,9 +4,9 @@ Batched decode serving with continuous batching over a synthetic request
 stream, the port of ``repro.launch.serve``: requests arrive with a prompt
 length and a decode budget; slots are backfilled as sequences finish.
 Without ``--full`` it serves the reduced config; ``--full`` serves the
-published widths and depth. ``--arch`` takes the dense, moe, ssm and
-hybrid families (qwen3-4b, deepseek-moe-16b, llama4-scout-17b-a16e,
-rwkv6-7b, recurrentgemma-9b, ...). It runs on the card (``--device
+published widths and depth. ``--arch`` takes the dense, moe, ssm, hybrid
+and audio families (qwen3-4b, deepseek-moe-16b, llama4-scout-17b-a16e,
+rwkv6-7b, recurrentgemma-9b, whisper-small, ...). It runs on the card (``--device
 cuda``, the default) unless asked for the CPU.
 
 The server keeps the reference's behaviour on purpose, so that both
@@ -18,7 +18,10 @@ token 0, and in the moe family a decode step routes all slots as one
 call: idle slots take expert capacity, and slots beyond an expert's
 capacity lose their routed output for that layer. In the hybrid family
 the attention layers' caches are rings of ``window`` slots (``--cache-len``
-only bounds the run) and the recurrent layers carry their state.
+only bounds the run) and the recurrent layers carry their state. In the
+audio family no prefill means no encoder pass: the cross caches stay the
+zeros of ``init_cache``, so each decoder layer's cross attention reads
+zero values and adds nothing.
 """
 from __future__ import annotations
 
@@ -118,10 +121,10 @@ class BatchedServer:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b",
-                    help="a dense, moe, ssm or hybrid architecture id, "
-                         "e.g. qwen3-4b, deepseek-moe-16b, "
+                    help="a dense, moe, ssm, hybrid or audio architecture "
+                         "id, e.g. qwen3-4b, deepseek-moe-16b, "
                          "llama4-scout-17b-a16e, rwkv6-7b, "
-                         "recurrentgemma-9b")
+                         "recurrentgemma-9b, whisper-small")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=256)

@@ -10,7 +10,11 @@ llama4-scout-17b-a16e: routed experts, whose loss adds the router's aux
 term), the ssm family (rwkv6-7b, whose WKV6 runs through the forward
 and backward kernels on the card) and the hybrid family
 (recurrentgemma-9b, whose RG-LRU scan and windowed attention do too; a
-sequence longer than its window must be a multiple of it). Guard is wired in as the per-step
+sequence longer than its window must be a multiple of it). The audio
+family (whisper-small) needs encoder frames that ``SyntheticLM`` batches
+do not hold: as with the reference's launcher, its first step raises a
+``KeyError`` naming ``enc_frames``; train it through ``Trainer`` with a
+data source whose batches carry them. Guard is wired in as the per-step
 hook: step times stream into the online monitor, and an IMMEDIATE-tier
 event restarts from the last checkpoint, the closed loop of Fig. 1 at
 single-host scale.
@@ -73,7 +77,9 @@ def parser() -> argparse.ArgumentParser:
                     help="a dense, moe, ssm or hybrid architecture id, "
                          "e.g. qwen3-4b, deepseek-moe-16b, "
                          "llama4-scout-17b-a16e, rwkv6-7b, "
-                         "recurrentgemma-9b")
+                         "recurrentgemma-9b (an audio id such as "
+                         "whisper-small raises: SyntheticLM batches hold "
+                         "no enc_frames)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)

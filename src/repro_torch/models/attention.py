@@ -1,15 +1,15 @@
 """Attention: GQA projections, prefill attention through the flash-attention
 kernel (causal, or in a sliding window for the hybrid family's
-``local_attention``), and decode-step attention over a KV cache.
+``local_attention``, or full for the audio family's encoder and
+``cross_attention``), and decode-step attention over a KV cache.
 
 Local (single-device) paths only: the sequence-sharded flash-decoding
-branch and ``cross_attention`` come with tensor parallelism and the audio
-family.
+branch comes with tensor parallelism.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -48,11 +48,12 @@ class Attention(nn.Module):
 
 
 def project_qkv(p: Attention, cfg, x: torch.Tensor,
-                rope: Tuple[torch.Tensor, torch.Tensor]
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> q (B, S, Hq, hd), k/v (B, S, Hkv, hd), RoPE
     (``layers.rope_tables`` of the positions) applied after the q/k
-    norms."""
+    norms; ``rope`` None applies none (the audio family's learned
+    position embeddings, the reference's ``rope=False``)."""
     if cfg.mrope_sections:
         raise NotImplementedError("M-RoPE comes with the vlm family")
     B, S, _ = x.shape
@@ -68,6 +69,8 @@ def project_qkv(p: Attention, cfg, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    if rope is None:
+        return q, k, v
     return apply_rope(q, rope), apply_rope(k, rope), v
 
 
@@ -108,6 +111,15 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash(q, k, v, causal=True, window=window)
 
 
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> torch.Tensor:
+    """Full (non-causal) attention of S decoder queries over T encoder
+    keys, S != T allowed: q (B, S, Hq, hd), k/v (B, T, Hkv, hd) -> (B, S,
+    Hq, hd). The flash-attention kernel on the card, its plain version on
+    the CPU."""
+    return flash(q, k, v, causal=False)
+
+
 def decode_attention(q: torch.Tensor, kcache: torch.Tensor,
                      vcache: torch.Tensor, k_new: torch.Tensor,
                      v_new: torch.Tensor, pos: int) -> torch.Tensor:
@@ -136,5 +148,6 @@ def decode_attention(q: torch.Tensor, kcache: torch.Tensor,
     return out.reshape(B, Hq, hd).to(q.dtype)
 
 
-__all__ = ["Attention", "decode_attention", "full_attention",
-           "local_attention", "out_projection", "project_qkv"]
+__all__ = ["Attention", "cross_attention", "decode_attention",
+           "full_attention", "local_attention", "out_projection",
+           "project_qkv"]

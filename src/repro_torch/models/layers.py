@@ -86,16 +86,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class MLP(nn.Module):
-    """Gated swiglu or geglu (``wg``, ``wu``) or squared-relu (``wi``) MLP,
-    with ``wo``; every matrix is stored (in, out) as in the JAX package.
-    The gelu activation comes with the family that uses it."""
+    """Gated swiglu or geglu (``wg``, ``wu``), or plain gelu or squared-relu
+    (``wi``) MLP, with ``wo``; every matrix is stored (in, out) as in the
+    JAX package."""
 
     AXES = {"wg": ("fsdp", "ff"), "wu": ("fsdp", "ff"),
             "wi": ("fsdp", "ff"), "wo": ("ff", "fsdp")}
 
     def __init__(self, init: Init, d_model: int, d_ff: int, act: str):
         super().__init__()
-        if act not in ("swiglu", "geglu", "relu_sq"):
+        if act not in ("swiglu", "geglu", "gelu", "relu_sq"):
             raise NotImplementedError(f"activation {act!r} is not ported")
         self.act = act
         if act in ("swiglu", "geglu"):
@@ -112,6 +112,8 @@ class MLP(nn.Module):
             h = F.silu(x @ self.wg) * (x @ self.wu)
         elif self.act == "geglu":
             h = gelu(x @ self.wg) * (x @ self.wu)
+        elif self.act == "gelu":
+            h = gelu(x @ self.wi)
         else:
             h = F.relu(x @ self.wi).square()
         return h @ self.wo

@@ -1,11 +1,12 @@
-"""The model of the dense, moe, ssm and hybrid families: training loss,
-prefill and KV-cache (or state) decode, the port of
+"""The model of the dense, moe, ssm, hybrid and audio families: training
+loss, prefill and KV-cache (or state) decode, the port of
 ``repro.models.model.Model``.
 
   Model(cfg, policy, device=..., seed=..., remat=...)   parameters drawn
                              on the device
   train_loss(batch)          -> (loss, metrics)
-  prefill(tokens)            -> (last-token logits (B, Vp), cache)
+  prefill(tokens, enc_frames=None)
+                             -> (last-token logits (B, Vp), cache)
   init_cache(batch, length)  -> zero cache
   decode_step(tokens, cache) -> (logits (B, Vp), cache)
 
@@ -19,7 +20,10 @@ hd); ssm ``{"wkv", "x_tm", "x_cm", "pos"}`` in float32; hybrid
 units, a rec layer's ``{"h" (n, B, W), "conv" (n, B, K-1, W)}`` in
 float32 and an attention layer's ring (K, V) of (n, B, Hkv, window, hd)
 in the compute dtype, and ``tail`` lists the remaining layers' caches
-unstacked. ``pos`` is a Python int here (a 0-d int32 array there).
+unstacked; audio ``{"layers": (K, V, CK, CV), "pos"}``: the decoder's
+self-attention K/V (L, B, Hkv, Sc, hd) and its cross-attention K/V of the
+encoder output (L, B, Hkv, T, hd), T the encoder's frames, all in the
+compute dtype. ``pos`` is a Python int here (a 0-d int32 array there).
 ``decode_step`` updates the
 cache's tensors in place and returns the same dict with ``pos`` advanced;
 the JAX package returns a new cache. ``train_loss`` runs with gradients
@@ -35,7 +39,12 @@ in a sliding window) checkpoints each unit as one function, as the
 reference's remat wraps its unit scan, and runs the tail outside any
 checkpoint, as the reference runs it after the scan; its RG-LRU calls
 differentiate through K5' and its attention through K3' with the window
-on the card. The audio and vlm families come with their slices.
+on the card. The audio family (whisper: an encoder of full self-attention
+over precomputed frames, ``batch["enc_frames"]`` (B, T, D), and a decoder
+with cross attention over its output, LayerNorm throughout, learned
+position tables ``pos_enc`` and ``pos_dec`` and no RoPE) checkpoints each
+encoder and each decoder layer; every one of its attentions runs through
+K3, and K3' when training. The vlm family comes with its slice.
 
   param_axes()               -> {parameter name: logical axes}, the
                                 reference's ``Model.param_axes()`` without
@@ -45,8 +54,10 @@ Under a mesh (``repro_torch.dist``), ``train_loss`` constrains the
 activations at the reference's sites, and a sharded training step sets
 ``zero3`` (``repro_torch.train.trainer``) to gather each unit of
 ``zero3_units`` just in time: "in" (the token table, ``ln0``) before the
-embedding, "dense0" before that layer, each layer (the hybrid family:
-each unit) at its start, inside the checkpointed function so that the
+embedding (the audio family: also ``pos_enc``, ``ln_enc`` and
+``pos_dec``), "dense0" before that layer, each layer (the hybrid family:
+each unit; the audio family: each encoder, then each decoder layer) at its
+start, inside the checkpointed function so that the
 recompute gathers again, the hybrid "tail" once before it, and "out"
 (``ln_f``, the head) after the layers. After such a step the working
 weights hold no storage (``weights_released``) and every entry point
@@ -72,14 +83,16 @@ from repro_torch.models.layers import (Embed, cross_entropy, embed_tokens,
                                        layer_norm, logits_from_hidden,
                                        rms_norm, rope_tables)
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio")
+MAX_DECODE_LEN = 32_768       # rows of the audio decoder's position table
 REMAT = ("full", "none")
 
 Cache = Dict[str, Any]
 
 
 class Model(nn.Module):
-    AXES = {"ln_f": (None,), "ln0": (None,)}
+    AXES = {"ln_f": (None,), "ln0": (None,), "ln_enc": (None,),
+            "pos_enc": (None, "fsdp"), "pos_dec": (None, "fsdp")}
 
     def __init__(self, cfg, policy: Optional[Policy] = None, *,
                  device: DeviceLike = "cuda", seed: Optional[int] = 0,
@@ -90,11 +103,10 @@ class Model(nn.Module):
         ``remat`` ("full" or "none") is how ``train_loss`` keeps
         activations."""
         super().__init__()
-        if cfg.family not in FAMILIES or cfg.is_encoder_decoder \
-                or cfg.mrope_sections:
+        if cfg.family not in FAMILIES or cfg.mrope_sections:
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
-                f"this slice serves {FAMILIES}")
+                f"the port serves and trains {FAMILIES}")
         if remat not in REMAT:
             raise ValueError(f"remat={remat!r}, expected one of {REMAT}")
         self.remat = remat
@@ -120,6 +132,16 @@ class Model(nn.Module):
                 for _ in range(n_units))
             self.tail = nn.ModuleList(self._hybrid_layer(init, kind)
                                       for kind in self._hybrid_tail_kinds())
+        elif cfg.is_encoder_decoder:
+            self.enc_layers = nn.ModuleList(
+                tfm.EncoderLayer(init, cfg)
+                for _ in range(cfg.encoder_layers))
+            self.ln_enc = init.zeros((cfg.d_model,))
+            self.dec_layers = nn.ModuleList(
+                tfm.DecoderLayer(init, cfg, cross=True)
+                for _ in range(cfg.num_layers))
+            self.pos_enc = init.normal((cfg.encoder_seq_len, cfg.d_model))
+            self.pos_dec = init.normal((MAX_DECODE_LEN, cfg.d_model))
         elif cfg.moe:
             n_dense = 1 if cfg.moe.first_layer_dense else 0
             if n_dense:
@@ -162,32 +184,42 @@ class Model(nn.Module):
                 for mod, m in self.named_modules()
                 for name, _ in m.named_parameters(recurse=False)}
 
+    def stacks(self) -> Tuple[str, ...]:
+        """The names of the model's lists of like layers, in the order the
+        forward runs them: the reference's scan-stacked subtrees."""
+        if self.cfg.family == "hybrid":
+            return ("units",)
+        if self.cfg.is_encoder_decoder:
+            return ("enc_layers", "dec_layers")
+        return ("layers",)
+
     def zero3_units(self) -> Dict[str, List[str]]:
         """The sharded step's units, each gathered as one, in the order
         the forward reads them: {unit: parameter names}. "in" is what it
-        reads before the layers, "dense0" the moe family's dense first
-        layer, "layers.<i>" each layer (the hybrid family: "units.<u>"
-        each unit of its pattern, then "tail" its remaining layers), "out"
-        what it reads after them (``ln_f`` and an untied head). "in",
-        "dense0", "tail" and "out" are not checkpointed: their gathered
-        weights stay until their gradients arrive."""
+        reads outside the layers before the head (the audio family:
+        ``pos_enc``, ``ln_enc`` after the encoder, and the token table
+        and ``pos_dec``), "dense0" the moe family's dense first layer,
+        "layers.<i>" each layer (the hybrid family: "units.<u>" each unit
+        of its pattern, then "tail" its remaining layers; the audio
+        family: "enc_layers.<i>" each encoder layer, then
+        "dec_layers.<i>" each decoder layer), "out" what it reads after
+        them (``ln_f`` and an untied head). "in", "dense0", "tail" and
+        "out" are not checkpointed: their gathered weights stay until
+        their gradients arrive."""
         names = [n for n, _ in self.named_parameters()]
         late = ("ln_f", "embed.head")
-        stacks = ("layers.", "dense0.", "units.", "tail.")
+        stacks = tuple(f"{s}." for s in self.stacks()) + ("dense0.",
+                                                          "tail.")
         units = {"in": [n for n in names
                         if not n.startswith(stacks) and n not in late]}
         if hasattr(self, "dense0"):
             units["dense0"] = [n for n in names if n.startswith("dense0.")]
-        if self.cfg.family == "hybrid":
-            for u in range(len(self.units)):
-                units[f"units.{u}"] = [n for n in names
-                                       if n.startswith(f"units.{u}.")]
-            if len(self.tail):
-                units["tail"] = [n for n in names if n.startswith("tail.")]
-        else:
-            for i in range(len(self.layers)):
-                units[f"layers.{i}"] = [n for n in names
-                                        if n.startswith(f"layers.{i}.")]
+        for stack in self.stacks():
+            for i in range(len(getattr(self, stack))):
+                units[f"{stack}.{i}"] = [n for n in names
+                                         if n.startswith(f"{stack}.{i}.")]
+        if len(getattr(self, "tail", ())):
+            units["tail"] = [n for n in names if n.startswith("tail.")]
         units["out"] = [n for n in names if n in late]
         return units
 
@@ -212,13 +244,16 @@ class Model(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
-    def _forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    def _forward(self, tokens: torch.Tensor, enc_frames=None
+                 ) -> Tuple[torch.Tensor, Cache]:
         """Prefill body -> (hidden (B, S, D), cache)."""
         cfg = self.cfg
         if cfg.family == "ssm":
             return self._forward_rwkv(tokens)
         if cfg.family == "hybrid":
             return self._forward_hybrid(tokens)
+        if cfg.is_encoder_decoder:
+            return self._forward_encdec(tokens, enc_frames)
         B, S = tokens.shape
         x = embed_tokens(self.embed, tokens)
         L, hd = len(self.layers), cfg.resolved_head_dim
@@ -239,6 +274,69 @@ class Model(nn.Module):
             vc[i] = v.transpose(1, 2)
         cache["layers"] = (kc, vc)
         return x, cache
+
+    # ------------------------------------------------------------ audio
+
+    def _frames(self, enc_frames) -> torch.Tensor:
+        """The encoder's input frames (B, T, D) on the device in the
+        compute dtype; the audio family reads them from
+        ``batch["enc_frames"]``, as the reference."""
+        if enc_frames is None:
+            raise ValueError(
+                f"{self.cfg.name}: the audio family needs enc_frames, the "
+                f"encoder's input frames (B, {self.cfg.encoder_seq_len}, "
+                f"{self.cfg.d_model})")
+        return torch.as_tensor(enc_frames, device=self.device).to(
+            self.policy.compute_dtype)
+
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder: frames plus ``pos_enc``, each encoder layer
+        (checkpointed under remat "full" when a gradient is wanted), then
+        ``ln_enc``. -> (B, T, D)."""
+        x = frames + self.pos_enc.to(frames.dtype)[None]
+        for i, lp in enumerate(self.enc_layers):
+            x = self._unit(f"enc_layers.{i}", self._enc_layer, i, lp, x)
+        return tfm.norm(self.cfg, x, self.ln_enc)
+
+    def _enc_layer(self, i: int, lp: tfm.EncoderLayer, x: torch.Tensor
+                   ) -> torch.Tensor:
+        self._gather(f"enc_layers.{i}")
+        return tfm.encoder_layer(lp, self.cfg, x)
+
+    def _dec_layer(self, i: int, lp: tfm.DecoderLayer, x: torch.Tensor,
+                   enc: torch.Tensor) -> torch.Tensor:
+        self._gather(f"dec_layers.{i}")
+        return tfm.decoder_layer(lp, self.cfg, x, None, enc_out=enc)[0]
+
+    def _embed_audio(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The decoder's input: the token rows plus ``pos_dec[:S]``, no
+        embedding scale."""
+        x = dist.constraint(embed_tokens(self.embed, tokens), "act_batch",
+                            "act_seq", "act_embed")
+        return x + self.pos_dec.to(x.dtype)[:tokens.shape[1]][None]
+
+    def _forward_encdec(self, tokens: torch.Tensor, enc_frames
+                        ) -> Tuple[torch.Tensor, Cache]:
+        """The reference's ``_forward_encdec`` with ``collect_cache``: the
+        encoder, then each decoder layer, its self and cross K/V
+        collected."""
+        cfg = self.cfg
+        enc = self._encode(self._frames(enc_frames))
+        x = self._embed_audio(tokens)
+        B, S = tokens.shape
+        L, hd, nkv = len(self.dec_layers), cfg.resolved_head_dim, \
+            cfg.num_kv_heads
+        kv = dict(dtype=x.dtype, device=self.device)
+        kc, vc = (torch.empty((L, B, nkv, S, hd), **kv) for _ in range(2))
+        ck, cv = (torch.empty((L, B, nkv, enc.shape[1], hd), **kv)
+                  for _ in range(2))
+        for i, lp in enumerate(self.dec_layers):
+            x, _, (k, v, kx, vx) = tfm.decoder_layer(lp, cfg, x, None,
+                                                     enc_out=enc)
+            kc[i] = k.transpose(1, 2)           # (B, Hkv, S, hd) cache layout
+            vc[i] = v.transpose(1, 2)
+            ck[i], cv[i] = kx, vx
+        return x, {"layers": (kc, vc, ck, cv)}
 
     def _forward_rwkv(self, tokens: torch.Tensor
                       ) -> Tuple[torch.Tensor, Cache]:
@@ -348,21 +446,30 @@ class Model(nn.Module):
 
     def train_loss(self, batch) -> Tuple[torch.Tensor,
                                          Dict[str, torch.Tensor]]:
-        """batch {"tokens", "labels"} (B, S) -> (loss, {"loss", "ce",
-        "aux"}), the loss a scalar float32 tensor with a graph back to the
-        working weights. The ssm family runs the reference's
+        """batch {"tokens", "labels"} (B, S), and for the audio family
+        "enc_frames" (B, T, D) -> (loss, {"loss", "ce", "aux"}), the loss
+        a scalar float32 tensor with a graph back to the working
+        weights. The ssm family runs the reference's
         ``_forward_rwkv`` (``ln0``, then each block from a zero WKV
         state), whose WKV6 call differentiates through K4' on the card.
         The moe family's loss is ``ce + router_aux_loss * aux``, aux the
         sum of its MoE layers' (``dense0``'s is not counted). The hybrid
         family runs the reference's ``_forward_hybrid`` (the gemma
         embedding scale, each unit checkpointed as one function, the tail
-        outside the checkpoints); its aux is 0."""
+        outside the checkpoints); its aux is 0. The audio family runs the
+        reference's ``_forward_encdec`` (each encoder and each decoder
+        layer checkpointed) and its LayerNorm on ``ln_f``; its aux is 0,
+        and a batch without "enc_frames" raises, as the reference's
+        lookup does."""
         cfg = self.cfg
         tokens = self._tokens(batch["tokens"])
         labels = self._tokens(batch["labels"])
         B, S = tokens.shape
         self.require_weights()
+        if cfg.is_encoder_decoder:
+            frames = self._frames(batch["enc_frames"])
+            self._gather("in")
+            return self._loss(self._train_encdec(tokens, frames), labels, [])
         self._gather("in")
         x = (self._embed_hybrid(tokens) if cfg.family == "hybrid"
              else embed_tokens(self.embed, tokens))
@@ -385,21 +492,44 @@ class Model(nn.Module):
             self._gather("dense0")
             x = tfm.decoder_layer(self.dense0, cfg, x, *extra)[0]
         for i, lp in enumerate(getattr(self, "layers", ())):
-            if self.remat == "full" and torch.is_grad_enabled():
-                # no randomness inside a layer: the RNG state need not be
-                # saved for the recompute
-                x = checkpoint(layer, i, lp, x, *extra, use_reentrant=False,
-                               preserve_rng_state=False)
-                if self.zero3 is not None:
-                    # the recompute gathers again
-                    self.zero3.release(f"layers.{i}")
-            else:
-                x = layer(i, lp, x, *extra)
+            x = self._unit(f"layers.{i}", layer, i, lp, x, *extra)
             if cfg.moe:
                 x, aux = x
                 auxes.append(aux)
+        return self._loss(x, labels, auxes)
+
+    def _unit(self, unit: str, fn, *args):
+        """``fn(*args)``, which gathers ``unit`` first: under remat "full",
+        when a gradient is wanted, as one checkpointed function (no
+        randomness inside a layer, so the RNG state is not saved for the
+        recompute), after which a sharded step releases the unit's weights
+        (the recompute gathers again)."""
+        if self.remat == "full" and torch.is_grad_enabled():
+            out = checkpoint(fn, *args, use_reentrant=False,
+                             preserve_rng_state=False)
+            if self.zero3 is not None:
+                self.zero3.release(unit)
+            return out
+        return fn(*args)
+
+    def _train_encdec(self, tokens: torch.Tensor, frames: torch.Tensor
+                      ) -> torch.Tensor:
+        """The audio family's training forward: the encoder, then each
+        decoder layer over its output. -> the decoder's hidden (B, S,
+        D)."""
+        enc = self._encode(frames)
+        x = self._embed_audio(tokens)
+        for i, lp in enumerate(self.dec_layers):
+            x = self._unit(f"dec_layers.{i}", self._dec_layer, i, lp, x, enc)
+        return x
+
+    def _loss(self, x: torch.Tensor, labels: torch.Tensor, auxes: list
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The head over the layers' output x (B, S, D): the final norm,
+        the logits, the cross-entropy, and the moe family's aux term."""
+        cfg = self.cfg
         self._gather("out")
-        x = rms_norm(x, self.ln_f.to(x.dtype), cfg.norm_eps)
+        x = tfm.norm(cfg, x, self.ln_f.to(x.dtype))
         x = dist.constraint(x, "act_batch", "act_seq", "act_embed")
         logits = logits_from_hidden(self.embed, x, cfg.vocab_size,
                                     cfg.tie_embeddings)
@@ -424,13 +554,7 @@ class Model(nn.Module):
         (the reference's remat of its unit scan), then the tail, outside
         any checkpoint (it runs after the reference's scan)."""
         for u, unit in enumerate(self.units):
-            if self.remat == "full" and torch.is_grad_enabled():
-                x = checkpoint(self._train_unit, u, unit, x, rope,
-                               use_reentrant=False, preserve_rng_state=False)
-                if self.zero3 is not None:
-                    self.zero3.release(f"units.{u}")   # gathered again
-            else:
-                x = self._train_unit(u, unit, x, rope)
+            x = self._unit(f"units.{u}", self._train_unit, u, unit, x, rope)
         if len(self.tail):
             self._gather("tail")
         for lp, kind in zip(self.tail, self._hybrid_tail_kinds()):
@@ -460,17 +584,19 @@ class Model(nn.Module):
         return rwkv6.block(lp, cfg, x, s0)[0]
 
     def _final_logits(self, x_last: torch.Tensor) -> torch.Tensor:
-        x_last = rms_norm(x_last, self.ln_f.to(x_last.dtype),
-                          self.cfg.norm_eps)
+        x_last = tfm.norm(self.cfg, x_last, self.ln_f.to(x_last.dtype))
         return logits_from_hidden(self.embed, x_last, self.cfg.vocab_size,
                                   self.cfg.tie_embeddings)
 
     @torch.no_grad()
-    def prefill(self, tokens) -> Tuple[torch.Tensor, Cache]:
-        """tokens (B, S) -> (last-token logits (B, Vp), cache)."""
+    def prefill(self, tokens, enc_frames=None) -> Tuple[torch.Tensor, Cache]:
+        """tokens (B, S) -> (last-token logits (B, Vp), cache). The audio
+        family also takes the encoder's input frames ``enc_frames`` (B, T,
+        D), the reference's ``batch["enc_frames"]``; the other families
+        do not read them."""
         self.require_weights()
         tokens = self._tokens(tokens)
-        x, cache = self._forward(tokens)
+        x, cache = self._forward(tokens, enc_frames)
         cache["pos"] = int(tokens.shape[1])
         return self._final_logits(x[:, -1]), cache
 
@@ -505,6 +631,14 @@ class Model(nn.Module):
                     "tail": [layer_cache(kind)
                              for kind in self._hybrid_tail_kinds()],
                     "pos": 0}
+        if cfg.is_encoder_decoder:
+            # the cross K/V stay zero until a prefill writes them
+            self_kv = (L, B, cfg.num_kv_heads, cache_len,
+                       cfg.resolved_head_dim)
+            cross_kv = self_kv[:3] + (cfg.encoder_seq_len, self_kv[4])
+            return {"layers": tuple(torch.zeros(shape, **kv) for shape in
+                                    (self_kv, self_kv, cross_kv, cross_kv)),
+                    "pos": 0}
         shape = (len(self.layers), B, cfg.num_kv_heads, cache_len,
                  cfg.resolved_head_dim)
         cache = {"layers": (torch.zeros(shape, **kv),
@@ -518,7 +652,9 @@ class Model(nn.Module):
     def decode_step(self, tokens, cache: Cache) -> Tuple[torch.Tensor, Cache]:
         """tokens (B,) -> (logits (B, Vp), cache), the cache updated in
         place. The ssm family, as in the JAX package, embeds the token
-        without the ``ln0`` norm that prefill applies."""
+        without the ``ln0`` norm that prefill applies; the audio family
+        adds ``pos_dec[pos]`` and its decoder layers attend to the cross
+        caches, which a decode step reads and never writes."""
         self.require_weights()
         cfg = self.cfg
         pos = int(cache["pos"])
@@ -526,7 +662,13 @@ class Model(nn.Module):
             return self._decode_hybrid(self._tokens(tokens), cache, pos)
         x = dist.constraint(embed_tokens(self.embed, self._tokens(tokens)),
                             "act_batch", "act_embed")
-        if cfg.family == "ssm":
+        if cfg.is_encoder_decoder:
+            x = x + self.pos_dec.to(x.dtype)[pos]
+            kc, vc, ck, cv = cache["layers"]
+            for i, lp in enumerate(self.dec_layers):
+                x = tfm.decoder_layer_step(lp, cfg, x, kc[i], vc[i], pos,
+                                           None, enc_kv=(ck[i], cv[i]))
+        elif cfg.family == "ssm":
             for i, lp in enumerate(self.layers):
                 st = {name: cache[name][i] for name in ("wkv", "x_tm",
                                                          "x_cm")}

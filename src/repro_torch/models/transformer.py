@@ -1,8 +1,11 @@
-"""The decoder layer with a dense or an MoE FFN: prefill and training
-(``decoder_layer``) and one decode step (``decoder_layer_step``), with
-full causal attention or, for the hybrid family's attention layers, a
-sliding window (``local_attention`` over a sequence, the ring-buffer
-decode ``_ring_decode``). Cross attention comes with the audio family."""
+"""The transformer layers: the decoder layer with a dense or an MoE FFN,
+for prefill and training (``decoder_layer``) and one decode step
+(``decoder_layer_step``), with full causal attention or, for the hybrid
+family's attention layers, a sliding window (``local_attention`` over a
+sequence, the ring-buffer decode ``_ring_decode``); and the audio family's
+(whisper) encoder layer and decoder layer with cross attention over the
+encoder's output (``project_cross_kv``, ``_plain_decode_attn`` in
+decode), both normed by LayerNorm (``norm``)."""
 from __future__ import annotations
 
 import math
@@ -14,18 +17,20 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import Init
-from repro_torch.models.layers import MLP, rms_norm
+from repro_torch.models.layers import MLP, layer_norm, rms_norm
 
 
 class DecoderLayer(nn.Module):
     """``ln_attn``, ``attn``, ``ln_mlp`` and either ``mlp`` (of hidden
-    ``d_ff``, default ``cfg.d_ff``) or, for an MoE layer, ``moe``, as in
-    the JAX tree (``init_decoder_layer``)."""
+    ``d_ff``, default ``cfg.d_ff``) or, for an MoE layer, ``moe``, and,
+    with ``cross`` (the audio family's decoder), ``ln_cross`` and the
+    cross attention ``cross``, as in the JAX tree
+    (``init_decoder_layer``)."""
 
-    AXES = {"ln_attn": (None,), "ln_mlp": (None,)}
+    AXES = {"ln_attn": (None,), "ln_mlp": (None,), "ln_cross": (None,)}
 
     def __init__(self, init: Init, cfg, *, moe_layer: bool = False,
-                 d_ff: int = 0):
+                 d_ff: int = 0, cross: bool = False):
         super().__init__()
         self.ln_attn = init.zeros((cfg.d_model,))
         self.attn = attn.Attention(init, cfg)
@@ -35,47 +40,101 @@ class DecoderLayer(nn.Module):
             self.moe = moe_mod.MoE(init, cfg)
         else:
             self.mlp = MLP(init, cfg.d_model, d_ff or cfg.d_ff, cfg.act)
+        if cross:
+            self.ln_cross = init.zeros((cfg.d_model,))
+            self.cross = attn.Attention(init, cfg)
+
+
+class EncoderLayer(nn.Module):
+    """The audio family's encoder layer: ``ln_attn``, ``attn``, ``ln_mlp``,
+    ``mlp`` (``init_encoder_layer``)."""
+
+    AXES = {"ln_attn": (None,), "ln_mlp": (None,)}
+
+    def __init__(self, init: Init, cfg):
+        super().__init__()
+        self.ln_attn = init.zeros((cfg.d_model,))
+        self.attn = attn.Attention(init, cfg)
+        self.ln_mlp = init.zeros((cfg.d_model,))
+        self.mlp = MLP(init, cfg.d_model, cfg.d_ff, cfg.act)
 
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
+KV = Tuple[torch.Tensor, torch.Tensor]
 
 
-def decoder_layer(p: DecoderLayer, cfg, x: torch.Tensor, rope: Rope,
+def norm(cfg, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The layers' norm (the reference's ``_norm``): LayerNorm with scale
+    ``1 + scale`` (summed in the scale's dtype) and a zero bias in the
+    audio family (whisper), RMSNorm elsewhere."""
+    if cfg.family == "audio":
+        return layer_norm(x, 1.0 + scale, torch.zeros_like(scale),
+                          cfg.norm_eps)
+    return rms_norm(x, scale, cfg.norm_eps)
+
+
+def project_cross_kv(p: attn.Attention, cfg, enc_out: torch.Tensor) -> KV:
+    """A layer's cross-attention K/V of the encoder output (B, T, D), in
+    the cache layout (B, Hkv, T, hd): views of (B, T, Hkv, hd) products,
+    so that the kernel reads them through strides."""
+    B, T, _ = enc_out.shape
+    shape = (B, T, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return ((enc_out @ p.wk).reshape(shape).transpose(1, 2),
+            (enc_out @ p.wv).reshape(shape).transpose(1, 2))
+
+
+def decoder_layer(p: DecoderLayer, cfg, x: torch.Tensor,
+                  rope: Optional[Rope],
                   token_shard: Optional[moe_mod.TokenShard] = None, *,
-                  window: int = 0
-                  ) -> Tuple[torch.Tensor, torch.Tensor,
-                             Tuple[torch.Tensor, torch.Tensor]]:
+                  window: int = 0, enc_out: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Tuple]:
     """Prefill / training layer. x (B, S, D); ``rope`` the tables of
-    positions 0..S-1; ``token_shard`` see ``moe.apply_moe``; ``window`` >
-    0 attends in that sliding window (``attention.local_attention``).
-    Returns (x, aux, (k, v)): the MoE's aux (zero for a dense FFN), k/v
-    (B, S, Hkv, hd) for the cache."""
-    h = rms_norm(x, p.ln_attn, cfg.norm_eps)
+    positions 0..S-1 (None: no RoPE, the audio family); ``token_shard``
+    see ``moe.apply_moe``; ``window`` > 0 attends in that sliding window
+    (``attention.local_attention``); ``enc_out`` (B, T, D), the audio
+    family's encoder output, adds the cross-attention branch. Returns (x,
+    aux, cache): the MoE's aux (zero for a dense FFN); the cache (k, v)
+    (B, S, Hkv, hd), and with ``enc_out`` also the cross K/V of
+    ``project_cross_kv`` (B, Hkv, T, hd)."""
+    h = norm(cfg, x, p.ln_attn)
     q, k, v = attn.project_qkv(p.attn, cfg, h, rope)
     if window:
         o = attn.local_attention(q, k, v, window=window)
     else:
         o = attn.full_attention(q, k, v, causal=True)
     x = x + attn.out_projection(p.attn, o)
-    h = rms_norm(x, p.ln_mlp, cfg.norm_eps)
+    cache: Tuple = (k, v)
+    if enc_out is not None:
+        h = norm(cfg, x, p.ln_cross)
+        B, S, _ = h.shape
+        qc = (h @ p.cross.wq).reshape(B, S, cfg.num_heads,
+                                      cfg.resolved_head_dim)
+        kc, vc = project_cross_kv(p.cross, cfg, enc_out)
+        oc = attn.cross_attention(qc, kc.transpose(1, 2), vc.transpose(1, 2))
+        x = x + attn.out_projection(p.cross, oc)
+        cache = (k, v, kc, vc)
+    h = norm(cfg, x, p.ln_mlp)
     if p.moe_layer:
         d, aux = moe_mod.apply_moe(p.moe, cfg, h, token_shard)
     else:       # the reference's aux of a dense FFN: a float32 zero
         d = p.mlp(h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + d, aux, (k, v)
+    return x + d, aux, cache
 
 
 def decoder_layer_step(p: DecoderLayer, cfg, x: torch.Tensor,
                        kcache: torch.Tensor, vcache: torch.Tensor, pos: int,
-                       rope: Rope, *, window: int = 0) -> torch.Tensor:
+                       rope: Optional[Rope], *, window: int = 0,
+                       enc_kv: Optional[KV] = None) -> torch.Tensor:
     """Decode-step layer. x (B, D); caches (B, Hkv, Sc, hd), written in
     place at ``pos`` (with a ``window``, a ring of Sc = window slots
     written at ``pos % window``, ``_ring_decode``); ``rope`` the (B, 1)
-    tables of ``pos``. An MoE layer routes the step's B tokens as one call
-    and drops its aux. Returns x."""
+    tables of ``pos`` (None in the audio family); ``enc_kv`` the audio
+    family's cross caches (B, Hkv, T, hd), read, not written
+    (``_plain_decode_attn``). An MoE layer routes the step's B tokens as
+    one call and drops its aux. Returns x."""
     B, _ = x.shape
-    h = rms_norm(x, p.ln_attn, cfg.norm_eps)[:, None]          # (B, 1, D)
+    h = norm(cfg, x, p.ln_attn)[:, None]                       # (B, 1, D)
     q, k, v = attn.project_qkv(p.attn, cfg, h, rope)
     if window:
         o = _ring_decode(q[:, 0], kcache, vcache, k[:, 0], v[:, 0], pos)
@@ -83,10 +142,41 @@ def decoder_layer_step(p: DecoderLayer, cfg, x: torch.Tensor,
         o = attn.decode_attention(q[:, 0], kcache, vcache, k[:, 0],
                                   v[:, 0], pos)
     x = x + o.reshape(B, -1) @ p.attn.wo
-    h = rms_norm(x, p.ln_mlp, cfg.norm_eps)
+    if enc_kv is not None:
+        hc = norm(cfg, x, p.ln_cross)
+        qc = (hc @ p.cross.wq).reshape(B, cfg.num_heads,
+                                       cfg.resolved_head_dim)
+        oc = _plain_decode_attn(qc, *enc_kv)
+        x = x + oc.reshape(B, -1) @ p.cross.wo
+    h = norm(cfg, x, p.ln_mlp)
     if p.moe_layer:
         return x + moe_mod.apply_moe(p.moe, cfg, h[:, None])[0][:, 0]
     return x + p.mlp(h)
+
+
+def encoder_layer(p: EncoderLayer, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The audio encoder's layer over x (B, T, D): full (non-causal)
+    self-attention without RoPE, then the MLP."""
+    h = norm(cfg, x, p.ln_attn)
+    q, k, v = attn.project_qkv(p.attn, cfg, h, None)
+    o = attn.full_attention(q, k, v, causal=False)
+    x = x + attn.out_projection(p.attn, o)
+    return x + p.mlp(norm(cfg, x, p.ln_mlp))
+
+
+def _plain_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                       ) -> torch.Tensor:
+    """One decode step's cross attention over the fixed encoder K/V, no
+    mask: q (B, Hq, hd), k/v (B, Hkv, T, hd) -> (B, Hq, hd). The scores
+    and softmax in float32, the probabilities cast to v's dtype for the
+    value product, as the reference."""
+    B, Hq, hd = q.shape
+    Hkv = k.shape[1]
+    qg = q.reshape(B, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bhgd,bhtd->bhgt", qg.float(),
+                     k.float()) / math.sqrt(hd)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhgt,bhtd->bhgd", p, v).reshape(B, Hq, hd)
 
 
 def _ring_decode(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
@@ -113,4 +203,5 @@ def _ring_decode(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     return torch.einsum("bhgs,bhsd->bhgd", p, vc).reshape(B, Hq, hd)
 
 
-__all__ = ["DecoderLayer", "decoder_layer", "decoder_layer_step"]
+__all__ = ["DecoderLayer", "EncoderLayer", "decoder_layer",
+           "decoder_layer_step", "encoder_layer", "norm", "project_cross_kv"]

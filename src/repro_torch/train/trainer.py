@@ -99,11 +99,14 @@ def load_working(model: Model, params: Mapping[str, torch.Tensor]) -> None:
 def decay_mask(model: Model) -> Dict[str, bool]:
     """Which parameters AdamW decays. The reference's rule is "two or more
     dimensions", applied to its tree, where each layer's parameters are
-    stacked on a leading layer axis (the hybrid family's on a unit axis):
-    so every layer (unit) parameter decays, its norm scales, biases and
-    the RG-LRU's gates too, and of the rest only the matrices. The hybrid
-    tail is a plain list there, so its vectors do not decay."""
-    return {name: name.startswith(("layers.", "units.")) or p.dim() >= 2
+    stacked on a leading layer axis (the hybrid family's on a unit axis,
+    the audio family's on its encoder's and its decoder's): so every layer
+    (unit) parameter decays, its norm scales, biases and the RG-LRU's
+    gates too, and of the rest only the matrices (the audio family's
+    position tables among them). The hybrid tail is a plain list there, so
+    its vectors do not decay."""
+    stacks = tuple(f"{s}." for s in model.stacks())
+    return {name: name.startswith(stacks) or p.dim() >= 2
             for name, p in model.named_parameters()}
 
 

@@ -4,9 +4,11 @@ port's single-process step and the JAX package.
 One spawn of four gloo ranks (``tests/torch_dist_workers.py``: a
 ``FileStore`` in the test's temporary directory, a join limit of
 ``JOIN_S``) runs reduced qwen3-4b, rwkv6-7b, deepseek-moe-16b (also
-with its capacity factor cut to 0.5, so that full experts drop slots)
-and recurrentgemma-9b (5 layers: a unit and the tail, whose ZeRO-3 units
-are "units.0" and "tail"; ``workers.RUNS``) from the reference's weights,
+with its capacity factor cut to 0.5, so that full experts drop slots),
+recurrentgemma-9b (5 layers: a unit and the tail, whose ZeRO-3 units
+are "units.0" and "tail") and whisper-small (2 encoder and 2 decoder
+layers, whose batches carry seeded encoder frames, ``workers.WithFrames``;
+``workers.RUNS``) from the reference's weights,
 float32,
 ``DataConfig(vocab, 32, 4)`` (one sequence a rank), two ``Trainer`` steps
 under ``make_cpu_mesh()`` of (4, 1), the plain versions of the kernels.
@@ -83,7 +85,8 @@ def _reference(arch):
     under its one-device CPU mesh."""
     jcfg = workers.run_config(arch, repro.configs)
     jm = JaxModel(jcfg, JaxPolicy(compute_dtype=jnp.float32))
-    data = JaxSyntheticLM(JaxDataConfig(jcfg.vocab_size, workers.SEQ, WORLD))
+    data = workers.run_data(jcfg, JaxSyntheticLM(
+        JaxDataConfig(jcfg.vocab_size, workers.SEQ, WORLD)))
     mesh = jax_cpu_mesh()
     with mesh, jax_dist.use_mesh(mesh):
         ref = JaxTrainer(jm, data, JaxTrainConfig(
@@ -98,7 +101,8 @@ def _single(arch, init, steps=2):
     model = model_params(init, workers.run_config(arch, repro_torch.configs),
                          policy=Policy(compute_dtype=torch.float32),
                          device="cpu")
-    data = SyntheticLM(DataConfig(model.cfg.vocab_size, workers.SEQ, WORLD))
+    data = workers.run_data(model.cfg, SyntheticLM(
+        DataConfig(model.cfg.vocab_size, workers.SEQ, WORLD)))
     tr = Trainer(model, data, TrainConfig(steps=steps, ckpt_interval=100,
                                           opt=AdamWConfig(**workers.OPT)))
     return tr, tr.run()["history"]

@@ -438,7 +438,8 @@ def test_convert_fills_every_parameter_from_the_reference_tree():
 
 @pytest.mark.parametrize("entry", ["train_loss", "param_axes",
                                    "zero3_units"])
-def test_training_entry_points_raise_for_the_hybrid_family(entry):
+def test_training_entry_points_match_reference_for_the_hybrid_family(
+        entry):
     """Each training entry point of the hybrid family runs and gives the
     reference's answer: the loss (float32 1e-5), the axes of a unit's and
     of the tail's parameters (the reference's without its stacked axis),

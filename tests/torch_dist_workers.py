@@ -23,13 +23,45 @@ SEQ = 32
 # run name -> (arch, MoE capacity factor or None, ``reduced`` overrides):
 # "deepseek-moe-16b-drops" cuts the capacity so that full experts drop
 # slots of every rank; recurrentgemma-9b takes 5 layers, a (rec, rec,
-# attn) unit and the (rec, rec) tail, its window (64) above SEQ
+# attn) unit and the (rec, rec) tail, its window (64) above SEQ;
+# whisper-small's batches carry seeded encoder frames (``WithFrames``)
 RUNS = {"qwen3-4b": ("qwen3-4b", None, {}),
         "rwkv6-7b": ("rwkv6-7b", None, {}),
         "deepseek-moe-16b": ("deepseek-moe-16b", None, {}),
         "deepseek-moe-16b-drops": ("deepseek-moe-16b", 0.5, {}),
         "recurrentgemma-9b": ("recurrentgemma-9b", None,
-                              {"num_layers": 5})}
+                              {"num_layers": 5}),
+        "whisper-small": ("whisper-small", None, {})}
+
+
+class WithFrames:
+    """A ``SyntheticLM`` of either package whose batches also carry the
+    audio family's encoder input, ``enc_frames`` (B, T, D): standard
+    normal float32 frames of the whole global batch, drawn with numpy from
+    (``seed``, step), then sliced for the shard as the tokens are. Neither
+    package's data pipeline makes frames; the reference's ``input_specs``
+    gives their shape."""
+
+    def __init__(self, data, frames: int, d_model: int, seed: int = 0):
+        self.data, self.cfg = data, data.cfg
+        self.shape, self.seed = (frames, d_model), seed
+
+    def batch_at(self, step: int, shard: int = 0, num_shards: int = 1):
+        batch = self.data.batch_at(step, shard, num_shards)
+        rows = self.cfg.global_batch // num_shards
+        rng = np.random.default_rng((self.seed, step))
+        frames = rng.standard_normal((self.cfg.global_batch,) + self.shape,
+                                     dtype=np.float32)
+        batch["enc_frames"] = frames[shard * rows:(shard + 1) * rows]
+        return batch
+
+
+def run_data(cfg, data):
+    """``data`` with encoder frames added where ``cfg`` is the audio
+    family's."""
+    if not cfg.is_encoder_decoder:
+        return data
+    return WithFrames(data, cfg.encoder_seq_len, cfg.d_model)
 
 
 def run_config(run: str, package):
@@ -60,7 +92,7 @@ def _trainer(run: str, init, steps: int, batch: int = 4, seq: int = SEQ,
     cfg = run_config(run, repro_torch.configs)
     model = model_params(init, cfg, policy=Policy(compute_dtype=torch.float32),
                          device="cpu")
-    data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch))
+    data = run_data(cfg, SyntheticLM(DataConfig(cfg.vocab_size, seq, batch)))
     return Trainer(model, data, TrainConfig(
         steps=steps, ckpt_interval=3, microbatch=microbatch,
         opt=AdamWConfig(**OPT)), ckpt=ckpt, hook=hook)
