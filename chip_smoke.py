@@ -25,8 +25,9 @@ order, it
   5. holds the flash-attention kernel against its plain version on the
      card at qwen3-4b's prefill shape (bfloat16 and float32), at a ragged
      non-causal shape, at bfloat16 cases covering head dims 32/64/128,
-     MQA, q_offset and kv_len, and at whisper-small's prefill shapes
-     (``K3_CASES``), and times it beside PyTorch's
+     MQA, q_offset and kv_len, at whisper-small's prefill shapes and at
+     qwen2-vl-72b's (64 query heads over 8 of 128, 4,096 tokens:
+     ``VLM_ATTN``) (``K3_CASES``), and times it beside PyTorch's
      ``scaled_dot_product_attention``;
   6. holds the WKV6 kernels against their plain version at rwkv6-7b's
      prefill shape and at the other ``K4_CASES`` (every head dim, B = 2,
@@ -43,10 +44,10 @@ order, it
   9. holds the flash-attention backward kernel against its plain version
      on the card at qwen3-4b's training shape (bfloat16 and float32) and
      at the other ``K3B_CASES`` (head dims 32/64/128, a ragged S, MQA and
-     Hq = Hkv, G = 8, q_offset, kv_len, the tiles' ragged edges, and
-     whisper-small's training shapes), checks that two calls are
-     bit-equal, and times it beside the backward of
-     ``scaled_dot_product_attention``;
+     Hq = Hkv, G = 8, q_offset, kv_len, the tiles' ragged edges,
+     whisper-small's training shapes, and qwen2-vl-72b's G = 8 at 4,096
+     tokens), checks that two calls are bit-equal, and times it beside the
+     backward of ``scaled_dot_product_attention``;
  10. trains qwen3-4b at full width (8 of its 36 layers, one 4,096-token
      sequence, bf16, remat "full"): one step on the kernel path against
      the plain path (loss, every gradient, the AdamW-updated master
@@ -178,11 +179,26 @@ order, it
      ``AUDIO_PER_STEP``); the same step in float32 at all of phase 10's
      limits; then a ``Trainer`` of 12 bf16 steps with a
      ``GuardStepHook``;
- 23. prints one JSON line of per-kernel numbers, then
+ 23. serves qwen2-vl-72b at full width, 16 of its 80 layers (16.5 B
+     parameters, seeded weights; the vision tower a stub, as in the
+     reference): prefills of 4,096 tokens whose first 256 are a 16 x 16
+     image's seeded patch embeddings, in Qwen2-VL's M-RoPE layout, and of
+     1,000 tokens with the same image, on the kernel path (flash attention
+     exactly 16 launches, nothing else) against the plain path, the
+     prefill's and a decode step's device profile, then a
+     ``BatchedServer`` of 12 requests on 4 slots;
+ 24. trains qwen2-vl-72b at full width, 1 of its 80 layers (one
+     4,096-token sequence with the image, bf16, remat "full"): one step on
+     the kernel path against the plain path at phase 10's limits (flash
+     attention 2 and its backward 1 launches a step), and so steps 2 and
+     3 of a ``Trainer``, from its state, where the loss jumps; then a
+     ``Trainer`` of 12 steps with a ``GuardStepHook`` at a peak learning
+     rate scaled to the width (``VLM_PEAK_LR``);
+ 25. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
 The phases run in the order 1–6, 9, 13(a), 17, 19, 7, 8, 10–12, 13(b),
-14–16, 18, 20–22: the kernel phases whose checks read profiler traces come
+14–16, 18, 20–24: the kernel phases whose checks read profiler traces come
 before the model phases' profiles, after which sessions of one call can
 trace nothing (``call_segments``).
 
@@ -672,10 +688,15 @@ def bound(flops: float, peak: float, nbytes: float):
 # first is qwen3-4b's prefill at 4,096 tokens, the main path's shape; the
 # bfloat16 ones after the float32 case cover every head dim, a ragged S,
 # MQA and Hq/Hkv = 4, a decode chunk (q_offset > 0, causal) and kv_len < T;
-# the last four are whisper-small's prefill (phase 21) at 4 x (1,500
-# frames, 448 tokens): the encoder's full self attention over 1,500 frames
-# (23.4 tiles of 64), the decoder's cross attention (S < T) and its causal
-# self attention, Hq = Hkv = 12 at hd 64, and the encoder's in float32.
+# then whisper-small's prefill (phase 21) at 4 x (1,500 frames, 448
+# tokens): the encoder's full self attention over 1,500 frames (23.4 tiles
+# of 64), the decoder's cross attention (S < T) and its causal self
+# attention, Hq = Hkv = 12 at hd 64, and the encoder's in float32; the
+# last, VLM_ATTN, is qwen2-vl-72b's (phases 23 and 24), timed beside plain
+# and sdpa too.
+# qwen2-vl-72b's causal attention at 4,096 tokens: 64 query heads over 8
+# KV heads of 128, a group of G = 8
+VLM_ATTN = (1, 64, 8, 4096, 4096, 128, True, 0, 0, "bfloat16")
 K3_CASES = [
     (1, 32, 8, 4096, 4096, 128, True, 0, 0, "bfloat16"),
     (1, 32, 8, 4096, 4096, 128, True, 0, 0, "float32"),
@@ -691,6 +712,7 @@ K3_CASES = [
     (4, 12, 12, 448, 1500, 64, False, 0, 0, "bfloat16"),
     (4, 12, 12, 448, 448, 64, True, 0, 0, "bfloat16"),
     (4, 12, 12, 1500, 1500, 64, False, 0, 0, "float32"),
+    VLM_ATTN,
 ]
 K3_TOL = {"bfloat16": 3e-2, "float32": 2e-5}   # the reference's own
 
@@ -703,8 +725,8 @@ def phase_k3(torch, np):
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version: fp32
     torch.backends.cudnn.allow_tf32 = False
     main = None
-    for i, (b, hq, hkv, s, t, hd, causal, qo, kvl, dname) in enumerate(
-            K3_CASES):
+    for i, case in enumerate(K3_CASES):
+        b, hq, hkv, s, t, hd, causal, qo, kvl, dname = case
         dt, tol = getattr(torch, dname), K3_TOL[dname]
         rng = np.random.default_rng(100 + i)
         # the model's (B, S, H, hd) layout, seen through transposes
@@ -731,18 +753,21 @@ def phase_k3(torch, np):
                 f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s, "
                 f"{bnd / ms:.1%} of bound), bound {bnd:.4f} ms ({by}; "
                 f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
-        if i < 3:                           # timed beside plain and sdpa
+        if i < 3 or case == VLM_ATTN:      # timed beside plain and sdpa
             plain = time_ms(lambda: attention_ref(q, k, v, **kw), reps=5,
                             warm=1)
             lib = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), reps=10,
                 warm=2)
             line += f"; plain {plain:.4f} ms, sdpa {lib:.4f} ms"
-        print(line, flush=True)
-        if main is None:
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+            nums = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                         bound_ms=bnd, bound_by=by, library_ms=lib,
                         shape=[b, hq, hkv, s, t, hd])
+        print(line, flush=True)
+        if main is None:
+            main = nums
+        if case == VLM_ATTN:
+            main["vlm"] = nums
         del q, k, v
     torch.cuda.empty_cache()
     return main
@@ -856,10 +881,11 @@ def phase_k4(torch, np):
 # output on the inputs both paths share, so it takes the ssm limit. The
 # audio family's decoder layer 0 self K/V is computed from the token
 # embedding and pos_dec alone, with no kernel before it: it must be
-# bit-equal (a limit of 0).
+# bit-equal (a limit of 0). The vlm family is the dense layer stack: its
+# layer 1 K/V takes the dense limit.
 PATH_REL_TOL = 1e-1
 FIRST_REL_TOL = {"dense": 2e-2, "ssm": 1e-3, "moe": 2e-2, "hybrid": 1e-3,
-                 "audio": 0.0}
+                 "audio": 0.0, "vlm": 2e-2}
 
 
 @contextlib.contextmanager
@@ -923,23 +949,26 @@ def rel_err(got, want) -> float:
 
 
 def prefill_vs_plain(torch, model, cfg, tokens, counters: dict, tag: str,
-                     frames=None):
-    """Prefill ``tokens`` (and the audio family's encoder ``frames``) on
-    the kernel path and on the plain path; fails unless both agree within
-    PATH_REL_TOL / FIRST_REL_TOL. Returns the launches of each kernel
-    during the kernel-path prefill and its seconds."""
+                     frames=None, image=None):
+    """Prefill ``tokens`` (and the audio family's encoder ``frames``, the
+    vlm family's ``image``: ``prefill``'s ``positions`` and
+    ``patch_embeds``) on the kernel path and on the plain path; fails
+    unless both agree within PATH_REL_TOL / FIRST_REL_TOL. Returns the
+    launches of each kernel during the kernel-path prefill and its
+    seconds."""
+    image = image or {}
     for c in counters.values():
         c.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(tokens, frames)
+    logits, cache = model.prefill(tokens, frames, **image)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
     check(bool(torch.isfinite(logits).all()),
           f"{tag}: non-finite prefill logits")
     with plain_paths():
-        plain_logits, plain_cache = model.prefill(tokens, frames)
+        plain_logits, plain_cache = model.prefill(tokens, frames, **image)
     torch.cuda.synchronize()
     check(all(c.launches == launches[n] for n, c in counters.items()),
           f"{tag}: the plain path launched a kernel")
@@ -1047,9 +1076,11 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict,
                 ragged: int = 0, layers: int = 0, batch: int = 1,
                 cache_len: int = 512):
     """Prefill of ``batch`` sequences of ``seq`` tokens (the audio family:
-    with seeded encoder frames) at full width and depth (``layers`` deep
-    when given) on the kernel path, checked against the plain path (again
-    at a ``ragged`` prompt length when given; the moe family by
+    with seeded encoder frames; the vlm family: opening with an image of
+    VLM_GRID seeded patch embeddings, in Qwen2-VL's M-RoPE layout) at full
+    width and depth (``layers`` deep when given) on the kernel path,
+    checked against the plain path (again at a ``ragged`` prompt length,
+    with the same image, when given; the moe family by
     ``moe_prefill_vs_plain``; the hybrid family's each followed by
     ``ring_decode_vs_plain``), then a BatchedServer with caches of
     ``cache_len`` to completion; the moe and hybrid families also print
@@ -1072,11 +1103,17 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict,
     rng = np.random.default_rng(7)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (batch, seq))).cuda()
-    frames = None
+    frames = image = rimage = None
     if cfg.is_encoder_decoder:
         frames = torch.from_numpy(rng.standard_normal(
             (batch, cfg.encoder_seq_len, cfg.d_model),
             dtype=np.float32)).cuda()
+    if cfg.mrope_sections:
+        patches = torch.from_numpy(rng.standard_normal(
+            (batch, VLM_GRID[0] * VLM_GRID[1], cfg.d_model),
+            dtype=np.float32)).cuda()
+        image = vlm_image(torch, np, patches, seq)
+        rimage = vlm_image(torch, np, patches[:1], ragged or seq)
     tag = f"{arch} {seq} tokens" + (f" x {batch}" if batch > 1 else "")
     extra = {}
     if cfg.moe:
@@ -1084,21 +1121,22 @@ def phase_serve(torch, np, arch: str, seq: int, counters: dict,
             torch, model, cfg, tokens, counters, tag)
     else:
         launches, first_s = prefill_vs_plain(torch, model, cfg, tokens,
-                                             counters, tag, frames)
+                                             counters, tag, frames, image)
     if ragged:
         rtoks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                               (1, ragged))).cuda()
         extra["ragged_launches"], extra["ragged_prefill_s"] = \
             prefill_vs_plain(torch, model, cfg, rtoks, counters,
-                             f"{arch} {ragged} tokens")
+                             f"{arch} {ragged} tokens", image=rimage)
+    image = image or {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.prefill(tokens, frames)
+    model.prefill(tokens, frames, **image)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
 
     p_wall, p_busy, p_top = device_profile(
-        torch, lambda: model.prefill(tokens, frames), reps=2)
+        torch, lambda: model.prefill(tokens, frames, **image), reps=2)
     print(f"{arch} prefill profile: {p_wall:.1f} ms wall, device busy "
           f"{p_busy:.1f} ms ({p_busy / p_wall:.0%}); top kernels (ms per "
           f"prefill): {p_top}", flush=True)
@@ -1454,6 +1492,9 @@ K3B_CASES = [
     (8, 12, 12, 448, 1500, 64, False, 0, 0, "bfloat16"),
     (8, 12, 12, 448, 448, 64, True, 0, 0, "bfloat16"),
     (8, 12, 12, 1500, 1500, 64, False, 0, 0, "float32"),
+    # qwen2-vl-72b's training (phase 24): dK/dV summed over a group of 8
+    # query heads at 4,096 tokens; timed beside plain and sdpa too
+    VLM_ATTN,
 ]
 # the kernels of one call, in launch order: the D pass, then the dK/dV
 # and dQ kernels (wgmma in bfloat16, the CUDA cores in float32)
@@ -1484,8 +1525,8 @@ def phase_k3_bwd(torch, np):
         flash_attention, flash_attention_bwd)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version: fp32
     main = None
-    for i, (b, hq, hkv, s, t, hd, causal, qo, kvl, dname) in enumerate(
-            K3B_CASES):
+    for i, case in enumerate(K3B_CASES):
+        b, hq, hkv, s, t, hd, causal, qo, kvl, dname = case
         dt, tol = getattr(torch, dname), K3B_TOL[dname]
         rng = np.random.default_rng(300 + i)
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
@@ -1543,7 +1584,7 @@ def phase_k3_bwd(torch, np):
             f"{bnd / ms:.2%} of bound, bound {bnd:.4f} ms ({by}; "
             f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
         plain = lib = None
-        if i < 3:                    # timed beside plain and sdpa's backward
+        if i < 3 or case == VLM_ATTN:  # timed beside plain, sdpa's backward
             plain = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse_ref,
                                                       do, **kw),
                             reps=3, warm=1)
@@ -1572,12 +1613,15 @@ def phase_k3_bwd(torch, np):
                     if n in own else "")
                 for n, m in split.items())
         print(line, flush=True)
+        nums = dict(max_abs_err=abs_err, max_rel_err=err, ms=ms,
+                    device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
+                    bound_by=by, library_ms=lib,
+                    shape=[b, hq, hkv, s, t, hd],
+                    kernels_per_call=len(names))
         if main is None:
-            main = dict(max_abs_err=abs_err, max_rel_err=err, ms=ms,
-                        device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
-                        bound_by=by, library_ms=lib,
-                        shape=[b, hq, hkv, s, t, hd],
-                        kernels_per_call=len(names))
+            main = nums
+        if case == VLM_ATTN:
+            main["vlm"] = nums
         del q, k, v, do, o, lse, lse_ref
         torch.cuda.empty_cache()
     return main
@@ -1588,6 +1632,7 @@ def phase_k3_bwd(torch, np):
 TRAIN_LAYERS = 8           # of qwen3-4b's 36: 16 B a parameter must fit
 TRAIN_SEQ = 4096
 TRAIN_STEPS = 12
+TRAIN_LR = 3e-4            # AdamW's peak learning rate, after 2 warmup steps
 # kernel path against plain path, one bf16 step at full width (8 layers):
 # the loss within LOSS_REL_TOL of the plain path's, every gradient within
 # GRAD_REL_TOL of its largest magnitude (measured on an H100: 7.9e-6 and
@@ -1618,28 +1663,55 @@ def train_step_grads(torch, model, batch):
     return loss.detach(), grads
 
 
-def adamw_from_zero(master, grads, opt, decay):
-    """A copy of the master weights after one AdamW step from zero moments,
-    and that step's learning rate."""
-    from repro_torch.train import apply_adamw, init_opt_state
-    params = {n: m.clone() for n, m in master.items()}
-    _, _, metrics = apply_adamw(params, grads, init_opt_state(params), opt,
-                                decay)
-    return params, float(metrics["lr"])
+# entries of a leaf that ``update_agreement`` updates at a time (256 MiB in
+# float32)
+UPDATE_PIECE = 1 << 26
 
 
-def update_agreement(master, a, b):
-    """The share of entries whose updates a - master and b - master differ
-    in sign, and the cosine of the two updates."""
+def update_agreement(torch, model, grads_a, grads_b, opt):
+    """One AdamW step from zero moments of ``model``'s float32 master
+    weights with each of two gradient sets, compared: (the share of
+    entries whose updates differ in sign, the cosine of the two updates,
+    the step's lr). It goes a piece of a leaf at a time (rows of at most
+    UPDATE_PIECE entries), so that no whole copy of the masters or the
+    moments is held (at qwen2-vl-72b's width whole copies would not fit
+    beside the two gradient sets): each set is scaled by ``apply_adamw``'s
+    own global clip first and the per-piece call's clip is switched off
+    (a scale of exactly 1), which leaves every update bit-equal to the
+    whole-tree call's (``tests/test_torch_train.py`` holds this on the
+    CPU). The gradients may lie on the host; each piece is updated on the
+    model's device."""
+    import math
+    from repro_torch.train import apply_adamw, global_norm, init_opt_state
+    from repro_torch.train.trainer import decay_mask
+    decay = decay_mask(model)
+    dev = next(model.parameters()).device
+    unclipped = dataclasses.replace(opt, grad_clip=math.inf)
+    scales = [torch.clamp(opt.grad_clip / torch.clamp(
+        global_norm({n: g.to(dev) for n, g in grads.items()}), min=1e-9),
+        max=1.0) for grads in (grads_a, grads_b)]
     flips, total, dot, na, nb = 0, 0, 0.0, 0.0, 0.0
-    for n, m in master.items():
-        ua, ub = a[n] - m, b[n] - m
-        flips += int((ua.sign() != ub.sign()).sum())
-        total += ua.numel()
-        dot += float((ua.double() * ub.double()).sum())
-        na += float(ua.double().square().sum())
-        nb += float(ub.double().square().sum())
-    return flips / total, dot / max((na * nb) ** 0.5, 1e-300)
+    for name, p in model.named_parameters():
+        rows = max(1, UPDATE_PIECE // (p[0].numel() if p.dim() > 1 else 1))
+        pieces = zip(p.detach().split(rows), grads_a[name].split(rows),
+                     grads_b[name].split(rows))
+        for w, ga, gb in pieces:
+            master = w.float()
+            ups = []
+            for g, scale in ((ga, scales[0]), (gb, scales[1])):
+                new = {name: master.clone()}
+                _, _, metrics = apply_adamw(
+                    new, {name: g.to(dev).float() * scale},
+                    init_opt_state(new), unclipped, {name: decay[name]})
+                ups.append((new[name] - master).double())
+            ua, ub = ups
+            flips += int((ua.sign() != ub.sign()).sum())
+            total += ua.numel()
+            dot += float((ua * ub).sum())
+            na += float(ua.square().sum())
+            nb += float(ub.square().sum())
+    return (flips / total, dot / max((na * nb) ** 0.5, 1e-300),
+            float(metrics["lr"]))
 
 
 class WithFrames:
@@ -1664,12 +1736,72 @@ class WithFrames:
         return batch
 
 
+# the vlm family's image (phases 23 and 24): 16 x 16 merged patches, the
+# reference's P = min(256, S) patch rows at 4,096 tokens
+VLM_GRID = (16, 16)
+
+
+def qwen2vl_positions(np, batch: int, seq: int, grid):
+    """(3, batch, seq) int32 M-RoPE positions in Qwen2-VL's layout
+    (arXiv:2409.12191, section 2.1): one image of gh x gw merged patches
+    at the front, patch (i, j) at (temporal 0, height i, width j), then
+    the text at max + 1, max + 2, ... on all three streams (at a 16 x 16
+    grid the text starts at 16). The port takes positions from its
+    caller, as the reference does; ``tests/torch_dist_workers.py`` holds
+    the same layout for the CPU tests."""
+    gh, gw = grid
+    P = gh * gw
+    if P > seq:
+        raise ValueError(f"an image of {P} patches in {seq} tokens")
+    i, j = np.divmod(np.arange(P), gw)
+    image = np.stack([np.zeros(P, np.int64), i, j])
+    start = max(gh, gw)
+    text = np.broadcast_to(np.arange(start, start + seq - P), (3, seq - P))
+    pos = np.concatenate([image, text], axis=1).astype(np.int32)
+    return np.repeat(pos[:, None], batch, axis=1)
+
+
+def vlm_image(torch, np, patches, seq: int) -> dict:
+    """``prefill``'s vlm inputs for sequences of ``seq`` tokens that open
+    with a VLM_GRID image: its ``patches`` (B, P, D) on the card, and the
+    ``positions`` (3, B, seq) of Qwen2-VL's layout."""
+    return {"patch_embeds": patches,
+            "positions": torch.from_numpy(qwen2vl_positions(
+                np, patches.shape[0], seq, VLM_GRID)).cuda()}
+
+
+class WithPatches:
+    """A ``SyntheticLM`` whose batches also carry the vlm family's stub
+    vision input: ``patch_embeds`` (B, P, D), standard normal float32 rows
+    of the whole batch drawn with numpy from (``seed``, step) and sliced
+    on axis 0 for the shard, and ``positions`` (3, B, S) in Qwen2-VL's
+    layout for a VLM_GRID image, sliced on axis 1 (the twin of
+    ``tests/torch_dist_workers.WithPatches``)."""
+
+    def __init__(self, data, d_model: int, seed: int = 0):
+        self.data, self.cfg = data, data.cfg
+        self.d_model, self.seed = d_model, seed
+
+    def batch_at(self, step: int, shard: int = 0, num_shards: int = 1):
+        import numpy as np
+        batch = self.data.batch_at(step, shard, num_shards)
+        B, S = self.cfg.global_batch, self.cfg.seq_len
+        rows = slice(shard * B // num_shards, (shard + 1) * B // num_shards)
+        rng = np.random.default_rng((self.seed, step))
+        P = VLM_GRID[0] * VLM_GRID[1]
+        patches = rng.standard_normal((B, P, self.d_model), dtype=np.float32)
+        batch["patch_embeds"] = patches[rows]
+        batch["positions"] = qwen2vl_positions(np, B, S, VLM_GRID)[:, rows]
+        return batch
+
+
 def train_setup(torch, arch: str, layers: int, seq: int = TRAIN_SEQ,
-                batch: int = 1):
+                batch: int = 1, peak_lr: float = TRAIN_LR):
     """``arch`` at its published widths, ``layers`` deep, seeded weights,
     remat "full", and ``batch`` ``SyntheticLM`` sequences of ``seq``
-    tokens a step (the audio family's with ``WithFrames``' encoder frames)
-    -> (model, data, batch, AdamW config, tag)."""
+    tokens a step (the audio family's with ``WithFrames``' encoder frames,
+    the vlm family's with ``WithPatches``' image) -> (model, data, batch,
+    AdamW config, tag)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
@@ -1685,7 +1817,10 @@ def train_setup(torch, arch: str, layers: int, seq: int = TRAIN_SEQ,
     data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=0))
     if cfg.is_encoder_decoder:
         data = WithFrames(data, cfg.encoder_seq_len, cfg.d_model)
-    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    if cfg.mrope_sections:
+        data = WithPatches(data, cfg.d_model)
+    opt = AdamWConfig(peak_lr=peak_lr, warmup_steps=2,
+                      total_steps=TRAIN_STEPS)
     tag = f"{arch} train ({layers} layers, {batch} x {seq} tokens)"
     print(f"{tag}: {n_params / 1e9:.3f} B parameters, init "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -1725,15 +1860,10 @@ def step_gaps(torch, model, loss_a, grads_a, loss_b, grads_b, opt):
     relative gap, each gradient's largest |a - b| over its largest |b|,
     and one AdamW update from zero moments of each (the share of entries
     whose update changes sign, the cosine)."""
-    from repro_torch.train.trainer import decay_mask, master_params
     loss_err = abs(float(loss_a) - float(loss_b)) / abs(float(loss_b))
     gerr = {n: rel_err(grads_a[n].cuda(), grads_b[n].cuda())
             for n in grads_a}
-    master = master_params(model)
-    decay = decay_mask(model)
-    upd_a, lr1 = adamw_from_zero(master, grads_a, opt, decay)
-    upd_b, _ = adamw_from_zero(master, grads_b, opt, decay)
-    flip, cos = update_agreement(master, upd_a, upd_b)
+    flip, cos, lr1 = update_agreement(torch, model, grads_a, grads_b, opt)
     worst = max(gerr, key=gerr.get)
     return dict(loss_err=loss_err, grad_err=gerr[worst], worst=worst,
                 update_cos=cos, update_flip=flip, lr=lr1, gaps=gerr)
@@ -1762,14 +1892,63 @@ def hold_step(g: dict, loss_k, loss_p, tag: str, what: str,
     return {k: v for k, v in g.items() if k not in ("gaps", "lr")}
 
 
+def later_steps_vs_plain(torch, counters: dict, per_step: dict, model,
+                         data, opt, tag: str, steps: int) -> list:
+    """Steps 2 .. 1 + ``steps`` of a ``Trainer`` of ``model``, each held
+    kernel path against plain path to phase 10's limits (``step_vs_plain``,
+    ``hold_step``) from the Trainer's state before it. The Trainer takes
+    its steps first; the working weights it leaves before each held step
+    wait on the host, and the held steps run after the Trainer is gone,
+    at the first step's memory (at qwen2-vl-72b's width the plain path's
+    step does not fit beside the Trainer's masters and moments). Leaves
+    ``model`` at the last state held. Returns each held step's numbers,
+    its losses on both paths among them."""
+    import gc
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.trainer import load_working
+    trainer = Trainer(model, data, TrainConfig(steps=TRAIN_STEPS,
+                                               ckpt_interval=10 ** 9,
+                                               opt=opt))
+    states = []
+    for step in range(1, 1 + steps):
+        trainer.params, trainer.opt_state, _ = trainer._step_fn(
+            trainer.params, trainer.opt_state, data.batch_at(step - 1))
+        load_working(model, trainer.params)
+        states.append({n: p.detach().to("cpu")
+                       for n, p in model.named_parameters()})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = []
+    for step, state in enumerate(states, 2):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(state[n])
+        loss_k, grads_k, loss_p, grads_p, launches = step_vs_plain(
+            torch, counters, per_step, model, data.batch_at(step - 1), tag)
+        g = step_gaps(torch, model, loss_k, grads_k, loss_p, grads_p, opt)
+        nums = hold_step(g, loss_k, loss_p, tag, f"{step} of a Trainer",
+                         launches)
+        held.append(dict(nums, step=step, loss_kernel=float(loss_k),
+                         loss_plain=float(loss_p)))
+        del grads_k, grads_p, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    return held
+
+
 def train_full_width(torch, np, counters: dict, arch: str, layers: int,
-                     per_step: dict):
+                     per_step: dict, peak_lr: float = TRAIN_LR,
+                     later: int = 0):
     """(a) one bf16 step of ``arch`` (``train_setup``) on the kernel path
-    against the plain path, held to phase 10's limits; (b) ``trainer_run``.
+    against the plain path, held to phase 10's limits, and the ``later``
+    steps after it (``later_steps_vs_plain``); (b) ``trainer_run`` at
+    ``peak_lr``.
     ``per_step`` is each kernel's launches in one step. Returns (launches
     of the Trainer run, numbers)."""
     import gc
-    model, data, batch, opt, tag = train_setup(torch, arch, layers)
+    model, data, batch, opt, tag = train_setup(torch, arch, layers,
+                                               peak_lr=peak_lr)
     loss_k, grads_k, loss_p, grads_p, launches = step_vs_plain(
         torch, counters, per_step, model, batch, tag)
     g = step_gaps(torch, model, loss_k, grads_k, loss_p, grads_p, opt)
@@ -1777,6 +1956,14 @@ def train_full_width(torch, np, counters: dict, arch: str, layers: int,
     del grads_k, grads_p, g
     gc.collect()
     torch.cuda.empty_cache()
+    if later:
+        step_nums["later_steps"] = later_steps_vs_plain(
+            torch, counters, per_step, model, data, opt, tag, later)
+        del model
+        gc.collect()
+        # the same seeded weights again for the Trainer run
+        model, data, batch, opt, tag = train_setup(torch, arch, layers,
+                                                   peak_lr=peak_lr)
     return trainer_run(torch, np, counters, per_step, model, data, batch,
                        opt, tag, step_nums)
 
@@ -3639,6 +3826,38 @@ def phase_train_audio(torch, np, counters: dict):
                        batch, opt, tag, step_nums)
 
 
+# ------------------------ phases 23 and 24: the vlm family, at full width
+
+# qwen2-vl-72b (72.7 B parameters, 145 GB in bf16) keeps its width and
+# loses depth to fit one card: serving at 16 of its 80 layers (16.5 B
+# parameters, 33 GB in bf16; the plain path's (64, 4,096, 4,096) float32
+# scores are 4.3 GB a call), training at 1 (3.37 B parameters, 54 GB at 16
+# B a parameter: the untied embedding and head alone are 2.49 B, and each
+# layer adds 0.88 B, 14 GB). Every sequence opens with a VLM_GRID image of
+# seeded patch embeddings, in Qwen2-VL's M-RoPE layout.
+VLM_SERVE_LAYERS = 16
+VLM_TRAIN_LAYERS = 1
+# a step under remat "full": the layer's attention in the forward and in
+# the recompute, and one backward
+VLM_PER_STEP = {"flash_attention": 2 * VLM_TRAIN_LAYERS,
+                "flash_attention_bwd": VLM_TRAIN_LAYERS}
+# The Trainer's peak learning rate. At any lr tried (3e-5 to 3e-4) the
+# loss jumps after the first AdamW steps (12.53 -> 37.61 at TRAIN_LR): an
+# update of +-lr on every entry moves each position's residual along the
+# sign pattern of the frequent targets' head rows, and past the final
+# RMSNorm the top logit stands ~56 above the median (4.4 at init), with
+# or without the image. The reference's Trainer jumps alike at d 4,096 on
+# the CPU (``tests/vlm_first_steps.py``), and steps 2 and 3 are held
+# against the plain path (VLM_LATER_STEPS). What the lr sets is whether 12
+# steps recover: at TRAIN_LR the last loss, 13.33, lies above the first;
+# at 1e-4, TRAIN_LR scaled by width as Adam's learning rates transfer
+# (x 2,560 / 8,192 from qwen3-4b), it is 7.44 (measured on an H100, 700 W;
+# PERF.md section 6).
+VLM_PEAK_LR = 1e-4
+# Trainer steps after the first held kernel path against plain path
+VLM_LATER_STEPS = 2
+
+
 def run_phase(torch, label: str, fn, *args):
     """Run one phase: print its start with the card's free memory, then,
     on success, its seconds and peak memory, and drop what it held. Any
@@ -3795,6 +4014,18 @@ def main() -> None:
               f"12 encoder, 12 decoder self and 12 cross attentions)")
         return audio, nums
 
+    def serve_vlm():
+        # prefills of 4,096 tokens (the first 256 a 16 x 16 image) and of
+        # 1,000 (the same image) against the plain path, then a
+        # BatchedServer of 12 requests on 4 slots
+        vlm, nums = phase_serve(torch, np, "qwen2-vl-72b", 4096, counters,
+                                ragged=1000, layers=VLM_SERVE_LAYERS)
+        for n, got in ((4096, vlm), (1000, nums["ragged_launches"])):
+            check(got == only(flash_attention=VLM_SERVE_LAYERS),
+                  f"qwen2-vl-72b prefill of {n} tokens launched {got} "
+                  f"(flash_attention once per layer, {VLM_SERVE_LAYERS})")
+        return vlm, nums
+
     dense = run_phase(torch, "7 qwen3-4b serving", serve_dense)
     ssm = run_phase(torch, "8 rwkv6-7b serving", serve_ssm)
     n3, n4 = dense["flash_attention"], ssm["wkv6"]
@@ -3822,6 +4053,11 @@ def main() -> None:
     train_audio, audio_tnums = run_phase(torch, "22 whisper-small training",
                                          phase_train_audio, torch, np,
                                          counters)
+    vlm, vlm_nums = run_phase(torch, "23 qwen2-vl-72b serving", serve_vlm)
+    train_vlm, vlm_tnums = run_phase(
+        torch, "24 qwen2-vl-72b training", train_full_width, torch, np,
+        counters, "qwen2-vl-72b", VLM_TRAIN_LAYERS, VLM_PER_STEP,
+        VLM_PEAK_LR, VLM_LATER_STEPS)
 
     kernels = [
         {"name": "fleet_score", "route": "cuda",
@@ -3858,7 +4094,9 @@ def main() -> None:
          "launches_hybrid_train": train_hyb["flash_attention"],
          "launches_audio_prefill": audio["flash_attention"],
          "launches_audio_train": train_audio["flash_attention"],
-         "window": k3w},
+         "launches_vlm_prefill": vlm["flash_attention"],
+         "launches_vlm_train": train_vlm["flash_attention"],
+         "vlm": k3["vlm"], "window": k3w},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention/ops.py:42",
@@ -3868,13 +4106,15 @@ def main() -> None:
          "launches_hybrid_train": train_hyb["flash_attention_bwd"],
          "launches_audio_prefill": audio["flash_attention_bwd"],
          "launches_audio_train": train_audio["flash_attention_bwd"],
+         "launches_vlm_prefill": vlm["flash_attention_bwd"],
+         "launches_vlm_train": train_vlm["flash_attention_bwd"],
          "max_abs_err": k3b["max_abs_err"],
          "max_rel_err": k3b["max_rel_err"], "ms": k3b["ms"],
          "device_ms": k3b["device_ms"],
          "device_kernels_per_call": k3b["kernels_per_call"],
          "plain_ms": k3b["plain_ms"], "bound_ms": k3b["bound_ms"],
          "bound_by": k3b["bound_by"], "library_ms": k3b["library_ms"],
-         "shape": k3b["shape"], "window": k3bw},
+         "shape": k3b["shape"], "vlm": k3b["vlm"], "window": k3bw},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/wkv6/wkv6.py:76",
@@ -3932,6 +4172,8 @@ def main() -> None:
     print(f"audio serving (phase 21): {json.dumps(audio_nums)}", flush=True)
     print(f"audio training (phase 22): {json.dumps(audio_tnums)}",
           flush=True)
+    print(f"vlm serving (phase 23): {json.dumps(vlm_nums)}", flush=True)
+    print(f"vlm training (phase 24): {json.dumps(vlm_tnums)}", flush=True)
     print(f"every phase passed in {time.perf_counter() - t0:.1f} s, the "
           f"builds included; {SESSIONS['lost']} of {SESSIONS['taken']} "
           f"profiler sessions traced no whole call and were taken again",

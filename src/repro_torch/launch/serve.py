@@ -4,10 +4,10 @@ Batched decode serving with continuous batching over a synthetic request
 stream, the port of ``repro.launch.serve``: requests arrive with a prompt
 length and a decode budget; slots are backfilled as sequences finish.
 Without ``--full`` it serves the reduced config; ``--full`` serves the
-published widths and depth. ``--arch`` takes the dense, moe, ssm, hybrid
-and audio families (qwen3-4b, deepseek-moe-16b, llama4-scout-17b-a16e,
-rwkv6-7b, recurrentgemma-9b, whisper-small, ...). It runs on the card (``--device
-cuda``, the default) unless asked for the CPU.
+published widths and depth. ``--arch`` takes the dense, moe, ssm, hybrid,
+audio and vlm families (qwen3-4b, deepseek-moe-16b, llama4-scout-17b-a16e,
+rwkv6-7b, recurrentgemma-9b, whisper-small, qwen2-vl-72b, ...). It runs on
+the card (``--device cuda``, the default) unless asked for the CPU.
 
 The server keeps the reference's behaviour on purpose, so that both
 packages give the same token streams: prompts are fed by decode steps
@@ -21,7 +21,9 @@ the attention layers' caches are rings of ``window`` slots (``--cache-len``
 only bounds the run) and the recurrent layers carry their state. In the
 audio family no prefill means no encoder pass: the cross caches stay the
 zeros of ``init_cache``, so each decoder layer's cross attention reads
-zero values and adds nothing.
+zero values and adds nothing. In the vlm family no prefill means no image:
+the requests are text, and M-RoPE rotates by the cache's ``pos`` on all
+three streams, which is plain RoPE.
 """
 from __future__ import annotations
 
@@ -121,10 +123,10 @@ class BatchedServer:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b",
-                    help="a dense, moe, ssm, hybrid or audio architecture "
-                         "id, e.g. qwen3-4b, deepseek-moe-16b, "
+                    help="a dense, moe, ssm, hybrid, audio or vlm "
+                         "architecture id, e.g. qwen3-4b, deepseek-moe-16b, "
                          "llama4-scout-17b-a16e, rwkv6-7b, "
-                         "recurrentgemma-9b, whisper-small")
+                         "recurrentgemma-9b, whisper-small, qwen2-vl-72b")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=256)

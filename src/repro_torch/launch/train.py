@@ -79,7 +79,8 @@ def parser() -> argparse.ArgumentParser:
                          "llama4-scout-17b-a16e, rwkv6-7b, "
                          "recurrentgemma-9b (an audio id such as "
                          "whisper-small raises: SyntheticLM batches hold "
-                         "no enc_frames)")
+                         "no enc_frames; so does the vlm id qwen2-vl-72b: "
+                         "they hold no M-RoPE positions)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)

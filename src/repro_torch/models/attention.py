@@ -51,11 +51,10 @@ def project_qkv(p: Attention, cfg, x: torch.Tensor,
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> q (B, S, Hq, hd), k/v (B, S, Hkv, hd), RoPE
-    (``layers.rope_tables`` of the positions) applied after the q/k
-    norms; ``rope`` None applies none (the audio family's learned
+    (``layers.rope_tables`` of the positions, or the vlm family's
+    ``layers.mrope_tables``: whichever the caller built) applied after
+    the q/k norms; ``rope`` None applies none (the audio family's learned
     position embeddings, the reference's ``rope=False``)."""
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE comes with the vlm family")
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv

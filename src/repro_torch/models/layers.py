@@ -4,7 +4,7 @@ in float32, the result in the input's dtype)."""
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,9 +67,39 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 
+@functools.lru_cache(maxsize=16)
+def _mrope_streams(sections: Tuple[int, ...], device: str) -> torch.Tensor:
+    """The stream of each frequency slot, ``repeat(arange(3), sections)``,
+    made once on the host and kept on ``device`` (as ``_inv_freq``), so
+    that a decode step copies nothing to the card."""
+    return torch.repeat_interleave(torch.arange(len(sections)),
+                                   torch.tensor(sections)).to(device)
+
+
+def mrope_tables(positions3: torch.Tensor, head_dim: int,
+                 sections: Sequence[int], theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE (the vlm family, qwen2-vl): positions3 (3, B, S), one stream
+    each for temporal, height and width -> cos/sin (B, S, 1, head_dim //
+    2), float32, the tables ``apply_rope`` takes. Frequency slot i rotates
+    by the position of its section's stream (the first ``sections[0]``
+    slots by the temporal one, and so on), with ``rope_tables``'
+    frequencies: the JAX package's ``apply_mrope``, split as RoPE is."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"head_dim // 2 = {half}")
+    dev = positions3.device
+    stream = _mrope_streams(tuple(sections), str(dev))
+    ang = positions3.float()[stream].movedim(0, -1) * _inv_freq(
+        head_dim, float(theta), str(dev))                   # (B, S, half)
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
 def apply_rope(x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]
                ) -> torch.Tensor:
-    """x (B, S, H, hd) rotated by ``rope_tables``; GPT-NeoX half-split."""
+    """x (B, S, H, hd) rotated by ``rope_tables`` (or ``mrope_tables``);
+    GPT-NeoX half-split."""
     cos, sin = rope
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -181,5 +211,5 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 __all__ = ["Embed", "MLP", "apply_rope", "cross_entropy", "embed_tokens",
-           "gelu", "group_norm", "layer_norm", "logits_from_hidden", "rms_norm",
-           "rope_tables"]
+           "gelu", "group_norm", "layer_norm", "logits_from_hidden",
+           "mrope_tables", "rms_norm", "rope_tables"]

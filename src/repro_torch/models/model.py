@@ -1,11 +1,11 @@
-"""The model of the dense, moe, ssm, hybrid and audio families: training
-loss, prefill and KV-cache (or state) decode, the port of
+"""The model of the dense, moe, ssm, hybrid, audio and vlm families:
+training loss, prefill and KV-cache (or state) decode, the port of
 ``repro.models.model.Model``.
 
   Model(cfg, policy, device=..., seed=..., remat=...)   parameters drawn
                              on the device
   train_loss(batch)          -> (loss, metrics)
-  prefill(tokens, enc_frames=None)
+  prefill(tokens, enc_frames=None, *, positions=None, patch_embeds=None)
                              -> (last-token logits (B, Vp), cache)
   init_cache(batch, length)  -> zero cache
   decode_step(tokens, cache) -> (logits (B, Vp), cache)
@@ -44,7 +44,14 @@ over precomputed frames, ``batch["enc_frames"]`` (B, T, D), and a decoder
 with cross attention over its output, LayerNorm throughout, learned
 position tables ``pos_enc`` and ``pos_dec`` and no RoPE) checkpoints each
 encoder and each decoder layer; every one of its attentions runs through
-K3, and K3' when training. The vlm family comes with its slice.
+K3, and K3' when training. The vlm family (qwen2-vl) is the dense
+family's layer stack with two changes, as in the reference: M-RoPE
+(``layers.mrope_tables`` of the (3, B, S) temporal, height and width
+positions, which come from the caller: ``batch["positions"]``, or
+``prefill``'s ``positions``; decode puts all three streams at the
+cache's ``pos``), and the stub vision tower's precomputed patch
+embeddings ``patch_embeds`` (B, P, D), which overwrite the first P token
+embeddings (no gradient reaches the token table from those rows).
 
   param_axes()               -> {parameter name: logical axes}, the
                                 reference's ``Model.param_axes()`` without
@@ -81,9 +88,9 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import Init, Policy, pad_vocab
 from repro_torch.models.layers import (Embed, cross_entropy, embed_tokens,
                                        layer_norm, logits_from_hidden,
-                                       rms_norm, rope_tables)
+                                       mrope_tables, rms_norm, rope_tables)
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 MAX_DECODE_LEN = 32_768       # rows of the audio decoder's position table
 REMAT = ("full", "none")
 
@@ -103,7 +110,7 @@ class Model(nn.Module):
         ``remat`` ("full" or "none") is how ``train_loss`` keeps
         activations."""
         super().__init__()
-        if cfg.family not in FAMILIES or cfg.mrope_sections:
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
                 f"the port serves and trains {FAMILIES}")
@@ -244,7 +251,54 @@ class Model(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
-    def _forward(self, tokens: torch.Tensor, enc_frames=None
+    def _positions(self, B: int, S: int, positions=None) -> torch.Tensor:
+        """The reference's ``_positions``: the caller's positions where
+        given, else 0..S-1 for each row (B, S); the vlm family's (3, B,
+        S) M-RoPE streams must be given: without them it raises
+        ``KeyError``, as the reference's ``batch["positions"]`` does."""
+        if positions is not None:
+            return torch.as_tensor(positions, device=self.device)
+        if self.cfg.mrope_sections:
+            raise KeyError("positions")
+        return torch.arange(S, dtype=torch.int32,
+                            device=self.device)[None].expand(B, S)
+
+    def _rope(self, positions: torch.Tensor) -> tfm.Rope:
+        """The RoPE tables of ``positions`` (B, S), or M-RoPE's of the vlm
+        family's (3, B, S) streams, shared by every layer."""
+        cfg = self.cfg
+        if cfg.mrope_sections:
+            return mrope_tables(positions, cfg.resolved_head_dim,
+                                cfg.mrope_sections, cfg.rope_theta)
+        return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+    def _rope_at(self, B: int, pos: int) -> tfm.Rope:
+        """The tables of the decode position ``pos`` for B rows; the vlm
+        family's three streams all at ``pos``, as the reference broadcasts
+        it (``decoder_layer_step``)."""
+        shape = (3, B, 1) if self.cfg.mrope_sections else (B, 1)
+        return self._rope(torch.full(shape, pos, dtype=torch.int32,
+                                     device=self.device))
+
+    def _embed(self, tokens: torch.Tensor, patch_embeds=None
+               ) -> torch.Tensor:
+        """The token rows of the dense, moe and vlm families; the first P
+        overwritten, out of place, by ``patch_embeds`` (B, P, D) in the
+        compute dtype (the reference's ``dynamic_update_slice`` of the
+        stub vision tower's output)."""
+        x = embed_tokens(self.embed, tokens)
+        if patch_embeds is None:
+            return x
+        pe = torch.as_tensor(patch_embeds, device=self.device).to(x.dtype)
+        B, S, D = x.shape
+        if pe.dim() != 3 or pe.shape[0] != B or pe.shape[2] != D \
+                or pe.shape[1] > S:
+            raise ValueError(f"patch_embeds of shape {tuple(pe.shape)} do "
+                             f"not fit the embeddings {(B, S, D)}")
+        return torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+
+    def _forward(self, tokens: torch.Tensor, enc_frames=None,
+                 positions=None, patch_embeds=None
                  ) -> Tuple[torch.Tensor, Cache]:
         """Prefill body -> (hidden (B, S, D), cache)."""
         cfg = self.cfg
@@ -255,11 +309,9 @@ class Model(nn.Module):
         if cfg.is_encoder_decoder:
             return self._forward_encdec(tokens, enc_frames)
         B, S = tokens.shape
-        x = embed_tokens(self.embed, tokens)
+        x = self._embed(tokens, patch_embeds)
         L, hd = len(self.layers), cfg.resolved_head_dim
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=self.device)[None].expand(B, S)
-        rope = rope_tables(positions, hd, cfg.rope_theta)
+        rope = self._rope(self._positions(B, S, positions))
         cache: Cache = {}
         if hasattr(self, "dense0"):
             x, _, (k, v) = tfm.decoder_layer(self.dense0, cfg, x, rope)
@@ -411,9 +463,7 @@ class Model(nn.Module):
         cfg = self.cfg
         B, S = tokens.shape
         x = self._embed_hybrid(tokens)
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=self.device)[None].expand(B, S)
-        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        rope = self._rope(self._positions(B, S))
 
         def one_layer(lp, kind, x):
             if kind == "attn":
@@ -446,10 +496,11 @@ class Model(nn.Module):
 
     def train_loss(self, batch) -> Tuple[torch.Tensor,
                                          Dict[str, torch.Tensor]]:
-        """batch {"tokens", "labels"} (B, S), and for the audio family
-        "enc_frames" (B, T, D) -> (loss, {"loss", "ce", "aux"}), the loss
-        a scalar float32 tensor with a graph back to the working
-        weights. The ssm family runs the reference's
+        """batch {"tokens", "labels"} (B, S), for the audio family
+        "enc_frames" (B, T, D), for the vlm family "positions" (3, B, S)
+        and, optionally, "patch_embeds" (B, P, D) -> (loss, {"loss",
+        "ce", "aux"}), the loss a scalar float32 tensor with a graph back
+        to the working weights. The ssm family runs the reference's
         ``_forward_rwkv`` (``ln0``, then each block from a zero WKV
         state), whose WKV6 call differentiates through K4' on the card.
         The moe family's loss is ``ce + router_aux_loss * aux``, aux the
@@ -460,7 +511,10 @@ class Model(nn.Module):
         reference's ``_forward_encdec`` (each encoder and each decoder
         layer checkpointed) and its LayerNorm on ``ln_f``; its aux is 0,
         and a batch without "enc_frames" raises, as the reference's
-        lookup does."""
+        lookup does. The dense, moe and vlm families read "positions" and
+        "patch_embeds" where the batch has them, as the reference's
+        ``_forward`` does; a vlm batch without "positions" raises
+        ``KeyError``."""
         cfg = self.cfg
         tokens = self._tokens(batch["tokens"])
         labels = self._tokens(batch["labels"])
@@ -471,19 +525,22 @@ class Model(nn.Module):
             self._gather("in")
             return self._loss(self._train_encdec(tokens, frames), labels, [])
         self._gather("in")
-        x = (self._embed_hybrid(tokens) if cfg.family == "hybrid"
-             else embed_tokens(self.embed, tokens))
+        positions = None          # the hybrid family's forward reads none
+        if cfg.family == "hybrid":
+            x = self._embed_hybrid(tokens)
+        elif cfg.family == "ssm":
+            x = embed_tokens(self.embed, tokens)
+        else:
+            x = self._embed(tokens, batch.get("patch_embeds"))
+            positions = batch.get("positions")
         x = dist.constraint(x, "act_batch", "act_seq", "act_embed")
         if cfg.family == "ssm":
             x = layer_norm(x, 1.0 + self.ln0, torch.zeros_like(self.ln0),
                            cfg.norm_eps)
             layer, extra = self._train_rwkv_layer, ()
         else:
-            positions = torch.arange(S, dtype=torch.int32,
-                                     device=self.device)[None].expand(B, S)
             layer = self._train_layer
-            extra = (rope_tables(positions, cfg.resolved_head_dim,
-                                 cfg.rope_theta),)
+            extra = (self._rope(self._positions(B, S, positions)),)
         auxes = []
         if cfg.family == "hybrid":
             x = self._train_hybrid(x, *extra)
@@ -589,14 +646,19 @@ class Model(nn.Module):
                                   self.cfg.tie_embeddings)
 
     @torch.no_grad()
-    def prefill(self, tokens, enc_frames=None) -> Tuple[torch.Tensor, Cache]:
+    def prefill(self, tokens, enc_frames=None, *, positions=None,
+                patch_embeds=None) -> Tuple[torch.Tensor, Cache]:
         """tokens (B, S) -> (last-token logits (B, Vp), cache). The audio
         family also takes the encoder's input frames ``enc_frames`` (B, T,
         D), the reference's ``batch["enc_frames"]``; the other families
-        do not read them."""
+        do not read them. The dense, moe and vlm families take the
+        reference's ``batch["positions"]`` and ``batch["patch_embeds"]``
+        as ``positions`` and ``patch_embeds`` (see ``train_loss``); the
+        vlm family raises ``KeyError`` without ``positions``."""
         self.require_weights()
         tokens = self._tokens(tokens)
-        x, cache = self._forward(tokens, enc_frames)
+        x, cache = self._forward(tokens, enc_frames, positions,
+                                 patch_embeds)
         cache["pos"] = int(tokens.shape[1])
         return self._final_logits(x[:, -1]), cache
 
@@ -652,7 +714,10 @@ class Model(nn.Module):
     def decode_step(self, tokens, cache: Cache) -> Tuple[torch.Tensor, Cache]:
         """tokens (B,) -> (logits (B, Vp), cache), the cache updated in
         place. The ssm family, as in the JAX package, embeds the token
-        without the ``ln0`` norm that prefill applies; the audio family
+        without the ``ln0`` norm that prefill applies; the vlm family
+        rotates by M-RoPE with all three streams at ``pos`` (the
+        reference's answer, which Qwen2-VL's rope deltas would move after
+        an image; the port keeps it); the audio family
         adds ``pos_dec[pos]`` and its decoder layers attend to the cross
         caches, which a decode step reads and never writes."""
         self.require_weights()
@@ -677,10 +742,7 @@ class Model(nn.Module):
                     cache[name][i] = val
         else:
             kc, vc = cache["layers"]
-            positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                                   device=self.device)
-            rope = rope_tables(positions, cfg.resolved_head_dim,
-                               cfg.rope_theta)
+            rope = self._rope_at(x.shape[0], pos)
             if hasattr(self, "dense0"):
                 x = tfm.decoder_layer_step(self.dense0, cfg, x,
                                            *cache["dense0"], pos, rope)
@@ -696,9 +758,7 @@ class Model(nn.Module):
         state, attention layers decode over their ring."""
         cfg = self.cfg
         x = self._embed_hybrid(tokens)
-        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                               device=self.device)
-        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        rope = self._rope_at(x.shape[0], pos)
 
         def one_step(lp, kind, x, c):
             """Layer ``lp`` on its cache ``c`` (views of the stacked

@@ -120,7 +120,16 @@ def _grads(model: Model) -> Dict[str, torch.Tensor]:
 
 
 def _microbatches(batch, microbatch: int) -> list:
-    """``batch`` split along its batch dim into chunks of ``microbatch``."""
+    """``batch`` split along its batch dim into chunks of ``microbatch``.
+    A batch with the vlm family's (3, B, S) "positions" is refused: their
+    batch dim is not dim 0, and the reference's split (which reshapes only
+    a leaf whose dim 0 is B and gives every other leaf whole to each
+    chunk) hands each chunk all B rows of them. (B, S) positions split as
+    the tokens do."""
+    if np.ndim(batch.get("positions")) == 3:
+        raise NotImplementedError(
+            "gradient accumulation of batches with (3, B, S) M-RoPE "
+            "positions is not supported (microbatch > 0)")
     B = np.shape(batch["tokens"])[0]
     if B % microbatch:
         raise ValueError(f"batch of {B} is no multiple of the "

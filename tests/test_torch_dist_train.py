@@ -6,8 +6,10 @@ One spawn of four gloo ranks (``tests/torch_dist_workers.py``: a
 ``JOIN_S``) runs reduced qwen3-4b, rwkv6-7b, deepseek-moe-16b (also
 with its capacity factor cut to 0.5, so that full experts drop slots),
 recurrentgemma-9b (5 layers: a unit and the tail, whose ZeRO-3 units
-are "units.0" and "tail") and whisper-small (2 encoder and 2 decoder
-layers, whose batches carry seeded encoder frames, ``workers.WithFrames``;
+are "units.0" and "tail"), whisper-small (2 encoder and 2 decoder
+layers, whose batches carry seeded encoder frames, ``workers.WithFrames``)
+and qwen2-vl-72b (2 layers, whose batches carry seeded patch embeddings
+and M-RoPE positions of a 2 x 2 image, ``workers.WithPatches``;
 ``workers.RUNS``) from the reference's weights,
 float32,
 ``DataConfig(vocab, 32, 4)`` (one sequence a rank), two ``Trainer`` steps

@@ -31,6 +31,8 @@ from repro_torch.convert import model_params
 from repro_torch.models.common import Policy
 from repro_torch.models.model import Model
 
+from torch_dist_workers import qwen2vl_positions
+
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
@@ -139,6 +141,32 @@ def test_qkv_biases_match_reference():
         _close(logits, jlogits, tol, f"decode step {i} logits")
 
 
+def test_given_positions_and_patches_match_reference():
+    """The dense family reads a batch's "positions" (B, S) and
+    "patch_embeds" (B, P, D) where given, as the reference's ``_forward``
+    does (its ``_positions`` and ``_embed``): reduced qwen3-4b in float32,
+    each row's positions shifted, two patch rows."""
+    jm, params, model = _pair("qwen3-4b", "float32")
+    rng = np.random.default_rng(12)
+    B, S = 2, 16
+    batch = {"tokens": rng.integers(0, model.cfg.vocab_size, (B, S)),
+             "positions": np.arange(S)[None] + np.array([[7], [3]]),
+             "patch_embeds": rng.standard_normal((B, 2, model.cfg.d_model))}
+    batch = {k: v.astype(np.int32 if k != "patch_embeds" else np.float32)
+             for k, v in batch.items()}
+    batch["labels"] = batch["tokens"]
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jlogits, _ = jax.jit(jm.prefill)(params, jbatch)
+    logits, _ = model.prefill(batch["tokens"], positions=batch["positions"],
+                              patch_embeds=batch["patch_embeds"])
+    _close(logits, jlogits, TOL["float32"], "prefill logits")
+    plain, _ = model.prefill(batch["tokens"])
+    assert not torch.allclose(plain, logits, atol=1e-2)
+    jloss, _ = jax.jit(jm.train_loss)(params, jbatch)
+    loss, _ = model.train_loss(batch)
+    assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
+
+
 def test_configs_match_the_reference_registry():
     assert list_configs() == jax_list_configs()
     for name in list_configs():
@@ -151,22 +179,25 @@ def test_configs_match_the_reference_registry():
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small",
                                   "qwen2-vl-72b"])
-def test_later_families_train_and_the_vlm_family_raises(arch):
-    """The hybrid and audio families are ported: each builds and gives a
-    finite scalar ``train_loss`` (the audio family's batch with seeded
-    encoder frames; the full checks are in tests/test_torch_hybrid*.py and
-    tests/test_torch_audio*.py). The vlm family is not: it raises."""
+def test_later_families_train(arch):
+    """The hybrid, audio and vlm families are ported: each builds and
+    gives a finite scalar ``train_loss`` (the audio family's batch with
+    seeded encoder frames, the vlm family's with seeded patch embeddings
+    and M-RoPE positions in Qwen2-VL's layout; the full checks are in
+    tests/test_torch_hybrid*.py, tests/test_torch_audio*.py and
+    tests/test_torch_vlm*.py)."""
     cfg = reduced(get_config(arch))
-    if cfg.family == "vlm":
-        with pytest.raises(NotImplementedError):
-            Model(cfg, device="cpu")
-        return
     model = Model(cfg, device="cpu")
     tokens = np.zeros((1, 8), np.int64)
     batch = {"tokens": tokens, "labels": tokens}
+    rng = np.random.default_rng(0)
     if cfg.is_encoder_decoder:
-        batch["enc_frames"] = np.random.default_rng(0).standard_normal(
+        batch["enc_frames"] = rng.standard_normal(
             (1, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    if cfg.mrope_sections:
+        batch["patch_embeds"] = rng.standard_normal(
+            (1, 4, cfg.d_model)).astype(np.float32)
+        batch["positions"] = qwen2vl_positions(1, 8, (2, 2))
     loss, _ = model.train_loss(batch)
     assert bool(torch.isfinite(loss)) and loss.dim() == 0
 

@@ -61,6 +61,7 @@ from repro.train import Trainer as JaxTrainer
 from repro.train import apply_adamw as jax_apply_adamw
 from repro.train import init_opt_state as jax_init_opt_state
 from repro.train import lr_at as jax_lr_at
+from repro.train.trainer import make_train_step as jax_make_train_step
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import (model_params, named_params, opt_state,
                                  reference_tree)
@@ -395,6 +396,87 @@ def test_microbatch_accumulation_equals_full_batch():
     for name in p0:
         assert _rel(s2["mu"][name], s0["mu"][name]) <= 1e-5, name
         assert _rel(p2[name], p0[name]) <= 1e-5, name
+
+
+def test_microbatches_of_dense_positions_match_reference():
+    """The dense family's (B, S) "positions" split with the tokens: four
+    rows, each with its own offset, in microbatches of 2 give the full
+    batch's step in the port, and the loss, norm and first moments of the
+    reference's microbatched step (whose split reshapes every leaf whose
+    dim 0 is B)."""
+    jm, params, model = _pair("qwen3-4b", "float32")
+    batch = SyntheticLM(DataConfig(model.cfg.vocab_size, 16, 4)).batch_at(0)
+    batch["positions"] = (np.arange(16)[None] +
+                          np.array([[0], [5], [2], [9]])).astype(np.int32)
+    cfg = AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    outs = []
+    for micro in (0, 2):
+        params_t = {k: v.clone() for k, v in master_params(model).items()}
+        outs.append(make_train_step(model, cfg, microbatch=micro)(
+            params_t, init_opt_state(params_t), batch))
+    (_, s0, m0), (p2, s2, m2) = outs
+    assert float(m2["loss"]) == pytest.approx(float(m0["loss"]), rel=1e-5)
+    for name in p2:
+        assert _rel(s2["mu"][name], s0["mu"][name]) <= 1e-5, name
+    _, jstate, jm2 = jax_make_train_step(
+        jm, JaxAdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10),
+        microbatch=2)(params, jax_init_opt_state(params),
+                      {k: jnp.asarray(v) for k, v in batch.items()})
+    assert float(m2["loss"]) == pytest.approx(float(jm2["loss"]), rel=1e-5)
+    assert float(m2["grad_norm"]) == pytest.approx(float(jm2["grad_norm"]),
+                                                   rel=1e-5)
+    _leaves_close(reference_tree(s2["mu"]),
+                  jax.tree.map(np.asarray, jstate["mu"]), 1e-4, "mu")
+
+
+def test_chip_smokes_piecewise_update_agreement_equals_whole_tree_adamw(
+        monkeypatch):
+    """``chip_smoke.update_agreement`` (every training phase's AdamW check)
+    updates a row-piece of a leaf at a time, with ``apply_adamw``'s global
+    clip applied first and the per-piece clip off. With pieces that split
+    the leaves and the clip active (a gradient norm far above 1), its
+    share of flipped signs equals that of two whole-tree ``apply_adamw``
+    calls from zero moments, and its cosine theirs. One leaf's gradient is
+    large enough to set the clip's scale, and the others are so small that
+    the clipped gradients come near AdamW's eps, where an update depends
+    on the scale."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    monkeypatch.setattr(cs, "UPDATE_PIECE", 100)
+    model = Model(reduced(get_config("qwen3-4b")), device="cpu", seed=0)
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    gen = torch.Generator().manual_seed(3)
+    big = "embed.tok"
+    grads_a, grads_b = ({n: torch.randn(p.shape, generator=gen) * scale
+                         * (1e6 if n == big else 1.0)
+                         for n, p in model.named_parameters()}
+                        for scale in (1e-4, 5e-5))
+    grads_b = {n: grads_a[n] + g for n, g in grads_b.items()}
+    assert float(global_norm(grads_a)) > 1e4 * opt.grad_clip
+    assert any(p.shape[0] > 100 // p[0].numel()
+               for p in model.parameters() if p.dim() > 1)
+    decay = decay_mask(model)
+    ups = []
+    for grads in (grads_a, grads_b):
+        master = {n: p.detach().float().clone()
+                  for n, p in model.named_parameters()}
+        new = {n: w.clone() for n, w in master.items()}
+        apply_adamw(new, grads, init_opt_state(new), opt, decay)
+        ups.append(torch.cat([(new[n] - master[n]).double().flatten()
+                              for n in master]))
+    ua, ub = ups
+    flips = int((ua.sign() != ub.sign()).sum()) / ua.numel()
+    cos = float((ua * ub).sum() / (ua.norm() * ub.norm()))
+    got_flips, got_cos, lr = cs.update_agreement(torch, model, grads_a,
+                                                 grads_b, opt)
+    assert 0 < flips < 0.5
+    assert got_flips == flips
+    assert got_cos == pytest.approx(cos, rel=1e-12)
+    assert lr == pytest.approx(float(lr_at(opt, 1)))
 
 
 def test_bf16_working_weights_follow_the_fp32_master():

@@ -24,14 +24,19 @@ SEQ = 32
 # "deepseek-moe-16b-drops" cuts the capacity so that full experts drop
 # slots of every rank; recurrentgemma-9b takes 5 layers, a (rec, rec,
 # attn) unit and the (rec, rec) tail, its window (64) above SEQ;
-# whisper-small's batches carry seeded encoder frames (``WithFrames``)
+# whisper-small's batches carry seeded encoder frames (``WithFrames``),
+# qwen2-vl-72b's seeded patch embeddings and M-RoPE positions
+# (``WithPatches``)
 RUNS = {"qwen3-4b": ("qwen3-4b", None, {}),
         "rwkv6-7b": ("rwkv6-7b", None, {}),
         "deepseek-moe-16b": ("deepseek-moe-16b", None, {}),
         "deepseek-moe-16b-drops": ("deepseek-moe-16b", 0.5, {}),
         "recurrentgemma-9b": ("recurrentgemma-9b", None,
                               {"num_layers": 5}),
-        "whisper-small": ("whisper-small", None, {})}
+        "whisper-small": ("whisper-small", None, {}),
+        "qwen2-vl-72b": ("qwen2-vl-72b", None, {})}
+# the image of a reduced vlm batch: 2 x 2 merged patches
+VLM_GRID = (2, 2)
 
 
 class WithFrames:
@@ -56,12 +61,59 @@ class WithFrames:
         return batch
 
 
+def qwen2vl_positions(batch: int, seq: int, grid) -> np.ndarray:
+    """(3, batch, seq) int32 M-RoPE positions in Qwen2-VL's layout
+    (arXiv:2409.12191, section 2.1): one image of gh x gw merged patches
+    at the front, patch (i, j) at (temporal 0, height i, width j), then
+    the text at max + 1, max + 2, ... on all three streams (at a 16 x 16
+    grid the text starts at 16)."""
+    gh, gw = grid
+    P = gh * gw
+    if P > seq:
+        raise ValueError(f"an image of {P} patches in {seq} tokens")
+    i, j = np.divmod(np.arange(P), gw)
+    image = np.stack([np.zeros(P, np.int64), i, j])
+    start = max(gh, gw)
+    text = np.broadcast_to(np.arange(start, start + seq - P), (3, seq - P))
+    pos = np.concatenate([image, text], axis=1).astype(np.int32)
+    return np.repeat(pos[:, None], batch, axis=1)
+
+
+class WithPatches:
+    """A ``SyntheticLM`` of either package whose batches also carry the vlm
+    family's stub vision input: ``patch_embeds`` (B, P, D), standard
+    normal float32 rows of the whole global batch drawn with numpy from
+    (``seed``, step) and sliced on axis 0 for the shard, and
+    ``positions`` (3, B, S) in Qwen2-VL's layout (``qwen2vl_positions``,
+    P = gh x gw patches of ``grid``), sliced on axis 1 for the shard. The
+    reference's ``input_specs`` gives their shapes; neither package's data
+    pipeline makes them."""
+
+    def __init__(self, data, grid, d_model: int, seed: int = 0):
+        self.data, self.cfg = data, data.cfg
+        self.grid, self.d_model, self.seed = tuple(grid), d_model, seed
+
+    def batch_at(self, step: int, shard: int = 0, num_shards: int = 1):
+        batch = self.data.batch_at(step, shard, num_shards)
+        B, S = self.cfg.global_batch, self.cfg.seq_len
+        rows = slice(shard * B // num_shards, (shard + 1) * B // num_shards)
+        rng = np.random.default_rng((self.seed, step))
+        P = self.grid[0] * self.grid[1]
+        patches = rng.standard_normal((B, P, self.d_model), dtype=np.float32)
+        batch["patch_embeds"] = patches[rows]
+        batch["positions"] = qwen2vl_positions(B, S, self.grid)[:, rows]
+        return batch
+
+
 def run_data(cfg, data):
     """``data`` with encoder frames added where ``cfg`` is the audio
+    family's, patch embeddings and M-RoPE positions where it is the vlm
     family's."""
-    if not cfg.is_encoder_decoder:
-        return data
-    return WithFrames(data, cfg.encoder_seq_len, cfg.d_model)
+    if cfg.is_encoder_decoder:
+        return WithFrames(data, cfg.encoder_seq_len, cfg.d_model)
+    if cfg.mrope_sections:
+        return WithPatches(data, VLM_GRID, cfg.d_model)
+    return data
 
 
 def run_config(run: str, package):

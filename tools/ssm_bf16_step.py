@@ -73,7 +73,6 @@ def main() -> None:
     from repro_torch.models.common import Policy
     from repro_torch.models.model import Model
     from repro_torch.train import AdamWConfig, DataConfig, SyntheticLM
-    from repro_torch.train.trainer import decay_mask, master_params
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -257,24 +256,17 @@ def main() -> None:
     out["bf16_kernel_vs_fp32"] = max(gk.items(), key=lambda kv: kv[1])
     out["bf16_plain_vs_fp32"] = max(gp.items(), key=lambda kv: kv[1])
     opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=12)
-    master = master_params(model)
-    decay = decay_mask(model)
     agree = {}
     for tag, ga, gb in (("kernel vs plain", g_k, g_p),
                         ("kernel vs fp32", g_k, g_f),
                         ("plain vs fp32", g_p, g_f)):
-        ua, _ = cs.adamw_from_zero(master, {n: g.cuda() for n, g in
-                                            ga.items()}, opt, decay)
-        ub, _ = cs.adamw_from_zero(master, {n: g.cuda() for n, g in
-                                            gb.items()}, opt, decay)
-        flip, cos = cs.update_agreement(master, ua, ub)
+        flip, cos, _ = cs.update_agreement(torch, model, ga, gb, opt)
         agree[tag] = dict(cos=cos, flip=flip)
         print(f"AdamW update from zero moments, {tag}: cosine {cos:.6f}, "
               f"{flip:.3e} of entries change sign", flush=True)
-        del ua, ub
         torch.cuda.empty_cache()
     out["adamw"] = agree
-    del master, g_k, g_p, g_f, model
+    del g_k, g_p, g_f, model
     gc.collect()
     torch.cuda.empty_cache()
 
