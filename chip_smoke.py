@@ -194,11 +194,30 @@ order, it
      3 of a ``Trainer``, from its state, where the loss jumps; then a
      ``Trainer`` of 12 steps with a ``GuardStepHook`` at a peak learning
      rate scaled to the width (``VLM_PEAK_LR``);
- 25. prints one JSON line of per-kernel numbers, then
+ 25. runs tensor parallelism over "model" as four ranks on the one card
+     (spawned processes in a gloo group, all on cuda:0: NCCL refuses two
+     ranks on one device; every tensor-parallel collective goes through a
+     host copy on that group), mesh (1, 4), each rank against the
+     unsharded kernel path run first in this process: (a) qwen3-4b uncut,
+     a 4,096-token prefill (K3 36 launches a rank at q (1, 8, 4,096, 128),
+     k/v (1, 2, 4,096, 128)), its logits and gathered caches, then 8
+     flash-decode steps over the prefill's cache from position 4,088;
+     (b) qwen3-4b at 8 layers, one step's loss, gradients (each rank's
+     slice) and AdamW updates at phase 10's limits, then three ``Trainer``
+     steps with a ``GuardStepHook`` (K3 16 and K3' 8 a step, K1 once a
+     window), their losses against the unsharded Trainer's; (c)
+     deepseek-moe-16b at 4 layers, 16 experts a rank through the
+     ``all_to_all``: a prefill and a training step on the kernel path
+     against the plain path under the same mesh, on the kernel path's
+     routing, at phases 15–16's limits, and each rank's dropped slots;
+     one card shows that tensor parallelism computes the right thing, not
+     how fast it is (phases 5 and 9 also time K3 and K3' at the per-rank
+     shape, ``TP_ATTN``);
+ 26. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
 The phases run in the order 1–6, 9, 13(a), 17, 19, 7, 8, 10–12, 13(b),
-14–16, 18, 20–24: the kernel phases whose checks read profiler traces come
+14–16, 18, 20–25: the kernel phases whose checks read profiler traces come
 before the model phases' profiles, after which sessions of one call can
 trace nothing (``call_segments``).
 
@@ -214,6 +233,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import gc
 import json
 import subprocess
@@ -697,6 +717,9 @@ def bound(flops: float, peak: float, nbytes: float):
 # qwen2-vl-72b's causal attention at 4,096 tokens: 64 query heads over 8
 # KV heads of 128, a group of G = 8
 VLM_ATTN = (1, 64, 8, 4096, 4096, 128, True, 0, 0, "bfloat16")
+# qwen3-4b's attention on each rank of phase 25's (1, 4) mesh: its 8 of
+# the 32 query heads over its 2 of the 8 KV heads (G = 4)
+TP_ATTN = (1, 8, 2, 4096, 4096, 128, True, 0, 0, "bfloat16")
 K3_CASES = [
     (1, 32, 8, 4096, 4096, 128, True, 0, 0, "bfloat16"),
     (1, 32, 8, 4096, 4096, 128, True, 0, 0, "float32"),
@@ -713,6 +736,7 @@ K3_CASES = [
     (4, 12, 12, 448, 448, 64, True, 0, 0, "bfloat16"),
     (4, 12, 12, 1500, 1500, 64, False, 0, 0, "float32"),
     VLM_ATTN,
+    TP_ATTN,
 ]
 K3_TOL = {"bfloat16": 3e-2, "float32": 2e-5}   # the reference's own
 
@@ -753,7 +777,7 @@ def phase_k3(torch, np):
                 f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s, "
                 f"{bnd / ms:.1%} of bound), bound {bnd:.4f} ms ({by}; "
                 f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
-        if i < 3 or case == VLM_ATTN:      # timed beside plain and sdpa
+        if i < 3 or case in (VLM_ATTN, TP_ATTN):   # beside plain and sdpa
             plain = time_ms(lambda: attention_ref(q, k, v, **kw), reps=5,
                             warm=1)
             lib = time_ms(lambda: F.scaled_dot_product_attention(
@@ -768,6 +792,8 @@ def phase_k3(torch, np):
             main = nums
         if case == VLM_ATTN:
             main["vlm"] = nums
+        if case == TP_ATTN:
+            main["tp"] = nums
         del q, k, v
     torch.cuda.empty_cache()
     return main
@@ -1231,28 +1257,33 @@ TIE_EPS = 2e-2
 @contextlib.contextmanager
 def recorded_routes(torch, log: list):
     """Keep in ``log``, for every MoE call, its router probabilities
-    (T, E), experts (B, S, k) and each slot's keep bit
-    (``moe.plan_slots``)."""
+    (T, E), experts (B, S, k) and each dispatched slot's keep bit
+    (``moe.plan_slots``; under expert parallelism, of the rank's own
+    slots)."""
     from unittest import mock
     import repro_torch.models.moe as moe_mod
     top_k, inner = moe_mod._top_k, moe_mod.dispatch_compute_combine
-    probs = []
+    routed = []
 
     def kept_top_k(p, k):
-        probs.append(p.detach().reshape(-1, p.shape[-1]).clone())
-        return top_k(p, k)
+        w, idx = top_k(p, k)
+        routed.append((p.detach().reshape(-1, p.shape[-1]).clone(),
+                       idx.detach().clone()))
+        return w, idx
 
     def rec(x, idx, w, wi, wo, *, capacity, num_experts, top_k,
-            offset=None):
+            offset=None, tp=None):
+        # under expert parallelism ``idx`` is this rank's slice of the
+        # call's experts: the keep bits are of its slots
         order, dest, c = moe_mod.plan_slots(idx, capacity=capacity,
                                             num_experts=num_experts,
                                             offset=offset)
         keep = torch.empty_like(dest, dtype=torch.bool)
         keep[order] = dest < num_experts * c
-        log.append((probs.pop(0), idx.detach().clone(),
-                    keep.view(idx.shape)))
+        log.append(routed.pop(0) + (keep.view(idx.shape),))
         return inner(x, idx, w, wi, wo, capacity=capacity,
-                     num_experts=num_experts, top_k=top_k, offset=offset)
+                     num_experts=num_experts, top_k=top_k, offset=offset,
+                     tp=tp)
     with mock.patch.object(moe_mod, "_top_k", kept_top_k), \
             mock.patch.object(moe_mod, "dispatch_compute_combine", rec):
         yield
@@ -1286,7 +1317,10 @@ def route_flips(torch, got: list, want: list, tag: str):
     flips, alike = [], None
     for (_, gi, gk), (_, wi, wk) in zip(got, want):
         flips.append(int((gi != wi).sum()))
-        same = ((gi == wi) & (gk == wk)).all(dim=-1)
+        same = gi == wi
+        if gk.shape == gi.shape:       # not a rank's slice of the slots
+            same &= gk == wk
+        same = same.all(dim=-1)
         alike = same if alike is None else alike & same
     p, gi, _ = got[0]
     wi = want[0][1]
@@ -1493,8 +1527,10 @@ K3B_CASES = [
     (8, 12, 12, 448, 448, 64, True, 0, 0, "bfloat16"),
     (8, 12, 12, 1500, 1500, 64, False, 0, 0, "float32"),
     # qwen2-vl-72b's training (phase 24): dK/dV summed over a group of 8
-    # query heads at 4,096 tokens; timed beside plain and sdpa too
+    # query heads at 4,096 tokens; timed beside plain and sdpa too; then
+    # qwen3-4b's on each rank of phase 25's (1, 4) mesh
     VLM_ATTN,
+    TP_ATTN,
 ]
 # the kernels of one call, in launch order: the D pass, then the dK/dV
 # and dQ kernels (wgmma in bfloat16, the CUDA cores in float32)
@@ -1584,7 +1620,7 @@ def phase_k3_bwd(torch, np):
             f"{bnd / ms:.2%} of bound, bound {bnd:.4f} ms ({by}; "
             f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
         plain = lib = None
-        if i < 3 or case == VLM_ATTN:  # timed beside plain, sdpa's backward
+        if i < 3 or case in (VLM_ATTN, TP_ATTN):  # plain, sdpa's backward
             plain = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse_ref,
                                                       do, **kw),
                             reps=3, warm=1)
@@ -1622,6 +1658,8 @@ def phase_k3_bwd(torch, np):
             main = nums
         if case == VLM_ATTN:
             main["vlm"] = nums
+        if case == TP_ATTN:
+            main["tp"] = nums
         del q, k, v, do, o, lse, lse_ref
         torch.cuda.empty_cache()
     return main
@@ -3858,6 +3896,480 @@ VLM_PEAK_LR = 1e-4
 VLM_LATER_STEPS = 2
 
 
+# ------------------------------ phase 25: tensor parallelism, four ranks
+
+TP_RANKS = 4               # the ("data", "model") mesh (1, 4) on one card
+TP_SEQ = 4096
+TP_DECODE_STEPS = 8        # at positions 4,088-4,095 of the prefill's cache
+TP_TRAIN_STEPS = 3
+TP_JOIN_S = 480.0          # the ranks' limit; a collective's is TP_WAIT_S
+TP_WAIT_S = 240.0
+# launches a rank: a K3 a layer in the prefill; forward, remat and one K3'
+# a layer in a training step (the moe family's dense0 outside the remat)
+TP_PREFILL = {"flash_attention": 36}
+TP_PER_STEP = {"flash_attention": 2 * TRAIN_LAYERS,
+               "flash_attention_bwd": TRAIN_LAYERS}
+TP_MOE_PER_STEP = {"flash_attention": 2 * MOE_TRAIN_LAYERS - 1,
+                   "flash_attention_bwd": MOE_TRAIN_LAYERS}
+
+
+def tp_counters():
+    """This process's launch counters, by kernel."""
+    from repro_torch.kernels.fleet_score import COUNTER as C1
+    from repro_torch.kernels.flash_attention import BWD_COUNTER as C3B
+    from repro_torch.kernels.flash_attention import COUNTER as C3
+    from repro_torch.kernels.rglru import BWD_COUNTER as C5B
+    from repro_torch.kernels.rglru import COUNTER as C5
+    from repro_torch.kernels.sweep_burn import COUNTER as C2
+    from repro_torch.kernels.wkv6 import BWD_COUNTER as C4B
+    from repro_torch.kernels.wkv6 import COUNTER as C4
+    return {"fleet_score": C1, "sweep_burn": C2, "flash_attention": C3,
+            "flash_attention_bwd": C3B, "wkv6": C4, "wkv6_bwd": C4B,
+            "rglru": C5, "rglru_bwd": C5B}
+
+
+def tp_tokens(torch, np, vocab: int, n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, (1, n))).cuda()
+
+
+def tp_references(torch, np, d: Path) -> dict:
+    """Phase 25's unsharded runs on the kernel path, saved under ``d`` for
+    the ranks: (a) qwen3-4b uncut, a prefill of TP_SEQ tokens (logits and
+    caches) and TP_DECODE_STEPS decode steps over the prefill's cache from
+    position TP_SEQ - TP_DECODE_STEPS (each overwrites its row); (b)
+    qwen3-4b at TRAIN_LAYERS layers, one step's loss and gradients, and
+    the losses of a ``Trainer`` of TP_TRAIN_STEPS steps. Returns their
+    times."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train import TrainConfig, Trainer
+    cfg = get_config("qwen3-4b")
+    model = Model(cfg, device="cuda", seed=0)
+    tokens = tp_tokens(torch, np, cfg.vocab_size, TP_SEQ, 7)
+    steps = tp_tokens(torch, np, cfg.vocab_size, TP_DECODE_STEPS, 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    torch.save({"tokens": tokens.cpu(), "steps": steps.cpu(),
+                "logits": logits.cpu(), "k": cache["layers"][0].cpu(),
+                "v": cache["layers"][1].cpu()}, d / "serve.pt")
+    cache["pos"] = TP_SEQ - TP_DECODE_STEPS
+    decode = []
+    for i in range(TP_DECODE_STEPS):
+        decode.append(model.decode_step(steps[:, i], cache)[0].cpu())
+    torch.save(decode, d / "decode.pt")
+    del model, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, data, batch, opt, tag = train_setup(torch, "qwen3-4b",
+                                               TRAIN_LAYERS)
+    loss, grads = train_step_grads(torch, model, batch)
+    torch.save({"loss": float(loss),
+                "grads": {n: g.cpu() for n, g in grads.items()}},
+               d / "step.pt")
+    del grads
+    trainer = Trainer(model, data, TrainConfig(
+        steps=TP_TRAIN_STEPS, ckpt_interval=10 ** 9, opt=opt))
+    hist = trainer.run()["history"]
+    torch.save([h["loss"] for h in hist], d / "losses.pt")
+    out = {"prefill_ms": prefill_ms,
+           "step_ms": float(np.median([h["wall_s"] for h in hist[1:]]))
+           * 1e3}
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_gloo_cuda(torch) -> dict:
+    """Which collectives the gloo world group runs on CUDA tensors here
+    (the torch docs: broadcast and all_reduce only)."""
+    import torch.distributed as tdist
+    from repro_torch.dist import api as dist
+    out = {}
+    x = torch.ones(4, device="cuda")
+    for name, fn in (
+            ("all_reduce", lambda: tdist.all_reduce(x)),
+            ("broadcast", lambda: tdist.broadcast(x, 0)),
+            ("all_gather_single", lambda: dist.all_gather_single(
+                torch.empty(4 * TP_RANKS, device="cuda"), x)),
+            ("all_to_all_single", lambda: tdist.all_to_all_single(
+                torch.empty(4, device="cuda"), x))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "runs"
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {str(e)[:80]}"
+    tdist.barrier()
+    return out
+
+
+def profiled_call(torch, fn):
+    """``fn()`` once under ``torch.profiler``: (its result, host-clock ms
+    ending in a synchronize, the device's busy ms: the sum of the call's
+    kernel times, the five kernels with the most device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)     # the tracer's first kernel
+        torch.cuda.synchronize()                 # may be lost: not fn's
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    top = sorted(rows, key=lambda r: -r[1])[:5]
+    return (out, wall, sum(t for _, t in rows) / 1e3,
+            [(k[:60], round(t / 1e3, 4)) for k, t in top])
+
+
+def tp_span(torch, got, want) -> tuple:
+    """(max |got - want|, max |want|) over ``got``'s elements."""
+    g, w = got.float(), want.float().to(got.device)
+    return float((g - w).abs().max()), float(w.abs().max())
+
+
+def tp_serve(torch, np, d: Path, mesh, counters: dict, rank: int) -> dict:
+    """Phase 25(a) on one rank: qwen3-4b uncut under the mesh, the prefill
+    and decode steps of ``tp_references``, held against them."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.dist import api as dist
+    from repro_torch.models.model import Model
+    ref = torch.load(d / "serve.pt", mmap=True)
+    cfg = get_config("qwen3-4b")
+    with dist.use_mesh(mesh):
+        model = Model(cfg, device="cuda", seed=0)
+        tokens, steps = ref["tokens"].cuda(), ref["steps"].cuda()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        (logits, cache), prefill_ms, busy, top = profiled_call(
+            torch, lambda: model.prefill(tokens))
+        launches = {n: c.launches for n, c in counters.items()}
+        V = cfg.vocab_size
+        spans = {"logits": tp_span(torch, logits[..., :V],
+                                   ref["logits"][..., :V])}
+        out = {"launches": launches, "prefill_ms": prefill_ms,
+               "busy_ms": busy, "top": top, "kv_shards": cache["kv_shards"],
+               "spans": spans}
+        n = TP_SEQ // cache["kv_shards"]
+        part = slice(rank * n, (rank + 1) * n)
+        for name, got in zip("kv", cache["layers"]):
+            want = ref[name][:, :, :, part]
+            spans[f"{name} cache"] = tp_span(torch, got, want)
+            spans[f"{name} cache layer 1"] = tp_span(torch, got[1], want[1])
+        cache["pos"] = TP_SEQ - TP_DECODE_STEPS
+        decode = torch.load(d / "decode.pt")
+        walls = []
+        for i in range(TP_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = model.decode_step(steps[:, i], cache)[0]
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            spans[f"decode {i}"] = tp_span(torch, got, decode[i])
+        out["decode_ms"] = float(np.median(walls)) * 1e3
+        out["decode_launches"] = {n: c.launches - launches[n]
+                                  for n, c in counters.items()}
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del cache, logits
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train(torch, np, d: Path, mesh, counters: dict) -> dict:
+    """Phase 25(b) on one rank: qwen3-4b at TRAIN_LAYERS layers under the
+    mesh, one step's loss and gradients (this rank's slice of each) and
+    AdamW updates against ``tp_references``', then a ``Trainer`` of
+    TP_TRAIN_STEPS steps with a ``GuardStepHook``, its losses against the
+    unsharded Trainer's."""
+    import gc
+    from repro_torch.dist import api as dist
+    from repro_torch.guard import GuardStepHook
+    from repro_torch.train import TrainConfig, Trainer
+    ref = torch.load(d / "step.pt", mmap=True)
+    with dist.use_mesh(mesh):
+        model, data, batch, opt, tag = train_setup(torch, "qwen3-4b",
+                                                   TRAIN_LAYERS)
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        (loss, grads), wall, busy, top = profiled_call(
+            torch, lambda: train_step_grads(torch, model, batch))
+        launches = {n: c.launches for n, c in counters.items()}
+        want = {n: model.tp_slice(n, g) for n, g in ref["grads"].items()}
+        gaps = step_gaps(torch, model, loss, grads, ref["loss"], want, opt)
+        out = {"step_launches": launches, "loss": float(loss),
+               "profiled_step_ms": wall, "busy_ms": busy, "top": top,
+               **{k: v for k, v in gaps.items() if k != "gaps"}}
+        del grads, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        hook = GuardStepHook(window_steps=1, device="cuda")
+        trainer = Trainer(model, data, TrainConfig(
+            steps=TP_TRAIN_STEPS, ckpt_interval=10 ** 9, opt=opt), hook=hook)
+        for c in counters.values():
+            c.reset()
+        hist = trainer.run()["history"]
+        out.update(
+            run_launches={n: c.launches for n, c in counters.items()},
+            frames=hook.frames_fed, losses=[h["loss"] for h in hist],
+            step_ms=float(np.median([h["wall_s"] for h in hist[1:]])) * 1e3,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del trainer, model, hook
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_moe(torch, np, mesh, counters: dict) -> dict:
+    """Phase 25(c) on one rank: deepseek-moe-16b at MOE_TRAIN_LAYERS layers
+    under the mesh (E / 4 experts a rank, through the all_to_all): one
+    prefill and one training step on the kernel path against the plain
+    path under the same mesh, on the kernel path's routing, at phases
+    15-16's limits."""
+    import gc
+    from repro_torch.dist import api as dist
+    with dist.use_mesh(mesh):
+        model, data, batch, opt, tag = train_setup(
+            torch, "deepseek-moe-16b", MOE_TRAIN_LAYERS)
+        tag += f" at (1, {TP_RANKS}), rank {mesh.get_local_rank('model')}"
+        tokens = tp_tokens(torch, np, model.cfg.vocab_size, TP_SEQ, 9)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            launches, secs, nums = moe_prefill_vs_plain(
+                torch, model, model.cfg, tokens, counters, tag)
+        routes = []
+        loss_k, grads_k, loss_p, grads_p, step_l = step_vs_plain(
+            torch, counters, TP_MOE_PER_STEP, model, batch, tag, routes)
+        dropped = [int((~k).sum()) for _, _, k in
+                   routes[:MOE_TRAIN_LAYERS - 1]]
+        g = step_gaps(torch, model, loss_k, grads_k, loss_p, grads_p, opt)
+        step = hold_step(g, loss_k, loss_p, tag,
+                         "in bfloat16, on the kernel path's routing", step_l)
+        del grads_k, grads_p, routes
+        _, step_ms, busy, _ = profiled_call(
+            torch, lambda: train_step_grads(torch, model, batch))
+        out = {"prefill_launches": launches, "prefill_ms": secs * 1e3,
+               "step_launches": step_l, "step_ms": step_ms,
+               "busy_ms": busy,
+               "dropped_prefill": nums["dropped"],
+               "dropped_step": dropped, "experts": int(model.layers[0].moe
+                                                       .wi.shape[0]),
+               "prefill_errs": {k: v for k, v in nums.items()
+                                if k.endswith("_err")},
+               "step": {k: v for k, v in step.items() if k != "worst"},
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank: int, d: str) -> None:
+    """One rank of phase 25: a gloo process group of TP_RANKS ranks, all on
+    cuda:0 (NCCL refuses two ranks on one device), the (1, 4) mesh, parts
+    (a)-(c); writes ``rank<r>.json``. A failed check or an exception
+    prints its traceback and exits non-zero."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(ROOT / "src"))
+    PHASE["label"] = f"25 rank {rank}"
+    d = Path(d)
+    torch.cuda.set_device(0)
+    # a rank that fails exits; the others' collectives then give up
+    tdist.init_process_group(
+        "gloo", store=tdist.FileStore(str(d / "store"), TP_RANKS),
+        rank=rank, world_size=TP_RANKS,
+        timeout=datetime.timedelta(seconds=TP_WAIT_S))
+    try:
+        from repro_torch.dist import api as dist
+        from repro_torch.launch.mesh import _make_mesh
+        counters = tp_counters()
+        out = {"gloo_cuda": tp_gloo_cuda(torch)}
+        mesh = _make_mesh((1, TP_RANKS), ("data", "model"), "cuda")
+        tp = dist.tp_group(dist.DistContext(mesh))
+        out["model_rank"], out["host_copies"] = tp.rank, tp.host
+        out["backend"] = tdist.get_backend(tp.group)
+        for part, fn, args in (
+                ("serve", tp_serve, (torch, np, d, mesh, counters, rank)),
+                ("train", tp_train, (torch, np, d, mesh, counters)),
+                ("moe", tp_moe, (torch, np, mesh, counters))):
+            t0 = time.perf_counter()
+            out[part] = fn(*args)
+            out[part]["seconds"] = time.perf_counter() - t0
+            tdist.barrier()
+        (d / f"rank{rank}.json").write_text(json.dumps(out))
+    except Exception as e:           # noqa: BLE001 - named, then failed
+        traceback.print_exc(file=sys.stdout)
+        fail(f"{type(e).__name__}: {e}")
+    finally:
+        tdist.destroy_process_group()
+
+
+def phase_tp(torch, np, card: str):
+    """Phase 25: tensor parallelism over "model" in TP_RANKS ranks on one
+    card. The unsharded references first (``tp_references``), then the
+    ranks (``tp_rank``), then the checks over their reports: (a) the
+    prefill's logits and the gathered caches, and each decode step's
+    logits, at PATH_REL_TOL (layer 1's caches at FIRST_REL_TOL), K3 once a
+    layer at per-rank heads; (b) one step's loss, gradients and AdamW
+    updates at phase 10's limits, three Trainer steps' losses at
+    LOSS_REL_TOL, K3 16 and K3' 8 a step, K1 once a Guard window; (c) the
+    moe checks inside each rank (``tp_moe``). One card shows that the
+    ranks compute the right thing, not how fast tensor parallelism is.
+    Returns (rank 0's launches by part, numbers)."""
+    import multiprocessing
+    import tempfile
+    tmp = tempfile.TemporaryDirectory(prefix="tp_")
+    d = Path(tmp.name)
+    try:
+        ref = tp_references(torch, np, d)
+        procs = [multiprocessing.get_context("spawn").Process(
+            target=tp_rank, args=(r, str(d))) for r in range(TP_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_JOIN_S
+        while any(p.is_alive() for p in procs) and \
+                time.monotonic() < deadline and \
+                not any(p.exitcode for p in procs):   # a rank failed
+            time.sleep(0.5)
+        hung = [r for r, p in enumerate(procs) if p.is_alive()
+                and not any(q.exitcode for q in procs)]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        check(not hung, f"ranks {hung} did not finish within {TP_JOIN_S} s")
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * TP_RANKS, f"rank exit codes {codes}")
+        facts = [json.loads((d / f"rank{r}.json").read_text())
+                 for r in range(TP_RANKS)]
+        losses = torch.load(d / "losses.pt")
+    finally:
+        tmp.cleanup()
+    f0 = facts[0]
+    print(f"phase 25 ({card}): {TP_RANKS} gloo ranks on cuda:0, mesh (1, "
+          f"{TP_RANKS}); gloo on CUDA tensors: {f0['gloo_cuda']}; the "
+          f"'model' group's backend is {f0['backend']}, so every "
+          f"tensor-parallel collective copies through the host: "
+          f"{f0['host_copies']}", flush=True)
+
+    def worst(key):     # over the ranks: the gathered tensor's
+        err = max(f["serve"]["spans"][key][0] for f in facts)
+        return err / max(max(f["serve"]["spans"][key][1] for f in facts),
+                         1e-30)
+    a = {f"{k}_err": worst(k) for k in f0["serve"]["spans"]}
+    for f in facts:
+        check(f["serve"]["launches"] == {n: TP_PREFILL.get(n, 0)
+                                         for n in f["serve"]["launches"]},
+              f"rank {f['model_rank']}: the prefill launched "
+              f"{f['serve']['launches']}, not {TP_PREFILL}")
+        check(f["serve"]["kv_shards"] == TP_RANKS,
+              f"rank {f['model_rank']}: the cache is not sequence-sharded")
+        check(not any(f["serve"]["decode_launches"].values()),
+              f"rank {f['model_rank']}: a decode step launched a kernel")
+    for k, e in a.items():
+        lim = FIRST_REL_TOL["dense"] if "layer 1" in k else PATH_REL_TOL
+        check(e <= lim, f"(a) {k[:-4]} differs from the unsharded kernel "
+                        f"path by {e:.3e} of its largest magnitude (> {lim})")
+    sv = f0["serve"]
+    print(f"(a) ({card}) qwen3-4b uncut, {TP_SEQ}-token prefill at (1, "
+          f"{TP_RANKS}) "
+          f"against the unsharded kernel path, max abs err / max abs over "
+          f"the ranks (caches gathered): " + ", ".join(
+              f"{k[:-4]} {v:.3e}" for k, v in a.items()) + f"; K3 "
+          f"{sv['launches']['flash_attention']} launches a rank (q (1, 8, "
+          f"{TP_SEQ}, 128), k/v (1, 2, {TP_SEQ}, 128)); prefill "
+          f"{sv['prefill_ms']:.1f} ms under the profiler, the first call "
+          f"(unsharded {ref['prefill_ms']:.1f}, the first call, no "
+          f"profiler), rank 0's kernels {sv['busy_ms']:.1f} ms "
+          f"({sv['busy_ms'] / sv['prefill_ms']:.0%}); flash-decode step median {sv['decode_ms']:.1f} ms; peak "
+          f"{max(f['serve']['peak_gb'] for f in facts):.2f} GB a rank; top "
+          f"kernels {sv['top']}", flush=True)
+    tr = f0["train"]
+    for f in facts:
+        t = f["train"]
+        want = {n: TP_PER_STEP.get(n, 0) for n in t["step_launches"]}
+        check(t["step_launches"] == want, f"rank {f['model_rank']}: a "
+              f"step launched {t['step_launches']}, not {want}")
+        want = {n: TP_PER_STEP.get(n, 0) * TP_TRAIN_STEPS
+                for n in t["run_launches"]}
+        want["fleet_score"] = t["frames"]
+        check(t["frames"] >= 1 and t["run_launches"] == want,
+              f"rank {f['model_rank']}: the Trainer launched "
+              f"{t['run_launches']}, not {want}")
+        check(t["loss_err"] <= LOSS_REL_TOL and t["grad_err"] <= GRAD_REL_TOL
+              and t["update_cos"] >= UPDATE_COS
+              and t["update_flip"] <= UPDATE_FLIP,
+              f"(b) rank {f['model_rank']}: loss gap {t['loss_err']:.3e}, "
+              f"gradient {t['worst']} {t['grad_err']:.3e}, update cosine "
+              f"{t['update_cos']:.5f}, sign changes {t['update_flip']:.3e} "
+              f"(limits {LOSS_REL_TOL}, {GRAD_REL_TOL}, {UPDATE_COS}, "
+              f"{UPDATE_FLIP})")
+        gaps = [abs(x - y) / abs(y) for x, y in zip(t["losses"], losses)]
+        check(len(gaps) == TP_TRAIN_STEPS and max(gaps) <= LOSS_REL_TOL,
+              f"(b) rank {f['model_rank']}: Trainer losses {t['losses']} "
+              f"against the unsharded {losses}")
+    print(f"(b) ({card}) qwen3-4b at {TRAIN_LAYERS} layers, (1, "
+          f"{TP_RANKS}), one "
+          f"step against the unsharded step, worst rank: loss gap "
+          f"{max(f['train']['loss_err'] for f in facts):.3e}, gradients "
+          f"within {max(f['train']['grad_err'] for f in facts):.3e} of "
+          f"their largest magnitude (each rank's slice), AdamW updates' "
+          f"cosine {min(f['train']['update_cos'] for f in facts):.6f}, "
+          f"{max(f['train']['update_flip'] for f in facts):.3e} change "
+          f"sign; {TP_TRAIN_STEPS} Trainer steps, losses {tr['losses']} "
+          f"(unsharded {losses}); step median {tr['step_ms']:.1f} ms "
+          f"(unsharded {ref['step_ms']:.1f}); the held step under the "
+          f"profiler {tr['profiled_step_ms']:.1f} ms (forward and backward, "
+          f"no update), rank 0's kernels "
+          f"{tr['busy_ms']:.1f} ms "
+          f"({tr['busy_ms'] / tr['profiled_step_ms']:.0%}); launches a step "
+          f"{tr['step_launches']}, fleet_score "
+          f"{tr['run_launches']['fleet_score']} in {tr['frames']} Guard "
+          f"windows; peak "
+          f"{max(f['train']['peak_gb'] for f in facts):.2f} GB a rank; top "
+          f"kernels {tr['top']}", flush=True)
+    mo = f0["moe"]
+    print(f"(c) ({card}) deepseek-moe-16b at {MOE_TRAIN_LAYERS} layers, "
+          f"(1, {TP_RANKS}), {mo['experts']} experts a rank: prefill "
+          f"{mo['prefill_ms']:.1f} ms, step {mo['step_ms']:.1f} ms under "
+          f"the profiler (forward and backward), rank 0's kernels "
+          f"{mo['busy_ms']:.1f} ms ({mo['busy_ms'] / mo['step_ms']:.0%}); "
+          f"slots "
+          f"dropped a rank (prefill, per MoE layer): "
+          f"{[f['moe']['dropped_prefill'] for f in facts]}, (step) "
+          f"{[f['moe']['dropped_step'] for f in facts]}; peak "
+          f"{max(f['moe']['peak_gb'] for f in facts):.2f} GB a rank; ranks' "
+          f"seconds (a, b, c) " + str([[round(f[p]["seconds"], 1) for p in
+                                         ("serve", "train", "moe")]
+                                        for f in facts]), flush=True)
+    launches = {"prefill": sv["launches"], "train": tr["run_launches"],
+                "moe_prefill": mo["prefill_launches"],
+                "moe_step": mo["step_launches"]}
+    nums = dict(card=card, serve={**{k: v for k, v in sv.items()
+                                     if k not in ("top", "spans")}, **a,
+                                  "unsharded_prefill_ms": ref["prefill_ms"]},
+                train={**{k: v for k, v in tr.items() if k != "top"},
+                       "unsharded_losses": losses,
+                       "unsharded_step_ms": ref["step_ms"]},
+                moe=[f["moe"] for f in facts], gloo_cuda=f0["gloo_cuda"])
+    return launches, nums
+
+
 def run_phase(torch, label: str, fn, *args):
     """Run one phase: print its start with the card's free memory, then,
     on success, its seconds and peak memory, and drop what it held. Any
@@ -4058,6 +4570,8 @@ def main() -> None:
         torch, "24 qwen2-vl-72b training", train_full_width, torch, np,
         counters, "qwen2-vl-72b", VLM_TRAIN_LAYERS, VLM_PER_STEP,
         VLM_PEAK_LR, VLM_LATER_STEPS)
+    tp, tp_nums = run_phase(torch, "25 tensor parallelism, four ranks",
+                            phase_tp, torch, np, card)
 
     kernels = [
         {"name": "fleet_score", "route": "cuda",
@@ -4065,6 +4579,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/fleet_score/fleet_score.py:146",
          "launches": n1 + k1_sim + k1_fleet, "launches_loop": n1,
          "launches_sim": k1_sim, "launches_fleet": k1_fleet,
+         "launches_tp_train_a_rank": tp["train"]["fleet_score"],
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"],
          "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
@@ -4096,7 +4611,12 @@ def main() -> None:
          "launches_audio_train": train_audio["flash_attention"],
          "launches_vlm_prefill": vlm["flash_attention"],
          "launches_vlm_train": train_vlm["flash_attention"],
-         "vlm": k3["vlm"], "window": k3w},
+         "launches_tp_prefill_a_rank": tp["prefill"]["flash_attention"],
+         "launches_tp_train_a_rank": tp["train"]["flash_attention"],
+         "launches_tp_moe_prefill_a_rank":
+             tp["moe_prefill"]["flash_attention"],
+         "launches_tp_moe_step_a_rank": tp["moe_step"]["flash_attention"],
+         "vlm": k3["vlm"], "tp": k3["tp"], "window": k3w},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention/ops.py:42",
@@ -4108,13 +4628,17 @@ def main() -> None:
          "launches_audio_train": train_audio["flash_attention_bwd"],
          "launches_vlm_prefill": vlm["flash_attention_bwd"],
          "launches_vlm_train": train_vlm["flash_attention_bwd"],
+         "launches_tp_train_a_rank": tp["train"]["flash_attention_bwd"],
+         "launches_tp_moe_step_a_rank":
+             tp["moe_step"]["flash_attention_bwd"],
          "max_abs_err": k3b["max_abs_err"],
          "max_rel_err": k3b["max_rel_err"], "ms": k3b["ms"],
          "device_ms": k3b["device_ms"],
          "device_kernels_per_call": k3b["kernels_per_call"],
          "plain_ms": k3b["plain_ms"], "bound_ms": k3b["bound_ms"],
          "bound_by": k3b["bound_by"], "library_ms": k3b["library_ms"],
-         "shape": k3b["shape"], "vlm": k3b["vlm"], "window": k3bw},
+         "shape": k3b["shape"], "vlm": k3b["vlm"], "tp": k3b["tp"],
+         "window": k3bw},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/wkv6/wkv6.py:76",
@@ -4174,6 +4698,8 @@ def main() -> None:
           flush=True)
     print(f"vlm serving (phase 23): {json.dumps(vlm_nums)}", flush=True)
     print(f"vlm training (phase 24): {json.dumps(vlm_tnums)}", flush=True)
+    print(f"tensor parallelism (phase 25): {json.dumps(tp_nums)}",
+          flush=True)
     print(f"every phase passed in {time.perf_counter() - t0:.1f} s, the "
           f"builds included; {SESSIONS['lost']} of {SESSIONS['taken']} "
           f"profiler sessions traced no whole call and were taken again",

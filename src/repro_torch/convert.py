@@ -173,16 +173,18 @@ def load_detector_state(detector: StragglerDetector,
 
 
 def _copy_tree(module: torch.nn.Module, tree: Mapping, prefix: str,
-               loaded: Set[str]) -> None:
+               loaded: Set[str], model: Model) -> None:
     for key, val in tree.items():
         name = f"{prefix}{key}"
         if isinstance(val, Mapping):
-            _copy_tree(getattr(module, key), val, f"{name}.", loaded)
+            _copy_tree(getattr(module, key), val, f"{name}.", loaded, model)
             continue
         param = getattr(module, key, None)
         if not isinstance(param, torch.nn.Parameter):
             raise KeyError(f"the port's model has no parameter {name}")
-        arr = np.array(val, np.float32)        # a writable copy
+        # a writable copy of the rank's tensor-parallel slice
+        arr = np.array(model.tp_slice(name, np.asarray(val, np.float32)),
+                       np.float32)
         if arr.shape != tuple(param.shape):
             raise ValueError(f"{name}: reference shape {arr.shape}, port "
                              f"shape {tuple(param.shape)}")
@@ -210,22 +212,28 @@ def model_params(jax_params: Mapping, cfg, *,
     """The port's ``Model`` of ``cfg`` carrying ``jax_params``, the values
     of ``repro.models.model.Model.init_params`` as nested dicts of numpy
     arrays. Raises unless every leaf of the tree finds its parameter, with
-    its shape, and every parameter of the port is set."""
+    its shape, and every parameter of the port is set. Built under a mesh
+    whose "model" axis is wider than 1, the model keeps each rank's
+    tensor-parallel slice (``Model.tp_slice``) of the reference's
+    parameters, the same placement ``param_sharding`` gives their masters
+    on "model" (where the model computes with a whole parameter that
+    ``param_sharding`` splits, it keeps the whole)."""
     model = Model(cfg, policy, device=device, seed=None)
     loaded: Set[str] = set()
     _copy_tree(model, {k: v for k, v in jax_params.items()
-                       if k not in model.stacks() + ("tail",)}, "", loaded)
+                       if k not in model.stacks() + ("tail",)}, "", loaded,
+               model)
     for stacked in model.stacks():
         layers = getattr(model, stacked)
         for i, lp in enumerate(layers):
             _copy_tree(lp, _layer(jax_params[stacked], i, len(layers)),
-                       f"{stacked}.{i}.", loaded)
+                       f"{stacked}.{i}.", loaded, model)
     tail = jax_params.get("tail", [])
     if len(tail) != len(getattr(model, "tail", [])):
         raise ValueError(f"reference tail of {len(tail)} layers, port "
                          f"{len(getattr(model, 'tail', []))}")
     for i, lp in enumerate(tail):
-        _copy_tree(model.tail[i], lp, f"tail.{i}.", loaded)
+        _copy_tree(model.tail[i], lp, f"tail.{i}.", loaded, model)
     missing = sorted(set(dict(model.named_parameters())) - loaded)
     if missing:
         raise KeyError(f"reference tree leaves port parameters unset: "

@@ -30,16 +30,36 @@ weights and AdamW moments are DTensors placed by ``param_sharding``, and
 the compute copy of each unit is gathered just in time (``gather_fsdp``
 drops the "fsdp" entry; ``repro_torch.train.trainer`` drives it).
 
-Not ported yet: tensor parallelism over "model" (a mesh whose "model"
-axis is wider than 1 raises ``NotImplementedError`` wherever placements
-are made) and ``shard_map`` (moe's expert-parallel dispatch and
-attention's flash-decode come with their families).
+Tensor parallelism over "model" (the reference's GSPMD partitioning of
+the same logical axes) is explicit here: a model built under a mesh
+whose "model" axis is wider than 1 keeps each rank's slice of its
+heads, ff, vocab and expert weights (``repro_torch.models.model``), the
+activations between layers stay replicated over "model", and every
+collective of the forward and backward goes through the helpers below,
+on the "model" sub-group (``tp_group``). Each is an autograd function
+with its own backward:
+
+  copy_in(x)          identity           | all-reduce (sum)
+  reduce_out(x)       all-reduce (sum)   | identity
+  gather_dim(x, d)    all-gather along d | this rank's slice
+  split_dim(x, d)     this rank's slice  | all-gather along d
+  all_to_all(x, s, c) all_to_all         | the inverse all_to_all
+  max_all_reduce(x)   all-reduce (max)   | none (the reference's
+                                           ``stop_gradient``)
+
+They replace the reference's two ``shard_map`` users as well: moe's
+expert-parallel ``all_to_all`` dispatch and attention's flash-decode
+(partial attention over a sequence-sharded KV cache, combined by a max
+and two sums). On a gloo group a CUDA tensor moves through one host copy
+each way (gloo takes CUDA tensors for few collectives); the group's
+backend decides that, and NCCL groups stay on the device.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as tdist
@@ -79,7 +99,7 @@ DEFAULT_RULES: Rules = {
                                     # counts psum across node shards
 }
 
-# the mesh axis tensor parallelism would use; only a 1-wide one is ported
+# the mesh axis of tensor (and expert) parallelism
 TP_AXIS = "model"
 
 
@@ -147,13 +167,7 @@ class DistContext:
         mesh dim in the mesh's order: ``Shard(i)`` on each mesh axis that
         tensor dim ``i`` is split over (several axes on one dim nest left
         to right, as the reference's tuple entries do), else
-        ``Replicate()``. Raises ``NotImplementedError`` on a mesh whose
-        "model" axis is wider than 1: tensor parallelism is not ported."""
-        if self.sizes.get(TP_AXIS, 1) > 1:
-            raise NotImplementedError(
-                f"tensor parallelism over {TP_AXIS!r} (width "
-                f"{self.sizes[TP_AXIS]}) is not ported: the port shards "
-                f"over 'pod' and 'data' only")
+        ``Replicate()``."""
         dim_of: Dict[str, int] = {}
         for i, entry in enumerate(self.spec(logical_axes, shape)):
             for axis in (entry,) if isinstance(entry, str) else entry or ():
@@ -206,15 +220,14 @@ def constraint(x, *logical_axes: Optional[str]):
 # ------------------------------------------------------------ param trees
 
 
-def param_sharding(axes: Mapping[str, Axes],
-                   params: Mapping[str, torch.Tensor],
+def param_sharding(axes: Mapping[str, Axes], params: Mapping[str, Any],
                    ctx: Optional[DistContext] = None) -> Dict[str, list]:
-    """``{name: logical axes}`` + ``{name: tensor}`` -> ``{name: DTensor
-    placements}``, each resolved with the tensor's (global) shape."""
+    """``{name: logical axes}`` + ``{name: tensor or shape}`` -> ``{name:
+    DTensor placements}``, each resolved with the (global) shape."""
     ctx = ctx if ctx is not None else current()
     if ctx is None:
         raise RuntimeError("param_sharding requires an active mesh context")
-    return {name: ctx.sharding(axes[name], tuple(p.shape))
+    return {name: ctx.sharding(axes[name], tuple(getattr(p, "shape", p)))
             for name, p in params.items()}
 
 
@@ -235,6 +248,22 @@ def gather_fsdp(tree: Mapping[str, torch.Tensor],
 
 
 # ------------------------------------------------- one process per rank
+
+
+def local_block(t: torch.Tensor, mesh, placements,
+                skip: Mapping[str, int] = {}) -> torch.Tensor:
+    """This rank's block of ``t`` under ``placements`` (a view): ``t``
+    narrowed by the rank's mesh coordinate on every ``Shard``, several
+    mesh dims on one tensor dim nested left to right. ``skip`` maps mesh
+    dims whose split ``t`` already is, by name, to that tensor dim."""
+    names = mesh.mesh_dim_names
+    coord = mesh.get_coordinate()
+    for i, pl in enumerate(placements):
+        if not isinstance(pl, Shard) or skip.get(names[i]) == pl.dim:
+            continue
+        size = t.shape[pl.dim] // mesh.size(i)
+        t = t.narrow(pl.dim, coord[i] * size, size)
+    return t
 
 
 def distribute(full: torch.Tensor, mesh, placements) -> DTensor:
@@ -259,6 +288,180 @@ def rank0_value(value):
     return box[0]
 
 
-__all__ = ["DEFAULT_RULES", "DistContext", "TP_AXIS", "constraint",
-           "current", "distribute", "gather_fsdp", "param_sharding",
-           "rank0_value", "set_context", "use_mesh"]
+# ------------------------------------------------- tensor parallelism
+
+# torch 2.13 renames these two (the old names then warn)
+all_gather_single = getattr(tdist, "all_gather_single", None) \
+    or tdist.all_gather_into_tensor
+reduce_scatter_single = getattr(tdist, "reduce_scatter_single", None) \
+    or tdist.reduce_scatter_tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class TPGroup:
+    """The "model" sub-group of a rank: its process group, the rank's
+    coordinate on "model", the axis's width, and whether CUDA tensors go
+    through a host copy (a gloo group)."""
+    group: Any
+    rank: int
+    size: int
+    host: bool
+
+
+def tp_group(ctx: Optional[DistContext] = None) -> Optional[TPGroup]:
+    """The "model" sub-group of ``ctx`` (default: the active context), or
+    None where the axis is absent or 1 wide."""
+    ctx = ctx if ctx is not None else current()
+    if ctx is None or ctx.sizes.get(TP_AXIS, 1) == 1:
+        return None
+    group = ctx.mesh.get_group(TP_AXIS)
+    return TPGroup(group, ctx.mesh.get_local_rank(TP_AXIS),
+                   ctx.sizes[TP_AXIS], tdist.get_backend(group) == "gloo")
+
+
+def all_reduce(t: torch.Tensor, group=None, op=tdist.ReduceOp.SUM
+               ) -> torch.Tensor:
+    """``tdist.all_reduce`` of ``t`` in place over ``group`` (default: the
+    world), through a host copy for a CUDA tensor on a gloo group."""
+    if t.is_cuda and tdist.get_backend(group) == "gloo":
+        buf = t.detach().cpu()
+        tdist.all_reduce(buf, op=op, group=group)
+        t.copy_(buf)
+    else:
+        tdist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def _send(t: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """A private contiguous copy of ``t`` to communicate: on the host for a
+    CUDA tensor on a gloo group."""
+    if tp.host and t.is_cuda:
+        return t.detach().to("cpu", copy=True).contiguous()
+    return t.detach().clone(memory_format=torch.contiguous_format)
+
+
+def _all_reduce(t: torch.Tensor, tp: TPGroup, op=tdist.ReduceOp.SUM
+                ) -> torch.Tensor:
+    return all_reduce(t.detach().clone(), tp.group, op)
+
+
+def _all_gather(t: torch.Tensor, dim: int, tp: TPGroup) -> torch.Tensor:
+    src = _send(t, tp)
+    out = src.new_empty(tp.size * src.numel())
+    all_gather_single(out, src.view(-1), group=tp.group)
+    out = out.view((tp.size,) + tuple(src.shape))
+    return torch.cat(out.unbind(0), dim=dim).to(t.device)
+
+
+def _slice(t: torch.Tensor, dim: int, tp: TPGroup) -> torch.Tensor:
+    n = t.shape[dim] // tp.size
+    return t.narrow(dim, tp.rank * n, n).contiguous()
+
+
+def _all_to_all(t: torch.Tensor, split: int, concat: int, tp: TPGroup
+                ) -> torch.Tensor:
+    send = _send(torch.stack(t.chunk(tp.size, dim=split)), tp)
+    recv = torch.empty_like(send)
+    tdist.all_to_all_single(recv, send, group=tp.group)
+    return torch.cat(recv.unbind(0), dim=concat).to(t.device)
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.tp), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return _all_reduce(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _all_gather(x, dim, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.dim, ctx.tp), None, None
+
+
+class _SplitDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _slice(x, dim, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.tp), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split, concat, tp):
+        ctx.split, ctx.concat, ctx.tp = split, concat, tp
+        return _all_to_all(x, split, concat, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.concat, ctx.split, ctx.tp), None, None, \
+            None
+
+
+def copy_in(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over "model". Where a tensor
+    replicated over "model" enters work that each rank does only part of
+    (its heads, its ff slice), each rank's gradient is partial."""
+    return _CopyIn.apply(x, tp)
+
+
+def reduce_out(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """The sum of the ranks' ``x`` (partial results, e.g. of a row-parallel
+    product); the gradient passes as it is."""
+    return _ReduceOut.apply(x, tp)
+
+
+def gather_dim(x: torch.Tensor, dim: int, tp: TPGroup) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order; the
+    gradient's slice of this rank goes back."""
+    return _GatherDim.apply(x, dim, tp)
+
+
+def split_dim(x: torch.Tensor, dim: int, tp: TPGroup) -> torch.Tensor:
+    """This rank's slice of ``x`` (replicated) along ``dim``; the ranks'
+    gradients are gathered back into the whole."""
+    return _SplitDim.apply(x, dim, tp)
+
+
+def all_to_all(x: torch.Tensor, split: int, concat: int, tp: TPGroup
+               ) -> torch.Tensor:
+    """The reference's tiled ``lax.all_to_all``: ``x`` split into
+    ``tp.size`` chunks along ``split``, chunk j sent to rank j, and the
+    chunks received concatenated along ``concat`` in rank order."""
+    return _AllToAll.apply(x, split, concat, tp)
+
+
+def max_all_reduce(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """The elementwise max over the ranks, without a gradient."""
+    return _all_reduce(x, tp, op=tdist.ReduceOp.MAX)
+
+
+__all__ = ["DEFAULT_RULES", "DistContext", "TPGroup", "TP_AXIS",
+           "all_gather_single", "all_reduce", "all_to_all", "constraint", "copy_in",
+           "current", "distribute", "gather_dim", "gather_fsdp",
+           "local_block", "max_all_reduce", "param_sharding", "rank0_value",
+           "reduce_out", "reduce_scatter_single", "set_context", "split_dim",
+           "tp_group", "use_mesh"]

@@ -8,10 +8,9 @@ caller names the store or address, the world size and its rank).
 
 Mesh layout: 16x16 within a pod ("data" x "model": FSDP/DP over data, TP
 over model), and a leading "pod" axis (pure DP) for the 2-pod, 512-rank
-configuration. Only "pod" and "data" are ported as shardings: a mesh
-whose "model" axis is wider than 1 builds, and the port raises
-``NotImplementedError`` where it would place a tensor on it
-(``repro_torch.dist.api``).
+configuration. A model built under a mesh whose "model" axis is wider
+than 1 keeps each rank's tensor-parallel slice (``repro_torch.dist.api``);
+the dense, moe and vlm families run on it.
 """
 from __future__ import annotations
 

@@ -3,8 +3,18 @@ kernel (causal, or in a sliding window for the hybrid family's
 ``local_attention``, or full for the audio family's encoder and
 ``cross_attention``), and decode-step attention over a KV cache.
 
-Local (single-device) paths only: the sequence-sharded flash-decoding
-branch comes with tensor parallelism.
+Under tensor parallelism (``Attention.tp``, set by the model, see
+``repro_torch.dist.api``) each rank projects its own query heads (the
+rank's slice of ``wq``, ``bq``, ``wo``) and runs the kernel on them; its
+KV heads are its own slice where "model" divides them, else every rank
+projects all of them (the whole ``wk``, ``wv``) and attends with those its
+query heads use. Where the query heads do not divide "model" but the
+reference's query chunk does, the query rows split over "model" instead
+(the reference's ``_seq_shard_fallback``): each rank attends with its
+rows over the whole K/V and the rows are gathered. ``out_projection`` is
+row-parallel. Decode (``decode_attention``) is the reference's
+flash-decode where the cache is sequence-sharded: each rank's partial
+attention over its slice of the cache, combined by a max and two sums.
 """
 from __future__ import annotations
 
@@ -14,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.dist import api as dist
 from repro_torch.kernels.flash_attention import attention as flash
 from repro_torch.models.common import Init
 from repro_torch.models.layers import apply_rope, rms_norm
@@ -45,6 +56,11 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             self.q_norm = init.zeros((hd,))
             self.k_norm = init.zeros((hd,))
+        # tensor parallelism (set by the model): the "model" group, and
+        # whether this rank holds a slice of the query heads and of the
+        # KV heads
+        self.tp: Optional[dist.TPGroup] = None
+        self.heads_local = self.kv_local = False
 
 
 def project_qkv(p: Attention, cfg, x: torch.Tensor,
@@ -54,29 +70,94 @@ def project_qkv(p: Attention, cfg, x: torch.Tensor,
     (``layers.rope_tables`` of the positions, or the vlm family's
     ``layers.mrope_tables``: whichever the caller built) applied after
     the q/k norms; ``rope`` None applies none (the audio family's learned
-    position embeddings, the reference's ``rope=False``)."""
+    position embeddings, the reference's ``rope=False``).
+
+    With ``p.heads_local`` q holds the rank's query heads, and k/v its KV
+    heads where ``p.kv_local``, else all of them; the replicated weights
+    that each rank uses for part of the heads (the norms, and ``wk``,
+    ``wv`` and their biases where the KV heads replicate) have their
+    gradients summed over "model" (``dist.copy_in``)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    wk, wv, bk, bv = p.wk, p.wv, getattr(p, "bk", None), getattr(p, "bv",
+                                                                  None)
+    q_norm, k_norm = getattr(p, "q_norm", None), getattr(p, "k_norm", None)
+    if p.tp is not None and p.heads_local:
+        tp = p.tp
+        x = dist.copy_in(x, tp)
+        if cfg.qk_norm:
+            q_norm, k_norm = dist.copy_in(q_norm, tp), dist.copy_in(k_norm,
+                                                                     tp)
+        if not p.kv_local:
+            wk, wv = dist.copy_in(wk, tp), dist.copy_in(wv, tp)
+            if cfg.qkv_bias:
+                bk, bv = dist.copy_in(bk, tp), dist.copy_in(bv, tp)
+    q, k, v = x @ p.wq, x @ wk, x @ wv
     if cfg.qkv_bias:
         q = q + p.bq.to(q.dtype)
-        k = k + p.bk.to(k.dtype)
-        v = v + p.bv.to(v.dtype)
-    q = q.reshape(B, S, cfg.num_heads, hd)
-    k = k.reshape(B, S, cfg.num_kv_heads, hd)
-    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+        k = k + bk.to(k.dtype)
+        v = v + bv.to(v.dtype)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
     if rope is None:
         return q, k, v
     return apply_rope(q, rope), apply_rope(k, rope), v
 
 
 def out_projection(p: Attention, attn_out: torch.Tensor) -> torch.Tensor:
-    """attn_out (B, S, Hq, hd) -> (B, S, D)."""
+    """attn_out (B, S, Hq, hd) -> (B, S, D); with ``p.heads_local`` the
+    rank's heads, the partial products summed over "model"."""
     B, S, H, hd = attn_out.shape
-    return attn_out.reshape(B, S, H * hd) @ p.wo
+    out = attn_out.reshape(B, S, H * hd) @ p.wo
+    if p.tp is not None and p.heads_local:
+        return dist.reduce_out(out, p.tp)
+    return out
+
+
+def _kv_of_heads(k: torch.Tensor, v: torch.Tensor, heads: int,
+                 tp: dist.TPGroup) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Of k/v (B, S, Hkv, hd) with every KV head, those the rank's
+    ``heads`` query heads read: one KV head where they share it, else
+    each query head's own (a group of one)."""
+    Hkv = k.shape[2]
+    G = heads * tp.size // Hkv
+    first = tp.rank * heads
+    if G % heads == 0:
+        return (k.narrow(2, first // G, 1), v.narrow(2, first // G, 1))
+    idx = torch.div(torch.arange(first, first + heads, device=k.device), G,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def self_attention(p: Attention, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """A layer's causal self-attention over ``project_qkv``'s q/k/v ->
+    (B, S, H, hd), H the query heads ``q`` holds. Under tensor
+    parallelism: the rank's query heads over their KV heads; or, where
+    the query heads do not divide "model" and the reference's query chunk
+    (``min(2048, S)``, S when that does not divide S) does, the rank's
+    S / tp query rows over the whole K/V (the kernel's ``q_offset``), the
+    rows gathered; or, where neither divides, the whole attention on
+    every rank, as the reference replicates it."""
+    tp = p.tp
+    if tp is None or p.kv_local:
+        return full_attention(q, k, v, causal=True)
+    if p.heads_local:
+        return full_attention(q, *_kv_of_heads(k, v, q.shape[2], tp),
+                              causal=True)
+    S = q.shape[1]
+    chunk = min(2048, S)
+    if S % chunk or chunk % tp.size:
+        return full_attention(q, k, v, causal=True)
+    n = S // tp.size
+    o = full_attention(dist.split_dim(q, 1, tp), dist.copy_in(k, tp),
+                       dist.copy_in(v, tp), causal=True,
+                       q_offset=tp.rank * n)
+    return dist.gather_dim(o, 1, tp)
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -121,32 +202,44 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def decode_attention(q: torch.Tensor, kcache: torch.Tensor,
                      vcache: torch.Tensor, k_new: torch.Tensor,
-                     v_new: torch.Tensor, pos: int) -> torch.Tensor:
-    """One decode step over a local cache (``_decode_inner`` with
-    ``axis=None``). q (B, Hq, hd); caches (B, Hkv, Sl, hd); k_new/v_new
-    (B, Hkv, hd); ``pos`` is the position written and the last one seen.
+                     v_new: torch.Tensor, pos: int,
+                     tp: Optional[dist.TPGroup] = None) -> torch.Tensor:
+    """One decode step over a cache (``_decode_inner``). q (B, Hq, hd);
+    caches (B, Hkv, Sl, hd); k_new/v_new (B, Hkv, hd); ``pos`` is the
+    position written and the last one seen.
 
     The new row is written into the caches in place (the JAX package
     returns new caches). As there, a ``pos`` outside the cache writes
     nothing, and every cache row at or before ``pos`` is attended to,
-    whoever wrote it. Returns out (B, Hq, hd)."""
+    whoever wrote it. With ``tp`` the caches are this rank's slice of a
+    sequence-sharded cache (flash-decode, the reference's ``shard_map``
+    over "model"): positions ``rank * Sl`` to ``rank * Sl + Sl - 1``; the
+    rank holding ``pos`` writes it, and the ranks' partial maxima, sums
+    and outputs are combined over "model". Returns out (B, Hq, hd), the
+    same on every rank."""
     B, Hq, hd = q.shape
     Hkv, Sl = kcache.shape[1], kcache.shape[2]
-    if 0 <= pos < Sl:
-        kcache[:, :, pos] = k_new
-        vcache[:, :, pos] = v_new
+    offset = 0 if tp is None else tp.rank * Sl
+    if 0 <= pos - offset < Sl:
+        kcache[:, :, pos - offset] = k_new
+        vcache[:, :, pos - offset] = v_new
     qg = q.reshape(B, Hkv, Hq // Hkv, hd)
     scores = torch.einsum("bhgd,bhsd->bhgs", qg.float(),
                           kcache.float()) * (1.0 / math.sqrt(hd))
-    visible = torch.arange(Sl, device=q.device) <= pos
+    visible = torch.arange(offset, offset + Sl, device=q.device) <= pos
     scores = scores.masked_fill(~visible, _NEG_INF)
-    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    m = scores.amax(dim=-1, keepdim=True)
+    if tp is not None:
+        m = dist.max_all_reduce(m, tp)
+    e = torch.exp(scores - m)
     l = e.sum(dim=-1)
     o = torch.einsum("bhgs,bhsd->bhgd", e.to(vcache.dtype), vcache)
+    if tp is not None:
+        l, o = dist.reduce_out(l, tp), dist.reduce_out(o, tp)
     out = o / l.clamp_min(1e-30).to(o.dtype)[..., None]
     return out.reshape(B, Hq, hd).to(q.dtype)
 
 
 __all__ = ["Attention", "cross_attention", "decode_attention",
            "full_attention", "local_attention", "out_projection",
-           "project_qkv"]
+           "project_qkv", "self_attention"]

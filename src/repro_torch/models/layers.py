@@ -1,15 +1,24 @@
 """Shared layers: norms, RoPE, the dense MLPs, embeddings, the logits head
 and the training loss, with the JAX package's dtype handling (statistics
-in float32, the result in the input's dtype)."""
+in float32, the result in the input's dtype).
+
+Under tensor parallelism (``tp``, set on a module by
+``repro_torch.models.model.Model`` when it keeps the rank's slice, see
+``repro_torch.dist.api``) the MLP is column-parallel in ``wg``, ``wu``
+and ``wi`` (the "ff" slice) and row-parallel in ``wo``; the token table
+and head are vocab-parallel: a lookup of the rank's rows, the logits of
+the rank's vocabulary slice, and the cross-entropy over the slices with a
+global max and all-reduced sums."""
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist import api as dist
 from repro_torch.models.common import Init
 
 # ---------------------------------------------------------------- norms
@@ -134,10 +143,14 @@ class MLP(nn.Module):
         else:
             self.wi = init.dense(d_model, d_ff)
         self.wo = init.dense(d_ff, d_model)
+        self.tp: Optional[dist.TPGroup] = None     # set when ff-sharded
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (..., D) -> (..., D): ``apply_mlp`` and, for one token per
-        sequence, ``_mlp_step`` of the JAX package."""
+        sequence, ``_mlp_step`` of the JAX package; with ``tp`` the rank's
+        ff slice, its partial outputs summed over "model"."""
+        if self.tp is not None:
+            x = dist.copy_in(x, self.tp)
         if self.act == "swiglu":
             h = F.silu(x @ self.wg) * (x @ self.wu)
         elif self.act == "geglu":
@@ -146,6 +159,8 @@ class MLP(nn.Module):
             h = gelu(x @ self.wi)
         else:
             h = F.relu(x @ self.wi).square()
+        if self.tp is not None:
+            return dist.reduce_out(h @ self.wo, self.tp)
         return h @ self.wo
 
 
@@ -163,25 +178,37 @@ class Embed(nn.Module):
         self.tok = init.normal((vocab_padded, d_model), 0.02)
         if not tie:
             self.head = init.dense(d_model, vocab_padded)
+        self.tp: Optional[dist.TPGroup] = None     # set when vocab-sharded
 
 
 def embed_tokens(embed: Embed, tokens: torch.Tensor) -> torch.Tensor:
     """``F.embedding``: the same rows as ``tok[tokens]``, and on the card
     its backward sorts the indices and sums each row's gradient in float32
     (indexing's backward would add bfloat16 rows with atomics, in no fixed
-    order)."""
-    return F.embedding(tokens, embed.tok)
+    order). With ``tp`` each rank looks up the tokens of its rows, zeros
+    for the others, and the ranks' rows are summed."""
+    if embed.tp is None:
+        return F.embedding(tokens, embed.tok)
+    n = embed.tok.shape[0]
+    local = tokens - embed.tp.rank * n
+    outside = (local < 0) | (local >= n)
+    x = F.embedding(local.clamp(0, n - 1), embed.tok)
+    return dist.reduce_out(x.masked_fill(outside[..., None], 0), embed.tp)
 
 
 def logits_from_hidden(embed: Embed, x: torch.Tensor, vocab_size: int,
                        tie: bool) -> torch.Tensor:
     """x (..., D) -> logits (..., Vp); padded vocab slots get -1e9 in x's
-    dtype."""
+    dtype. With ``tp``, the logits of the rank's vocabulary slice (...,
+    Vp / tp), the padded slots found by their global index."""
+    if embed.tp is not None:
+        x = dist.copy_in(x, embed.tp)
     w = embed.tok.t() if tie else embed.head
     logits = x @ w.to(x.dtype)
     vp = logits.shape[-1]
-    if vp != vocab_size:
-        pad = torch.arange(vp, device=x.device) >= vocab_size
+    start = 0 if embed.tp is None else embed.tp.rank * vp
+    if vp * (1 if embed.tp is None else embed.tp.size) != vocab_size:
+        pad = torch.arange(start, start + vp, device=x.device) >= vocab_size
         logits = logits + pad.to(x.dtype) * -1e9
     return logits
 
@@ -190,7 +217,8 @@ def logits_from_hidden(embed: Embed, x: torch.Tensor, vocab_size: int,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  vocab_size: int) -> torch.Tensor:
+                  vocab_size: int, tp: Optional[dist.TPGroup] = None
+                  ) -> torch.Tensor:
     """Mean token cross-entropy of logits (B, S, Vp) against labels (B, S);
     labels of -1 or >= ``vocab_size`` are masked.
 
@@ -198,13 +226,28 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     dtype with no gradient through it, the log-sum-exp is taken in
     float32, and the mean runs over the valid count. The correct-class
     logit is a ``gather`` where the reference sums a one-hot mask: it
-    picks the same value exactly, without a (B, S, Vp) mask."""
+    picks the same value exactly, without a (B, S, Vp) mask.
+
+    With ``tp`` the logits are the rank's vocabulary slice (B, S, Vp /
+    tp): the max is taken over every rank (no gradient), and the sum of
+    exponentials and the correct-class logit (zero on the ranks whose
+    slice does not hold the label) are summed over the ranks."""
     vp = logits.shape[-1]
     lmax = logits.amax(dim=-1, keepdim=True).detach()
+    if tp is not None:
+        lmax = dist.max_all_reduce(lmax, tp)
     shifted = (logits - lmax).float()
-    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + lmax[..., 0].float()
-    idx = labels.long().clamp(0, vp - 1)[..., None]
-    correct = logits.gather(-1, idx)[..., 0].float()
+    sumexp = torch.exp(shifted).sum(dim=-1)
+    labels = labels.long()
+    local = labels if tp is None else labels - tp.rank * vp
+    correct = logits.gather(-1, local.clamp(0, vp - 1)[..., None])
+    correct = correct[..., 0].float()
+    if tp is not None:
+        sumexp = dist.reduce_out(sumexp, tp)
+        inside = (local >= 0) & (local < vp)
+        correct = dist.reduce_out(
+            torch.where(inside, correct, torch.zeros_like(correct)), tp)
+    lse = torch.log(sumexp) + lmax[..., 0].float()
     mask = (labels >= 0) & (labels < vocab_size)
     nll = torch.where(mask, lse - correct, torch.zeros_like(lse))
     return nll.sum() / mask.sum().clamp_min(1)

@@ -69,9 +69,32 @@ recompute gathers again, the hybrid "tail" once before it, and "out"
 (``ln_f``, the head) after the layers. After such a step the working
 weights hold no storage (``weights_released``) and every entry point
 raises until ``repro_torch.train.load_working`` brings them back.
+
+Tensor parallelism: a model of the dense, moe or vlm family built under
+a mesh whose "model" axis is wider than 1 draws (or, with ``seed=None``,
+allocates) every parameter whole, as every rank does, and keeps the
+rank's slice of the query heads (``wq``, ``bq``, ``wo``), the KV heads
+where "model" divides them (``wk``, ``wv``, ``bk``, ``bv``), the MLPs' ff,
+the vocabulary (``tok``, ``head``) and the experts (``wi``, ``wo``)
+(``tp_dims``: parameter -> the dim split; ``global_shapes`` the whole
+shapes). The residual stream stays replicated over "model"; in training
+with remat "full" each checkpointed layer keeps the rank's S / tp
+sequence slice of its input (the reference's "act_seq_ckpt") and gathers
+it in the forward and in the recompute. Logits are the rank's vocabulary
+slice in training (``cross_entropy`` over the slices) and gathered whole
+at the last position (``prefill``, ``decode_step``), so every rank's
+server takes the same greedy token. The KV cache holds every KV head;
+where its length divides "model" it is the rank's sequence slice (B,
+Hkv, Sl / tp, hd) and decode is flash-decode, else the whole cache on
+every rank; ``cache["kv_shards"]`` says which (prefill turns its
+head-sliced K/V into that layout with one ``all_to_all`` a tensor). The
+other families raise ``NotImplementedError`` under such a mesh, and every
+entry point raises ``ValueError`` under a mesh whose "model" width is not
+the one the model was built for.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -85,12 +108,15 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru
 from repro_torch.models import rwkv6
 from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import Attention
 from repro_torch.models.common import Init, Policy, pad_vocab
-from repro_torch.models.layers import (Embed, cross_entropy, embed_tokens,
-                                       layer_norm, logits_from_hidden,
-                                       mrope_tables, rms_norm, rope_tables)
+from repro_torch.models.layers import (MLP, Embed, cross_entropy,
+                                       embed_tokens, layer_norm,
+                                       logits_from_hidden, mrope_tables,
+                                       rms_norm, rope_tables)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+TP_FAMILIES = ("dense", "moe", "vlm")   # tensor parallelism over "model"
 MAX_DECODE_LEN = 32_768       # rows of the audio decoder's position table
 REMAT = ("full", "none")
 
@@ -165,6 +191,85 @@ class Model(nn.Module):
         # outside one; set when such a step has released the weights
         self.zero3 = None
         self.weights_released = False
+        self.tp: Optional[dist.TPGroup] = None
+        self.tp_dims: Dict[str, int] = {}
+        self._full_shapes: Dict[str, Tuple[int, ...]] = {}
+        ctx = dist.current()
+        if ctx is not None and ctx.sizes.get(dist.TP_AXIS, 1) > 1:
+            if cfg.family not in TP_FAMILIES:
+                raise NotImplementedError(
+                    f"tensor parallelism over {dist.TP_AXIS!r} is not ported "
+                    f"for the {cfg.family} family ({cfg.name}); the port "
+                    f"shards {TP_FAMILIES} (ROADMAP queue 1 item 3)")
+            self._shard_tp(dist.tp_group(ctx))
+
+    # ------------------------------------------------ tensor parallelism
+
+    def _shard_tp(self, tp: dist.TPGroup) -> None:
+        """Keep the rank's slice of each tensor-parallel parameter (see the
+        module's docstring) and mark its module."""
+        cfg, n = self.cfg, tp.size
+        for prefix, mod in self.named_modules():
+            dims: Dict[str, int] = {}
+            if isinstance(mod, Attention):
+                mod.tp = tp
+                mod.heads_local = cfg.num_heads % n == 0
+                mod.kv_local = mod.heads_local and cfg.num_kv_heads % n == 0
+                if mod.heads_local:
+                    dims.update(wq=1, bq=0, wo=0)
+                if mod.kv_local:
+                    dims.update(wk=1, wv=1, bk=0, bv=0)
+            elif isinstance(mod, MLP) and mod.wo.shape[0] % n == 0:
+                mod.tp = tp
+                dims.update(wg=1, wu=1, wi=1, wo=0)
+            elif isinstance(mod, Embed) and mod.tok.shape[0] % n == 0:
+                mod.tp = tp
+                dims.update(tok=0, head=1)
+            elif isinstance(mod, moe_mod.MoE) and \
+                    cfg.moe.num_experts % n == 0:
+                mod.tp = tp
+                dims.update(wi=0, wo=0)
+            for pname, d in dims.items():
+                param = getattr(mod, pname, None)
+                if param is None:
+                    continue
+                name = f"{prefix}.{pname}" if prefix else pname
+                self._full_shapes[name] = tuple(param.shape)
+                self.tp_dims[name] = d
+                param.data = self._slice(param.data, d, tp).clone()
+        self.tp = tp
+
+    @staticmethod
+    def _slice(t, d: int, tp: dist.TPGroup):
+        """The rank's slice of ``t`` (a tensor or an array) along ``d``, a
+        view."""
+        n = t.shape[d] // tp.size
+        index = [slice(None)] * t.ndim
+        index[d] = slice(tp.rank * n, (tp.rank + 1) * n)
+        return t[tuple(index)]
+
+    def tp_slice(self, name: str, full):
+        """The rank's slice of parameter ``name``'s whole value ``full`` (a
+        tensor or an array; a view, ``full`` itself where the parameter is
+        not split)."""
+        d = self.tp_dims.get(name)
+        return full if d is None else self._slice(full, d, self.tp)
+
+    def global_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """{parameter name: its whole shape} (the rank's slice is
+        ``tp_slice`` of it)."""
+        return {name: self._full_shapes.get(name, tuple(p.shape))
+                for name, p in self.named_parameters()}
+
+    def _require_mesh(self) -> None:
+        """Raises under a mesh whose "model" width is not this model's."""
+        ctx = dist.current()
+        width = 1 if ctx is None else ctx.sizes.get(dist.TP_AXIS, 1)
+        if width != (1 if self.tp is None else self.tp.size):
+            raise ValueError(
+                f"the model was built for a {dist.TP_AXIS!r} axis of "
+                f"{1 if self.tp is None else self.tp.size}, the mesh's is "
+                f"{width}: build the model under the mesh it runs on")
 
     # ------------------------------------------------------------ hybrid
 
@@ -239,7 +344,9 @@ class Model(nn.Module):
         return None if self.zero3 is None else self.zero3.token_shard
 
     def require_weights(self) -> None:
-        """Raises where a sharded step left the working weights empty."""
+        """Raises where a sharded step left the working weights empty, or
+        under a mesh the model was not built for."""
+        self._require_mesh()
         if self.weights_released and self.zero3 is None:
             raise RuntimeError(
                 "the working weights were released by a sharded training "
@@ -312,20 +419,47 @@ class Model(nn.Module):
         x = self._embed(tokens, patch_embeds)
         L, hd = len(self.layers), cfg.resolved_head_dim
         rope = self._rope(self._positions(B, S, positions))
+        shards = self._kv_shards(S)
         cache: Cache = {}
         if hasattr(self, "dense0"):
             x, _, (k, v) = tfm.decoder_layer(self.dense0, cfg, x, rope)
-            cache["dense0"] = (k.transpose(1, 2).contiguous(),
-                               v.transpose(1, 2).contiguous())
-        shape = (L, B, cfg.num_kv_heads, S, hd)
+            cache["dense0"] = (
+                self._to_cache(self.dense0, k, shards).contiguous(),
+                self._to_cache(self.dense0, v, shards).contiguous())
+        shape = (L, B, cfg.num_kv_heads, S // shards, hd)
         kc = torch.empty(shape, dtype=x.dtype, device=self.device)
         vc = torch.empty(shape, dtype=x.dtype, device=self.device)
         for i, lp in enumerate(self.layers):
             x, _, (k, v) = tfm.decoder_layer(lp, cfg, x, rope)
-            kc[i] = k.transpose(1, 2)           # (B, Hkv, S, hd) cache layout
-            vc[i] = v.transpose(1, 2)
+            kc[i] = self._to_cache(lp, k, shards)
+            vc[i] = self._to_cache(lp, v, shards)
         cache["layers"] = (kc, vc)
+        if self.tp is not None:
+            cache["kv_shards"] = shards
         return x, cache
+
+    def _kv_shards(self, length: int) -> int:
+        """The ranks a KV cache of ``length`` positions is split over: the
+        "model" width where it divides the length (flash-decode), else 1
+        (every rank holds the whole cache)."""
+        tp = self.tp
+        return tp.size if tp is not None and length % tp.size == 0 else 1
+
+    def _to_cache(self, lp: tfm.DecoderLayer, t: torch.Tensor,
+                  shards: int) -> torch.Tensor:
+        """A layer's prefill K or V (B, S, H, hd) in the cache layout (B,
+        Hkv, S / shards, hd): under tensor parallelism every KV head,
+        gathered over "model" where the rank holds its slice of them (by
+        one ``all_to_all`` where the cache is sequence-sharded), and this
+        rank's sequence slice of it where ``shards`` > 1."""
+        t = t.transpose(1, 2)
+        tp = lp.attn.tp
+        if tp is None:
+            return t
+        if lp.attn.kv_local:
+            return dist.all_to_all(t, 2, 1, tp) if shards > 1 \
+                else dist.gather_dim(t, 1, tp)
+        return self._slice(t, 2, tp) if shards > 1 else t
 
     # ------------------------------------------------------------ audio
 
@@ -548,11 +682,20 @@ class Model(nn.Module):
             # outside the checkpoint, as in the reference; its aux is 0
             self._gather("dense0")
             x = tfm.decoder_layer(self.dense0, cfg, x, *extra)[0]
+        # under tensor parallelism each checkpointed layer keeps the rank's
+        # sequence slice of its input (the reference's "act_seq_ckpt")
+        sliced = self.tp is not None and S % self.tp.size == 0 and \
+            self.remat == "full" and torch.is_grad_enabled()
+        if sliced:
+            x = dist.split_dim(x, 1, self.tp)
+            layer = functools.partial(self._train_layer, sliced=True)
         for i, lp in enumerate(getattr(self, "layers", ())):
             x = self._unit(f"layers.{i}", layer, i, lp, x, *extra)
             if cfg.moe:
                 x, aux = x
                 auxes.append(aux)
+        if sliced:
+            x = dist.gather_dim(x, 1, self.tp)
         return self._loss(x, labels, auxes)
 
     def _unit(self, unit: str, fn, *args):
@@ -591,7 +734,7 @@ class Model(nn.Module):
         logits = logits_from_hidden(self.embed, x, cfg.vocab_size,
                                     cfg.tie_embeddings)
         logits = dist.constraint(logits, "act_batch", "act_seq", "act_vocab")
-        ce = cross_entropy(logits, labels, cfg.vocab_size)
+        ce = cross_entropy(logits, labels, cfg.vocab_size, self.embed.tp)
         if not auxes:
             aux = torch.zeros((), dtype=torch.float32, device=self.device)
             return ce, {"loss": ce, "ce": ce, "aux": aux}
@@ -599,11 +742,17 @@ class Model(nn.Module):
         loss = ce + cfg.moe.router_aux_loss * aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 
-    def _train_layer(self, i: int, lp, x: torch.Tensor, rope):
-        """x of the next layer; (x, aux) in the moe family."""
+    def _train_layer(self, i: int, lp, x: torch.Tensor, rope,
+                     sliced: bool = False):
+        """x of the next layer; (x, aux) in the moe family. ``sliced``: x
+        in and out is the rank's sequence slice, gathered for the layer."""
         self._gather(f"layers.{i}")
+        if sliced:
+            x = dist.gather_dim(x, 1, self.tp)
         x, aux, _ = tfm.decoder_layer(lp, self.cfg, x, rope,
                                       token_shard=self._token_shard())
+        if sliced:
+            x = dist.split_dim(x, 1, self.tp)
         return (x, aux) if self.cfg.moe else x
 
     def _train_hybrid(self, x: torch.Tensor, rope) -> torch.Tensor:
@@ -641,9 +790,14 @@ class Model(nn.Module):
         return rwkv6.block(lp, cfg, x, s0)[0]
 
     def _final_logits(self, x_last: torch.Tensor) -> torch.Tensor:
+        """The last position's logits over the whole (padded) vocabulary,
+        gathered over "model" under tensor parallelism."""
         x_last = tfm.norm(self.cfg, x_last, self.ln_f.to(x_last.dtype))
-        return logits_from_hidden(self.embed, x_last, self.cfg.vocab_size,
-                                  self.cfg.tie_embeddings)
+        logits = logits_from_hidden(self.embed, x_last, self.cfg.vocab_size,
+                                    self.cfg.tie_embeddings)
+        if self.embed.tp is not None:
+            logits = dist.gather_dim(logits, -1, self.embed.tp)
+        return logits
 
     @torch.no_grad()
     def prefill(self, tokens, enc_frames=None, *, positions=None,
@@ -665,7 +819,9 @@ class Model(nn.Module):
     # ------------------------------------------------------------ decode
 
     def init_cache(self, batch_size: int, cache_len: int) -> Cache:
-        """Zero-filled decode cache."""
+        """Zero-filled decode cache (under tensor parallelism, in the layout
+        of the module's docstring)."""
+        self._require_mesh()
         cfg = self.cfg
         B, L, d = batch_size, cfg.num_layers, cfg.d_model
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -701,13 +857,16 @@ class Model(nn.Module):
             return {"layers": tuple(torch.zeros(shape, **kv) for shape in
                                     (self_kv, self_kv, cross_kv, cross_kv)),
                     "pos": 0}
-        shape = (len(self.layers), B, cfg.num_kv_heads, cache_len,
+        shards = self._kv_shards(cache_len)
+        shape = (len(self.layers), B, cfg.num_kv_heads, cache_len // shards,
                  cfg.resolved_head_dim)
         cache = {"layers": (torch.zeros(shape, **kv),
                             torch.zeros(shape, **kv)), "pos": 0}
         if hasattr(self, "dense0"):
             cache["dense0"] = (torch.zeros(shape[1:], **kv),
                                torch.zeros(shape[1:], **kv))
+        if self.tp is not None:
+            cache["kv_shards"] = shards
         return cache
 
     @torch.no_grad()
@@ -743,12 +902,14 @@ class Model(nn.Module):
         else:
             kc, vc = cache["layers"]
             rope = self._rope_at(x.shape[0], pos)
+            sharded = cache.get("kv_shards", 1) > 1
             if hasattr(self, "dense0"):
                 x = tfm.decoder_layer_step(self.dense0, cfg, x,
-                                           *cache["dense0"], pos, rope)
+                                           *cache["dense0"], pos, rope,
+                                           kv_sharded=sharded)
             for i, lp in enumerate(self.layers):
                 x = tfm.decoder_layer_step(lp, cfg, x, kc[i], vc[i], pos,
-                                           rope)
+                                           rope, kv_sharded=sharded)
         cache["pos"] = pos + 1
         return self._final_logits(x), cache
 

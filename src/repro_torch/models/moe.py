@@ -37,9 +37,19 @@ even split gives. Each rank's aux is the whole batch's fractions against
 its own mean probabilities, so the ranks' mean is the reference's aux,
 and so is its gradient once the step averages the ranks' gradients.
 
-Expert parallelism (the reference's ``shard_map`` with ``all_to_all``
-over "model") is not ported: a context that maps "act_expert" onto more
-than one device raises.
+Expert parallelism (the reference's ``shard_map`` over "model", where
+"model" is wider than 1 and divides E) runs where the model keeps each
+rank's E / tp experts (``MoE.tp``, set by the model): routing runs on
+the replicated x, so the aux loss is global; each rank dispatches its own
+tokens (its data shard's rows, and its S / tp sequence slice where S
+divides "model"; all of the call's tokens where not, as at decode) into
+an (E, C, D) buffer at the capacity of those tokens, ``all_to_all``
+exchanges it for the (E / tp, tp C, D) tokens of its own experts, the
+inverse ``all_to_all`` brings the outputs back, and the sequence slices
+are gathered. The rows-as-one-batch routing above (``_route_across``) does
+not run there: each rank's capacity is its own, as the reference's. In a
+sharded step, the aux loss's token fractions are still the whole
+batch's (one all-reduce of top-1 counts).
 """
 from __future__ import annotations
 
@@ -77,6 +87,9 @@ class MoE(nn.Module):
         self.wo = init.normal((m.num_experts, f, d), 1.0 / math.sqrt(f))
         if m.num_shared_experts:
             self.shared = MLP(init, d, m.num_shared_experts * f, cfg.act)
+        # expert parallelism (set by the model): the "model" group over
+        # which this rank holds E / tp experts
+        self.tp: Optional[dist.TPGroup] = None
 
 
 def capacity(tokens: int, cfg) -> int:
@@ -143,11 +156,14 @@ def dispatch_compute_combine(x: torch.Tensor, idx: torch.Tensor,
                              w: torch.Tensor, wi: torch.Tensor,
                              wo: torch.Tensor, *, capacity: int,
                              num_experts: int, top_k: int,
-                             offset: Optional[torch.Tensor] = None
+                             offset: Optional[torch.Tensor] = None,
+                             tp: Optional[dist.TPGroup] = None
                              ) -> torch.Tensor:
-    """``_dispatch_compute_combine`` with ``ep_axis=None``: x (B, S, D),
-    idx / w (B, S, k) -> the routed output (B, S, D) in x's dtype;
-    ``offset`` see ``plan_slots``."""
+    """``_dispatch_compute_combine``: x (B, S, D), idx / w (B, S, k) ->
+    the routed output (B, S, D) in x's dtype; ``offset`` see
+    ``plan_slots``. With ``tp`` (the reference's ``ep_axis``) ``wi`` and
+    ``wo`` are this rank's E / tp experts and the buffer goes to their
+    ranks and back by ``all_to_all``."""
     B, S, D = x.shape
     T, E, K = B * S, num_experts, top_k
     order, dest, C = plan_slots(idx, capacity=capacity, num_experts=E,
@@ -163,10 +179,14 @@ def dispatch_compute_combine(x: torch.Tensor, idx: torch.Tensor,
     # where indexing's sorts the indices and adds each run of equal ones
     # in one thread, and every empty cell reads the zero row T
     xd = xpad.index_select(0, src[:-1]).reshape(E, C, D)   # dispatch
+    if tp is not None:      # (E, C, D) -> (E/tp, tp C, D): my experts' tokens
+        xd = dist.all_to_all(xd, 0, 1, tp)
 
     h = torch.bmm(xd, wi.to(x.dtype))
     g, u = h.chunk(2, dim=-1)
     y = torch.bmm(F.silu(g) * u, wo.to(x.dtype))
+    if tp is not None:                                     # back to (E, C, D)
+        y = dist.all_to_all(y, 1, 0, tp)
 
     # combine: slot s (in token order) reads y[dest of s], zero if dropped
     ypad = torch.cat([y.reshape(E * C, D), y.new_zeros((1, D))])
@@ -210,28 +230,81 @@ def _route_across(p: MoE, x: torch.Tensor, cfg, token_shard: TokenShard
     return w, idx, aux, offset, capacity(T * shards, cfg)
 
 
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def _expert_parallel(p: MoE, cfg, x: torch.Tensor,
+                     token_shard: Optional[TokenShard]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``apply_moe`` under expert parallelism over ``p.tp`` (see the
+    module's docstring)."""
+    m, tp = cfg.moe, p.tp
+    E, K = m.num_experts, m.top_k
+    B, S, D = x.shape
+    shards = 1 if token_shard is None else token_shard[1]
+    if shards == 1:
+        w, idx, aux = route(p.router, x, E, K)
+    else:                   # the whole batch's top-1 counts, each rank once
+        probs = _probs(p.router, x)
+        w, idx = _top_k(probs, K)
+        top1 = dist.all_reduce(torch.bincount(idx[..., 0].reshape(-1),
+                                              minlength=E).float())
+        frac = top1 / (tp.size * B * S * shards)
+        aux = E * (frac * probs.mean(dim=(0, 1))).sum()
+    if S % tp.size == 0:
+        n = S // tp.size
+        out = dispatch_compute_combine(
+            dist.split_dim(x, 1, tp), idx.narrow(1, tp.rank * n, n),
+            dist.split_dim(w, 1, tp), p.wi, p.wo,
+            capacity=capacity(B * n, cfg), num_experts=E, top_k=K, tp=tp)
+        return dist.gather_dim(out, 1, tp), aux
+    # every rank dispatches all of the call's tokens (decode): each expert
+    # then sees tp copies of them, so every rank's output passes 1/tp of
+    # its gradient, and the ranks' shares of x's and w's are summed
+    out = dispatch_compute_combine(
+        dist.copy_in(x, tp), idx, dist.copy_in(w, tp), p.wi, p.wo,
+        capacity=capacity(B * S, cfg), num_experts=E, top_k=K, tp=tp)
+    return _ScaleGrad.apply(out, 1.0 / tp.size), aux
+
+
 def apply_moe(p: MoE, cfg, x: torch.Tensor,
               token_shard: Optional[TokenShard] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), aux). ``token_shard`` = (this rank's
     batch shard, shards) where each rank holds its own rows of the call
     (the sharded training step); None or one shard routes the call
-    alone."""
-    ctx = dist.current()
-    if ctx is not None and ctx.axis_size("act_expert") > 1:
-        raise NotImplementedError(
-            "expert parallelism over 'act_expert' (the reference's "
-            "all_to_all dispatch) is not ported (ROADMAP queue 1 item 5)")
+    alone. Under expert parallelism (``p.tp``) see the module's
+    docstring; a layer whose experts are whole raises under a context
+    that would split them over "model" (a model built outside the
+    mesh)."""
     m = cfg.moe
-    offset = None
-    if token_shard is not None and token_shard[1] > 1:
-        w, idx, aux, offset, cap = _route_across(p, x, cfg, token_shard)
+    ctx = dist.current()
+    width = 1 if ctx is None else ctx.sizes.get(dist.TP_AXIS, 1)
+    if p.tp is None and width > 1 and m.num_experts % width == 0:
+        raise ValueError(
+            f"the {m.num_experts} experts are whole under a mesh whose "
+            f"{dist.TP_AXIS!r} axis ({width}) would split them: build the "
+            f"model under the mesh it runs on")
+    if p.tp is not None:
+        out, aux = _expert_parallel(p, cfg, x, token_shard)
     else:
-        w, idx, aux = route(p.router, x, m.num_experts, m.top_k)
-        cap = capacity(x.shape[0] * x.shape[1], cfg)
-    out = dispatch_compute_combine(x, idx, w, p.wi, p.wo, capacity=cap,
-                                   num_experts=m.num_experts, top_k=m.top_k,
-                                   offset=offset)
+        offset = None
+        if token_shard is not None and token_shard[1] > 1:
+            w, idx, aux, offset, cap = _route_across(p, x, cfg, token_shard)
+        else:
+            w, idx, aux = route(p.router, x, m.num_experts, m.top_k)
+            cap = capacity(x.shape[0] * x.shape[1], cfg)
+        out = dispatch_compute_combine(
+            x, idx, w, p.wi, p.wo, capacity=cap, num_experts=m.num_experts,
+            top_k=m.top_k, offset=offset)
     if m.num_shared_experts:
         out = out + p.shared(x)
     return out, aux

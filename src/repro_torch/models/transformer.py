@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.dist import api as dist
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import Init
@@ -101,7 +102,7 @@ def decoder_layer(p: DecoderLayer, cfg, x: torch.Tensor,
     if window:
         o = attn.local_attention(q, k, v, window=window)
     else:
-        o = attn.full_attention(q, k, v, causal=True)
+        o = attn.self_attention(p.attn, q, k, v)
     x = x + attn.out_projection(p.attn, o)
     cache: Tuple = (k, v)
     if enc_out is not None:
@@ -125,23 +126,48 @@ def decoder_layer(p: DecoderLayer, cfg, x: torch.Tensor,
 def decoder_layer_step(p: DecoderLayer, cfg, x: torch.Tensor,
                        kcache: torch.Tensor, vcache: torch.Tensor, pos: int,
                        rope: Optional[Rope], *, window: int = 0,
-                       enc_kv: Optional[KV] = None) -> torch.Tensor:
+                       enc_kv: Optional[KV] = None,
+                       kv_sharded: bool = False) -> torch.Tensor:
     """Decode-step layer. x (B, D); caches (B, Hkv, Sc, hd), written in
     place at ``pos`` (with a ``window``, a ring of Sc = window slots
     written at ``pos % window``, ``_ring_decode``); ``rope`` the (B, 1)
     tables of ``pos`` (None in the audio family); ``enc_kv`` the audio
     family's cross caches (B, Hkv, T, hd), read, not written
     (``_plain_decode_attn``). An MoE layer routes the step's B tokens as
-    one call and drops its aux. Returns x."""
+    one call and drops its aux. Under tensor parallelism the caches hold
+    every KV head, ``kv_sharded`` says whether they are this rank's
+    sequence slice (flash-decode) or the whole, the rank's q/k/v heads
+    are gathered over "model" for the attention, and its query heads of
+    the output go into its slice of ``wo``. Returns x."""
     B, _ = x.shape
     h = norm(cfg, x, p.ln_attn)[:, None]                       # (B, 1, D)
     q, k, v = attn.project_qkv(p.attn, cfg, h, rope)
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]
+    tp = p.attn.tp
     if window:
-        o = _ring_decode(q[:, 0], kcache, vcache, k[:, 0], v[:, 0], pos)
+        o = _ring_decode(q, kcache, vcache, k, v, pos)
+    elif tp is None:
+        o = attn.decode_attention(q, kcache, vcache, k, v, pos)
     else:
-        o = attn.decode_attention(q[:, 0], kcache, vcache, k[:, 0],
-                                  v[:, 0], pos)
-    x = x + o.reshape(B, -1) @ p.attn.wo
+        heads = q.shape[1]
+        if p.attn.heads_local:
+            q = dist.gather_dim(q, 1, tp)
+        if p.attn.kv_local:
+            k, v = dist.gather_dim(k, 1, tp), dist.gather_dim(v, 1, tp)
+        o = attn.decode_attention(q, kcache, vcache, k, v, pos,
+                                  tp if kv_sharded else None)
+        if p.attn.heads_local:
+            o = o.narrow(1, tp.rank * heads, heads)
+        return _step_rest(p, cfg, x + attn.out_projection(
+            p.attn, o[:, None])[:, 0], enc_kv)
+    return _step_rest(p, cfg, x + o.reshape(B, -1) @ p.attn.wo, enc_kv)
+
+
+def _step_rest(p: DecoderLayer, cfg, x: torch.Tensor,
+               enc_kv: Optional[KV]) -> torch.Tensor:
+    """A decode step after its self-attention: the cross attention (the
+    audio family), then the FFN."""
+    B, _ = x.shape
     if enc_kv is not None:
         hc = norm(cfg, x, p.ln_cross)
         qc = (hc @ p.cross.wq).reshape(B, cfg.num_heads,

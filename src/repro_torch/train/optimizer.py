@@ -25,8 +25,9 @@ import math
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
-import torch.distributed as tdist
 from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.dist import api as dist
 
 Params = Dict[str, torch.Tensor]
 
@@ -94,8 +95,7 @@ def global_norm(tree: Mapping[str, torch.Tensor],
     total = sum(torch.linalg.vector_norm(
         _local(x), dtype=torch.float32).square() / _replicas(placed[k])
         for k, x in tree.items())
-    tdist.all_reduce(total)
-    return torch.sqrt(total)
+    return torch.sqrt(dist.all_reduce(total))
 
 
 @torch.no_grad()

@@ -13,7 +13,9 @@ master weights and moments in place.
 
 Under a mesh context (``repro_torch.dist``; one process per rank) the
 step is the reference's ZeRO-3 step: the master weights and moments are
-DTensors placed by ``param_sharding`` ("fsdp" dims sharded over "data"),
+DTensors placed by ``param_sharding`` ("fsdp" dims sharded over "data",
+and, under tensor parallelism, the heads, ff, vocab and expert dims over
+"model"),
 each rank takes its rows of the batch (``act_batch`` over "pod" and
 "data"), each unit's working weights (``Model.zero3_units``: the
 embedding, each layer, the head) are gathered from the cast masters just
@@ -23,8 +25,16 @@ into its masters' placements, as one flat reduce-scatter over "data" and
 an all-reduce over "pod", once autograd has accumulated the last of them,
 and divided by the batch ranks; the clip takes the norm of the whole
 gradient, and AdamW updates each rank's local shards. The metrics are the
-global means. Host decisions that steer collectives (a restart the hook
-asks for, the checkpoint to restore) are rank 0's. Without a context
+global means. Under tensor parallelism (a model built under a mesh whose
+"model" axis is wider than 1) the gather and the reduce-scatter run over
+"data" alone, on the rank's tensor-parallel slice, which is its working
+weight; a parameter whose master splits over "model" while every rank
+computes with all of it (KV heads that do not divide "model", query
+heads on the sequence fallback) is also gathered over "model", and its
+gradient, whole on every rank, is cut to the rank's slice. The clip's
+norm counts each leaf once (``optimizer.global_norm``). Host decisions
+that steer collectives (a restart the hook asks for, the checkpoint to
+restore) are rank 0's. Without a context
 nothing of this runs. After a sharded step the model's working weights
 hold no storage: ``load_working(model, trainer.params)`` brings them back
 before the model serves or trains without a mesh, and the model raises
@@ -82,13 +92,13 @@ def master_params(model: Model) -> Dict[str, torch.Tensor]:
 def load_working(model: Model, params: Mapping[str, torch.Tensor]) -> None:
     """Copy the master weights into the model's working weights (a no-op
     for a parameter that is its own master). DTensor masters (a sharded
-    step's) are gathered in full, a collective every rank joins: so a
-    model whose working weights a sharded step released can serve, or
-    train without a mesh, again."""
+    step's) are gathered in full, a collective every rank joins, and cut
+    to the model's tensor-parallel slice: so a model whose working weights
+    a sharded step released can serve, or train without a mesh, again."""
     for name, p in model.named_parameters():
         src = params[name]
         if isinstance(src, DTensor):
-            src = src.full_tensor()
+            src = model.tp_slice(name, src.full_tensor())
         if p.shape != src.shape:            # released by a sharded step
             p.data = torch.empty(src.shape, dtype=p.dtype, device=p.device)
         if src.data_ptr() != p.data_ptr():
@@ -141,38 +151,47 @@ def _microbatches(batch, microbatch: int) -> list:
 def shard_params(model: Model, ctx: dist.DistContext
                  ) -> Dict[str, DTensor]:
     """The float32 master weights of ``model``'s working weights (every
-    rank holds the same), each a DTensor placed by ``param_sharding`` on
-    ``ctx``'s mesh; a rank keeps only its shards."""
+    rank holds the same, or under tensor parallelism its slice of them),
+    each a DTensor placed by ``param_sharding`` on ``ctx``'s mesh; a rank
+    keeps only its shards."""
     model.require_weights()
-    named = dict(model.named_parameters())
-    placements = dist.param_sharding(model.param_axes(), named, ctx)
-    return {name: dist.distribute(p.detach().float(), ctx.mesh,
-                                  placements[name])
-            for name, p in named.items()}
+    shapes = model.global_shapes()
+    placements = dist.param_sharding(model.param_axes(), shapes, ctx)
+    out = {}
+    for name, p in model.named_parameters():
+        skip = {dist.TP_AXIS: model.tp_dims[name]} \
+            if name in model.tp_dims else {}
+        block = dist.local_block(p.detach().float(), ctx.mesh,
+                                 placements[name], skip)
+        out[name] = DTensor.from_local(
+            block.clone(memory_format=torch.contiguous_format), ctx.mesh,
+            placements[name], shape=torch.Size(shapes[name]),
+            stride=torch.empty(shapes[name], device="meta").stride())
+    return out
 
 
-# torch 2.13 renames these two (the old names then warn)
-_all_gather = getattr(tdist, "all_gather_single", None) \
-    or tdist.all_gather_into_tensor
-_reduce_scatter = getattr(tdist, "reduce_scatter_single", None) \
-    or tdist.reduce_scatter_tensor
+_all_gather = dist.all_gather_single
+_reduce_scatter = dist.reduce_scatter_single
 
 
-def _data_dim(ctx: dist.DistContext, placements, name: str) -> Optional[int]:
-    """The tensor dim a master splits over "data", None where it replicates
-    there. The ZeRO-3 step shards over "data" alone: a split on another
-    axis wider than 1 is not its layout."""
-    dim = None
+def _split_dims(ctx: dist.DistContext, placements, name: str
+                ) -> Tuple[Optional[int], Optional[int]]:
+    """The tensor dims a master splits over "data" and over a "model" axis
+    wider than 1, None where it replicates there. The ZeRO-3 step shards
+    over those two: a split on another axis wider than 1 is not its
+    layout."""
+    dims = {"data": None, dist.TP_AXIS: None}
     for axis, pl in zip(ctx.sizes, placements):
-        if not isinstance(pl, Shard):
+        if not isinstance(pl, Shard) or (axis == dist.TP_AXIS
+                                         and ctx.sizes[axis] == 1):
             continue
-        if axis == "data":
-            dim = pl.dim
+        if axis in dims:
+            dims[axis] = pl.dim
         elif ctx.sizes[axis] > 1:
             raise NotImplementedError(
                 f"{name} is split over {axis!r}: the sharded step splits "
-                f"parameters over 'data' only")
-    return dim
+                f"parameters over 'data' and {dist.TP_AXIS!r} only")
+    return dims["data"], dims[dist.TP_AXIS]
 
 
 class _Unit:
@@ -180,14 +199,16 @@ class _Unit:
     parameter (name -> (dim, local shape, offset)) whose master splits over
     "data" on ``dim``, its place in a flat local buffer of ``size``
     elements; for each replicated one (dim None, its full shape), its place
-    in a flat buffer of ``rep_size``. Holds the step's gradient buffers."""
+    in a flat buffer of ``rep_size``. ``shapes`` are the working weights'
+    shapes cut to the masters' "model" slice. Holds the step's gradient
+    buffers."""
 
-    def __init__(self, names, working, dims, n: int):
+    def __init__(self, names, shapes, dims, n: int):
         self.names = list(names)
         self.slot: Dict[str, Tuple[Optional[int], Tuple[int, ...], int]] = {}
         self.size = self.rep_size = 0
         for name in self.names:
-            shape, d = list(working[name].shape), dims[name]
+            shape, d = list(shapes[name]), dims[name]
             if d is None:
                 self.slot[name] = (None, tuple(shape), self.rep_size)
                 self.rep_size += math.prod(shape)
@@ -225,17 +246,36 @@ class _Zero3:
         model.require_weights()
         self.model = model
         self.working = dict(model.named_parameters())
-        placements = dist.param_sharding(model.param_axes(), self.working,
-                                         ctx)
-        dims = {name: _data_dim(ctx, pl, name)
-                for name, pl in placements.items()}
+        placements = dist.param_sharding(model.param_axes(),
+                                         model.global_shapes(), ctx)
+        split = {name: _split_dims(ctx, pl, name)
+                 for name, pl in placements.items()}
+        dims = {name: d for name, (d, _) in split.items()}
+        # masters split over "model" whose working weight is whole: the
+        # dim gathered over "model" (the gradient cut to the slice)
+        self.tp = model.tp
+        self.whole: Dict[str, int] = {}
+        for name, (_, m) in split.items():
+            if m is None or model.tp_dims.get(name) == m:
+                continue
+            if name in model.tp_dims:
+                raise ValueError(f"{name}: the model splits dim "
+                                 f"{model.tp_dims[name]} over "
+                                 f"{dist.TP_AXIS!r}, the master dim {m}")
+            self.whole[name] = m
+        shapes = {}
+        for name, p in self.working.items():
+            shape = list(p.shape)
+            if name in self.whole:
+                shape[self.whole[name]] //= self.tp.size
+            shapes[name] = shape
         self.n = ctx.sizes.get("data", 1)
         self.data_group = ctx.mesh.get_group("data") \
             if "data" in ctx.sizes else None
         self.pod_group = ctx.mesh.get_group("pod") \
             if "pod" in ctx.sizes else None
         self.replicas = ctx.axis_size("act_batch")
-        self.units = {u: _Unit(names, self.working, dims, self.n)
+        self.units = {u: _Unit(names, shapes, dims, self.n)
                       for u, names in model.zero3_units().items()}
         self.unit_of = {name: u for u, unit in self.units.items()
                         for name in unit.names}
@@ -267,12 +307,20 @@ class _Zero3:
                 self._release(p)
         self.model.weights_released = True
 
+    def _whole(self, pname: str, t: torch.Tensor) -> torch.Tensor:
+        """``t``, the master's "model" slice of a working weight, gathered
+        whole over "model" where every rank computes with all of it."""
+        if pname not in self.whole:
+            return t
+        return dist.gather_dim(t, self.whole[pname], self.tp)
+
     @torch.no_grad()
     def gather(self, name: str) -> None:
         unit = self.units[name]
         for pname in unit.rep:
             p = self.working[pname]
-            p.data = self.local[pname].to(p.dtype, copy=True)
+            p.data = self._whole(pname, self.local[pname].to(p.dtype,
+                                                             copy=True))
         if not unit.shard:
             return
         first = self.local[unit.shard[0][0]]
@@ -289,7 +337,8 @@ class _Zero3:
         rows = recv.view(self.n, unit.size)
         for pname, d, shape, off in unit.shard:
             piece = rows[:, off:off + math.prod(shape)].unflatten(1, shape)
-            self.working[pname].data = piece.movedim(0, d).flatten(d, d + 1)
+            self.working[pname].data = self._whole(
+                pname, piece.movedim(0, d).flatten(d, d + 1))
 
     def release(self, name: str) -> None:
         for pname in self.units[name].names:
@@ -305,6 +354,10 @@ class _Zero3:
             return
         g, p.grad = p.grad, None
         self._release(p)
+        if name in self.whole:          # whole on every rank: my slice
+            m = self.whole[name]
+            k = g.shape[m] // self.tp.size
+            g = g.narrow(m, self.tp.rank * k, k)
         unit = self.units[self.unit_of[name]]
         if unit.grad is None and unit.shard:
             unit.grad = torch.empty(self.n * unit.size, dtype=torch.float32,
@@ -360,7 +413,7 @@ class _Zero3:
     @staticmethod
     def _sum(t: torch.Tensor, group) -> None:
         if group is not None and tdist.get_world_size(group) > 1:
-            tdist.all_reduce(t, group=group)
+            dist.all_reduce(t, group)
 
     def take(self) -> Dict[str, torch.Tensor]:
         """The step's gradients in the parameters' order (the clip's norm
@@ -382,8 +435,7 @@ def _global_mean(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Each metric's mean over the ranks (one all-reduce)."""
     keys = sorted(metrics)
     vals = torch.stack([metrics[k].float() for k in keys])
-    tdist.all_reduce(vals)
-    vals = vals / tdist.get_world_size()
+    vals = dist.all_reduce(vals) / tdist.get_world_size()
     return {k: vals[i] for i, k in enumerate(keys)}
 
 

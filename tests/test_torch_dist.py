@@ -10,8 +10,11 @@ against the JAX package's, exactly.
   this host cannot make.
 - ``sharding``: the DTensor placements mean the reference's spec
   (``Shard(i)`` on each mesh axis of dim i's entry), per leaf through
-  ``param_sharding``; a "model" axis wider than 1 raises
-  ``NotImplementedError`` (tensor parallelism is not ported).
+  ``param_sharding``, a "model" axis wider than 1 included; under such an
+  axis the families tensor parallelism does not cover yet (audio, ssm,
+  hybrid) raise ``NotImplementedError`` naming the family, and a model
+  built outside the mesh raises when it runs under it (the tensor-parallel
+  runs themselves: ``tests/test_torch_tp*.py``).
 - Context management, ``constraint`` and ``gather_fsdp`` without a
   context: the reference's ``tests/test_dist*.py`` cases.
 - ``Model.param_axes()`` equals the reference's with its layer axis
@@ -166,15 +169,18 @@ def test_param_sharding_requires_a_context():
 def test_tensor_parallel_mesh_raises_not_implemented():
     ctx = dist.DistContext(fake_mesh(data=2, model=2))
     assert ctx.spec(("fsdp", "tp"), (8, 8)) == ("data", "model")
-    with pytest.raises(NotImplementedError, match="model"):
-        ctx.sharding(("fsdp", "tp"), (8, 8))
-    with pytest.raises(NotImplementedError):
-        dist.param_sharding({"w": (None,)}, {"w": torch.zeros(4)}, ctx)
+    assert ctx.sharding(("fsdp", "tp"), (8, 8)) == [Shard(0), Shard(1)]
+    assert dist.param_sharding({"w": (None,)}, {"w": torch.zeros(4)},
+                               ctx) == {"w": [Replicate(), Replicate()]}
     model = Model(reduced(get_config("qwen3-4b")), device="cpu")
+    batch = SyntheticLM(DataConfig(512, 8, 2)).batch_at(0)
     with dist.use_mesh(fake_mesh(data=1, model=16)):
-        with pytest.raises(NotImplementedError):
-            Trainer(model, SyntheticLM(DataConfig(512, 8, 2)),
-                    TrainConfig(steps=1))
+        for arch, family in (("whisper-small", "audio"), ("rwkv6-7b", "ssm"),
+                             ("recurrentgemma-9b", "hybrid")):
+            with pytest.raises(NotImplementedError, match=family):
+                Model(reduced(get_config(arch)), device="cpu")
+        with pytest.raises(ValueError, match="build the model under"):
+            model.train_loss(batch)
 
 
 def test_use_mesh_restores_prior_context_on_exception():

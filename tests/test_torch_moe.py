@@ -231,8 +231,10 @@ def test_expert_parallel_context_raises():
         shape = {"data": 1, "model": 2}
     from repro_torch.dist import api as dist
     x = torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
-    with dist.use_mesh(Mesh()), pytest.raises(NotImplementedError,
-                                              match="queue 1 item 5"):
+    # expert parallelism is ported: experts left whole (a model built
+    # outside the mesh) under a mesh that would split them raise
+    with dist.use_mesh(Mesh()), pytest.raises(ValueError,
+                                              match="build the model under"):
         moe.apply_moe(model.layers[0].moe, cfg, x)
 
 
