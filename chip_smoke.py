@@ -200,19 +200,35 @@ order, it
      host copy on that group), mesh (1, 4), each rank against the
      unsharded kernel path run first in this process: (a) qwen3-4b uncut,
      a 4,096-token prefill (K3 36 launches a rank at q (1, 8, 4,096, 128),
-     k/v (1, 2, 4,096, 128)), its logits and gathered caches, then 8
-     flash-decode steps over the prefill's cache from position 4,088;
+     k/v (1, 2, 4,096, 128)), its logits and gathered caches, then 4
+     flash-decode steps over the prefill's cache from position 4,092;
      (b) qwen3-4b at 8 layers, one step's loss, gradients (each rank's
-     slice) and AdamW updates at phase 10's limits, then three ``Trainer``
+     slice) and AdamW updates at phase 10's limits, then two ``Trainer``
      steps with a ``GuardStepHook`` (K3 16 and K3' 8 a step, K1 once a
      window), their losses against the unsharded Trainer's; (c)
      deepseek-moe-16b at 4 layers, 16 experts a rank through the
      ``all_to_all``: a prefill and a training step on the kernel path
      against the plain path under the same mesh, on the kernel path's
      routing, at phases 15–16's limits, and each rank's dropped slots;
-     one card shows that tensor parallelism computes the right thing, not
-     how fast it is (phases 5 and 9 also time K3 and K3' at the per-rank
-     shape, ``TP_ATTN``);
+     (d)-(f) the ssm, hybrid and audio families (``TP_PARTS``), each
+     served (a prefill, its logits and caches gathered into the unsharded
+     layout, then decode steps) and trained one step against the
+     unsharded kernel path, each kernel at the rank's shapes: (d)
+     rwkv6-7b, 8 of 32 layers served (a 2,048-token prefill, K4 at 16
+     heads a rank) and 4 trained (K4 8 and K4' 4 a step, each call held to
+     its plain version on its own inputs; the float32 step at phase 10's
+     limits); (e) recurrentgemma-9b, 5 of 38 layers served (a 4,096-token
+     prefill: K5 at 1,024 of the LRU's 4,096 channels a rank, the windowed
+     K3 at 4 query heads over the whole KV head; decode over the ring) and
+     one unit trained at phase 10's limits (K5 4, K5' 2, K3 2, K3' 1 a
+     step); (f) whisper-small uncut, 3 of 12 heads a rank in the encoder,
+     the decoder and the cross attention (K3 36 a prefill of 4 x (1,500
+     frames, 448 tokens); K3 72, K3' 36 a step, held as phase 22 holds
+     them, the float32 step at phase 10's limits); one card shows that
+     tensor parallelism computes the right thing, not how fast it is
+     (phases 5, 6, 9, 13(a), 17 and 19 also time each kernel at its
+     per-rank shape: ``TP_ATTN``, ``TP_AUDIO_ATTN``, ``TP_K4``, ``TP_K4B``,
+     ``TP_K5``, ``TP_K5B``, ``TP_WINDOW``);
  26. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
@@ -720,6 +736,12 @@ VLM_ATTN = (1, 64, 8, 4096, 4096, 128, True, 0, 0, "bfloat16")
 # qwen3-4b's attention on each rank of phase 25's (1, 4) mesh: its 8 of
 # the 32 query heads over its 2 of the 8 KV heads (G = 4)
 TP_ATTN = (1, 8, 2, 4096, 4096, 128, True, 0, 0, "bfloat16")
+# whisper-small's encoder attention on each rank of phase 25(f): 3 of its
+# 12 heads at 4 x 1,500 frames; then its cross and decoder self attention
+# there (checked, not timed beside plain and sdpa)
+TP_AUDIO_ATTN = (4, 3, 3, 1500, 1500, 64, False, 0, 0, "bfloat16")
+TP_AUDIO_OTHER = [(4, 3, 3, 448, 1500, 64, False, 0, 0, "bfloat16"),
+                  (4, 3, 3, 448, 448, 64, True, 0, 0, "bfloat16")]
 K3_CASES = [
     (1, 32, 8, 4096, 4096, 128, True, 0, 0, "bfloat16"),
     (1, 32, 8, 4096, 4096, 128, True, 0, 0, "float32"),
@@ -737,6 +759,8 @@ K3_CASES = [
     (4, 12, 12, 1500, 1500, 64, False, 0, 0, "float32"),
     VLM_ATTN,
     TP_ATTN,
+    TP_AUDIO_ATTN,
+    *TP_AUDIO_OTHER,
 ]
 K3_TOL = {"bfloat16": 3e-2, "float32": 2e-5}   # the reference's own
 
@@ -777,7 +801,7 @@ def phase_k3(torch, np):
                 f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s, "
                 f"{bnd / ms:.1%} of bound), bound {bnd:.4f} ms ({by}; "
                 f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
-        if i < 3 or case in (VLM_ATTN, TP_ATTN):   # beside plain and sdpa
+        if i < 3 or case in (VLM_ATTN, TP_ATTN, TP_AUDIO_ATTN):  # plain, sdpa
             plain = time_ms(lambda: attention_ref(q, k, v, **kw), reps=5,
                             warm=1)
             lib = time_ms(lambda: F.scaled_dot_product_attention(
@@ -794,6 +818,8 @@ def phase_k3(torch, np):
             main["vlm"] = nums
         if case == TP_ATTN:
             main["tp"] = nums
+        if case == TP_AUDIO_ATTN:
+            main["tp_audio"] = nums
         del q, k, v
     torch.cuda.empty_cache()
     return main
@@ -810,6 +836,9 @@ K4_CASES = [(1, 2048, 64, 64, 32, "bfloat16"), (2, 128, 4, 32, 32, "float32"),
             (1, 256, 2, 128, 64, "float32"), (2, 100, 4, 16, 100, "bfloat16"),
             (1, 1000, 64, 64, 1000, "bfloat16"),
             (2, 300, 2, 128, 300, "bfloat16"), (1, 7, 2, 64, 7, "float32")]
+# rwkv6-7b's prefill on each rank of phase 25(d): 16 of its 64 heads
+TP_K4 = (1, 2048, 16, 64, 32, "bfloat16")
+K4_CASES.append(TP_K4)
 
 
 def phase_k4(torch, np):
@@ -877,11 +906,14 @@ def phase_k4(torch, np):
               f"library none, bound "
               f"{bnd:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP fp32, "
               f"{nbytes / 1e6:.2f} MB)", flush=True)
+        nums = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                    plain_ms=plain, bound_ms=bnd, bound_by=by,
+                    library_ms=None, shape=[b, s, h, hd, c],
+                    kernels_per_call=len(names))
         if main is None:
-            main = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
-                        plain_ms=plain, bound_ms=bnd, bound_by=by,
-                        library_ms=None, shape=[b, s, h, hd, c],
-                        kernels_per_call=len(names))
+            main = nums
+        if K4_CASES[i] == TP_K4:
+            main["tp"] = nums
         del r, k, v, logw, y, y2, wy
     torch.cuda.empty_cache()
     return main
@@ -1531,6 +1563,8 @@ K3B_CASES = [
     # qwen3-4b's on each rank of phase 25's (1, 4) mesh
     VLM_ATTN,
     TP_ATTN,
+    # whisper-small's encoder attention on each rank of phase 25(f)
+    TP_AUDIO_ATTN,
 ]
 # the kernels of one call, in launch order: the D pass, then the dK/dV
 # and dQ kernels (wgmma in bfloat16, the CUDA cores in float32)
@@ -1620,7 +1654,7 @@ def phase_k3_bwd(torch, np):
             f"{bnd / ms:.2%} of bound, bound {bnd:.4f} ms ({by}; "
             f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
         plain = lib = None
-        if i < 3 or case in (VLM_ATTN, TP_ATTN):  # plain, sdpa's backward
+        if i < 3 or case in (VLM_ATTN, TP_ATTN, TP_AUDIO_ATTN):  # beside
             plain = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse_ref,
                                                       do, **kw),
                             reps=3, warm=1)
@@ -1660,6 +1694,8 @@ def phase_k3_bwd(torch, np):
             main["vlm"] = nums
         if case == TP_ATTN:
             main["tp"] = nums
+        if case == TP_AUDIO_ATTN:
+            main["tp_audio"] = nums
         del q, k, v, do, o, lse, lse_ref
         torch.cuda.empty_cache()
     return main
@@ -1908,9 +1944,10 @@ def step_gaps(torch, model, loss_a, grads_a, loss_b, grads_b, opt):
 
 
 def hold_step(g: dict, loss_k, loss_p, tag: str, what: str,
-              launches: dict) -> dict:
+              launches: dict, pair: str = "kernel vs plain path") -> dict:
     """Phase 10's limits on ``step_gaps`` of the kernel path against the
-    plain path; prints them. Returns the numbers."""
+    plain path (or the ``pair`` the caller names); prints them. Returns
+    the numbers."""
     check(g["loss_err"] <= LOSS_REL_TOL, f"{tag}: loss {float(loss_k)} vs "
           f"plain {float(loss_p)} ({g['loss_err']:.3e})")
     check(g["grad_err"] <= GRAD_REL_TOL,
@@ -1920,7 +1957,7 @@ def hold_step(g: dict, loss_k, loss_p, tag: str, what: str,
           f"{tag}: AdamW updates' cosine {g['update_cos']:.5f} (< "
           f"{UPDATE_COS}?) or share of entries whose update changes sign "
           f"{g['update_flip']:.3e} (> {UPDATE_FLIP}?)")
-    print(f"{tag} step {what}, kernel vs plain path: loss "
+    print(f"{tag} step {what}, {pair}: loss "
           f"{float(loss_k):.6f} vs {float(loss_p):.6f} ({g['loss_err']:.3e});"
           f" gradients within {g['grad_err']:.3e} of their largest magnitude "
           f"(worst {g['worst']}); AdamW updates (lr {g['lr']:.3e}): cosine "
@@ -2864,6 +2901,9 @@ K4B_CASES = [
     (1, 1024, 8, 64, 32, "bfloat16", -2.0, True),
     (1, 1000, 4, 64, 1000, "bfloat16", 0.5, True),
 ]
+# rwkv6-7b's training step on each rank of phase 25(d): 16 of 64 heads
+TP_K4B = (1, 2048, 16, 64, 32, "bfloat16", -2.0, False)
+K4B_CASES.append(TP_K4B)
 # Each gradient's largest |kernel - plain| over its largest magnitude.
 # Both run the same equations on the same inputs and the same chunk-start
 # states, in another order of sums, with e^x as ex2 and the products on
@@ -2958,7 +2998,7 @@ def phase_k4_bwd(torch, np):
             f"{3 * tf32:.4f} ms for the split's three products; the CUDA "
             f"cores' bound {simt:.4f} ms)")
         plain = None
-        if i < 2:                    # the plain version at the main shape
+        if i < 2 or K4B_CASES[i] == TP_K4B:   # plain at the main shapes
             plain = time_ms(lambda: wkv6_bwd_ref(r, k, v, logw, u, s0, dy,
                                                  ds, chunk=c), reps=3,
                             warm=1)
@@ -2967,11 +3007,14 @@ def phase_k4_bwd(torch, np):
             line += "; device split " + ", ".join(
                 f"{n} {m:.4f} ms" for n, m in split.items())
         print(line, flush=True)
+        nums = dict(max_abs_err=abs_err, max_rel_err=max(errs.values()),
+                    ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
+                    bound_by=by, library_ms=None, shape=[b, s, h, hd, c],
+                    kernels_per_call=len(names))
         if main is None:
-            main = dict(max_abs_err=abs_err, max_rel_err=max(errs.values()),
-                        ms=ms, device_ms=dev_ms, plain_ms=plain,
-                        bound_ms=bnd, bound_by=by, library_ms=None,
-                        shape=[b, s, h, hd, c], kernels_per_call=len(names))
+            main = nums
+        if K4B_CASES[i] == TP_K4B:
+            main["tp"] = nums
         del r, k, v, logw, dy, starts
         torch.cuda.empty_cache()
     return main
@@ -3178,6 +3221,10 @@ K5_CASES = [(1, 4096, 4096, "bfloat16", False),
             (3, 4097, 96, "float32", True), (1, 1, 33, "float32", True),
             (2, 20, 4096, "bfloat16", True),
             (1, 129, 4100, "float32", True), (2, 385, 300, "bfloat16", True)]
+# recurrentgemma-9b's prefill on each rank of phase 25(e): 1,024 of the
+# LRU's 4,096 channels
+TP_K5 = (1, 4096, 1024, "bfloat16", False)
+K5_CASES.append(TP_K5)
 # H and h_last against the plain version's float32 H and h_last: the
 # largest difference over the largest magnitude (the card's special
 # functions and a fused multiply-add a step against torch's: both walk the
@@ -3215,6 +3262,10 @@ K3W_CASES = [
     (1, 8, 2, 300, 300, 32, 0, 0, 50, "bfloat16"),
     (1, 4, 1, 129, 300, 256, 171, 0, 7, "bfloat16"),
 ]
+# recurrentgemma-9b's local attention on each rank of phase 25(e): 4 of
+# its 16 query heads over the one KV head, forward and backward
+TP_WINDOW = (1, 4, 1, 4096, 4096, 256, 0, 0, 2048, "bfloat16")
+K3W_CASES.append(TP_WINDOW)
 
 
 def bf16_rounding_excess(torch, got, want):
@@ -3272,7 +3323,7 @@ def phase_k5(torch, np):
                 f"magnitude (limit {K5_TOL}: {max(err_h, err_l) / K5_TOL:.1%}"
                 f" of it), max abs err against the plain output "
                 f"{abs_err:.3e}, two calls bit-equal")
-        if i == 0:
+        if i == 0 or K5_CASES[i] == TP_K5:
             fn = lambda: rglru_scan(xb, wa, wi, lam, h0)   # noqa: E731
             names = kernel_basenames(torch, fn)
             check(names == ["rglru_scan"], f"{tag}: one call ran {names}")
@@ -3294,10 +3345,14 @@ def phase_k5(torch, np):
                      f"{sfu:.4f} ms ({rglru_sfu_ops(b, s, w) / 1e6:.1f} M "
                      f"operations at {SFU_PER_CLOCK_SM} a clock on {sms} "
                      f"SMs, {BOOST_CLOCK_HZ / 1e9:.2f} GHz)")
-            main = dict(max_abs_err=abs_err, h_err=err_h, h_last_err=err_l,
+            nums = dict(max_abs_err=abs_err, h_err=err_h, h_last_err=err_l,
                         ms=ms, device_ms=dev_ms, plain_ms=plain,
                         bound_ms=bnd, bound_by=by, library_ms=None,
                         shape=[b, s, w])
+            if i == 0:
+                main = nums
+            else:
+                main["tp"] = nums
         print(line, flush=True)
         main["worst_ratio"] = max(main.get("worst_ratio", 0.0),
                                   max(err_h, err_l) / K5_TOL)
@@ -3358,7 +3413,7 @@ def phase_k3_window(torch, np):
                 f"bit-equal; kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
                 f"TFLOP/s, {bnd / ms:.1%} of bound), bound {bnd:.4f} ms "
                 f"({by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
-        if i < 2:                 # device time, plain and sdpa beside it
+        if i < 2 or K3W_CASES[i] == TP_WINDOW:   # device, plain, sdpa
             dev_ms = kernel_device_ms(torch, fn, "fa_fwd")
             plain = time_ms(lambda: attention_ref(q, k, v, **kw), reps=3,
                             warm=1)
@@ -3368,11 +3423,14 @@ def phase_k3_window(torch, np):
             line += (f"; {fmt_ms(dev_ms)} on the device, plain "
                      f"{plain:.4f} ms, sdpa with the window's boolean mask "
                      f"{lib:.4f} ms")
+            nums = dict(max_abs_err=err, rel_err=rel, ms=ms,
+                        device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
+                        bound_by=by, library_ms=lib,
+                        shape=[b, hq, hkv, s, t, hd, win])
             if main is None:
-                main = dict(max_abs_err=err, rel_err=rel, ms=ms,
-                            device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
-                            bound_by=by, library_ms=lib,
-                            shape=[b, hq, hkv, s, t, hd, win])
+                main = nums
+            elif K3W_CASES[i] == TP_WINDOW:
+                main["tp"] = nums
         print(line, flush=True)
         main["worst_ratio"] = max(main.get("worst_ratio", 0.0), rel / tol)
         del q, k, v, got, again, want
@@ -3400,6 +3458,9 @@ K5B_CASES = [(1, 4096, 4096, "bfloat16", False),
              (1, 1, 40, "bfloat16", True), (2, 89, 4096, "bfloat16", True),
              (1, 45, 300, "float32", True), (2, 441, 1000, "bfloat16", True),
              (1, 441, 64, "float32", True)]
+# recurrentgemma-9b's training step on each rank of phase 25(e)
+TP_K5B = (1, 4096, 1024, "bfloat16", False)
+K5B_CASES.append(TP_K5B)
 K5B_KERNELS = ["rglru_bwd_ring", "rglru_bwd_params"]
 
 
@@ -3458,7 +3519,7 @@ def phase_k5_bwd(torch, np):
                 + f" of the largest magnitude (limit {K5B_TOL}: "
                 f"{worst / K5B_TOL:.1%} of it), K5's states {st_err:.3e}, "
                 f"max abs err {abs_err:.3e}, two calls bit-equal")
-        if i == 0:
+        if i == 0 or K5B_CASES[i] == TP_K5B:
             fn = lambda: rglru_scan_bwd(xb, wa, wi, lam, h0,   # noqa: E731
                                         states, dH, dh_last)
             names = kernel_basenames(torch, fn)
@@ -3486,11 +3547,15 @@ def phase_k5_bwd(torch, np):
                      f"note, not the bound: the special-function floor "
                      f"{sfu:.4f} ms; K5 {fwd_ms:.4f} ms a call, "
                      f"{kept_ms:.4f} with the float32 states kept")
-            main = dict(max_abs_err=abs_err, max_rel_err=worst, ms=ms,
+            nums = dict(max_abs_err=abs_err, max_rel_err=worst, ms=ms,
                         device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
                         bound_by=by, library_ms=None, shape=[b, s, w],
                         kernels_per_call=len(names), fwd_ms=fwd_ms,
                         fwd_states_ms=kept_ms)
+            if i == 0:
+                main = nums
+            else:
+                main["tp"] = nums
         print(line, flush=True)
         main["worst_ratio"] = max(main.get("worst_ratio", 0.0),
                                   worst / K5B_TOL)
@@ -3522,6 +3587,7 @@ K3BW_CASES = [
     (1, 4, 2, 129, 129, 256, 0, 0, 0, "float32"),
     (1, 8, 1, 707, 707, 256, 0, 0, 300, "bfloat16"),
     (1, 4, 1, 640, 640, 256, 0, 0, 77, "bfloat16"),
+    TP_WINDOW,
 ]
 # hd 256's own bfloat16 dK/dV kernel, in place of K3B_KERNELS' second
 K3B_DKDV_HD256 = "fa_bwd_dkdv_hd256"
@@ -3577,7 +3643,7 @@ def phase_k3_bwd_window(torch, np):
                 f"{LSE_TOL}); max err / max abs " + ", ".join(
             f"{n} {e:.3e}" for n, e in errs.items()) + f" (tol {tol}), two "
             f"calls bit-equal")
-        if i < 2:                 # device time, plain and sdpa beside it
+        if i < 2 or K3BW_CASES[i] == TP_WINDOW:   # device, plain, sdpa
             names = kernel_basenames(torch, fn)
             want_names = list(K3B_KERNELS[dname])
             if dt == torch.bfloat16 and hd == 256:
@@ -3630,6 +3696,13 @@ def phase_k3_bwd_window(torch, np):
                             shape=[b, hq, hkv, s, t, hd, win],
                             kernels_per_call=len(names), dkdv_split=split,
                             device_split=split_ms)
+            elif K3BW_CASES[i] == TP_WINDOW:
+                main["tp"] = dict(max_abs_err=abs_err, max_rel_err=err,
+                                  ms=ms, device_ms=dev_ms, plain_ms=plain,
+                                  bound_ms=bnd, bound_by=by, library_ms=lib,
+                                  shape=[b, hq, hkv, s, t, hd, win],
+                                  kernels_per_call=len(names),
+                                  dkdv_split=split)
             else:
                 main["ms_float32"] = ms
                 main["device_ms_float32"] = dev_ms
@@ -3900,8 +3973,12 @@ VLM_LATER_STEPS = 2
 
 TP_RANKS = 4               # the ("data", "model") mesh (1, 4) on one card
 TP_SEQ = 4096
-TP_DECODE_STEPS = 8        # at positions 4,088-4,095 of the prefill's cache
-TP_TRAIN_STEPS = 3
+# (a)'s decode steps and (b)'s Trainer steps, cut from 8 and 3, and (f)'s
+# training batch (TP_PARTS), cut from 4, keep the phase within 180 s with
+# parts (d)-(f), which took it to 169.0 s on an H100 before the cuts;
+# ``phase_tp`` prints them
+TP_DECODE_STEPS = 4        # at positions 4,092-4,095 of the prefill's cache
+TP_TRAIN_STEPS = 2
 TP_JOIN_S = 480.0          # the ranks' limit; a collective's is TP_WAIT_S
 TP_WAIT_S = 240.0
 # launches a rank: a K3 a layer in the prefill; forward, remat and one K3'
@@ -4177,10 +4254,346 @@ def tp_moe(torch, np, mesh, counters: dict) -> dict:
     return out
 
 
+# phase 25 (d)-(f): the ssm, hybrid and audio families under the same
+# (1, 4) mesh, each at its published width with its depth cut (the four
+# ranks and the unsharded run share one card). Per part: the model served
+# (``serve_layers`` deep) to a prefill of ``batch`` x ``seq`` tokens (the
+# audio family's with seeded frames) and ``decode`` steps from its cache,
+# held against the unsharded kernel path's logits and cache (gathered into
+# its layout, ``convert.whole_cache``) at PATH_REL_TOL; one training step
+# (``train_layers`` deep, ``train_batch`` x ``train_seq`` tokens) in bf16,
+# its loss within LOSS_REL_TOL of the unsharded step's, and where the bf16
+# step is well-conditioned (the hybrid family, PERF.md section 2) its
+# gradients and AdamW updates at phase 10's limits; where it is not (rwkv6
+# and whisper: phases 13(b) and 22) each K4/K4' or K3' call of the step
+# against its plain version on the call's own inputs, whisper's AdamW
+# updates at phase 10's limits, and the same step in float32 (the bf16
+# weights widened) against the unsharded float32 step at all of them.
+# ``launches`` are a rank's, ``shapes`` the per-rank shapes each kernel
+# must see (model layout: K4's r (B, S, H, hd), K5's xb (B, S, W), K3's q
+# and k (B, S, H, hd); ``step_shapes`` where a step's differ).
+TP_PARTS = {
+    "ssm": dict(arch="rwkv6-7b", serve_layers=8, batch=1, seq=2048,
+                decode=4, train_layers=4, train_batch=1, train_seq=2048,
+                prefill={"wkv6": 8}, step={"wkv6": 8, "wkv6_bwd": 4},
+                shapes={"wkv6": [(1, 2048, 16, 64)]}, fp32=True),
+    "hybrid": dict(arch="recurrentgemma-9b", serve_layers=5, batch=1,
+                   seq=4096, decode=4, train_layers=3, train_batch=1,
+                   train_seq=4096, prefill={"rglru": 4, "flash_attention": 1},
+                   step={"rglru": 4, "rglru_bwd": 2, "flash_attention": 2,
+                         "flash_attention_bwd": 1},
+                   shapes={"rglru": [(1, 4096, 1024)],
+                           "flash_attention": [(1, 4096, 4, 256),
+                                               (1, 4096, 1, 256)]},
+                   fp32=False),
+    "audio": dict(arch="whisper-small", serve_layers=12, batch=AUDIO_BATCH,
+                  seq=AUDIO_SEQ, decode=2, train_layers=12,
+                  train_batch=2, train_seq=AUDIO_SEQ,
+                  prefill=AUDIO_PREFILL, step=AUDIO_PER_STEP,
+                  shapes={"flash_attention": [
+                      (AUDIO_BATCH, 1500, 3, 64),
+                      (AUDIO_BATCH, AUDIO_SEQ, 3, 64)]},
+                  step_shapes={"flash_attention": [(2, 1500, 3, 64),
+                                                   (2, AUDIO_SEQ, 3, 64)]},
+                  fp32=True),
+}
+
+
+@contextlib.contextmanager
+def kernel_shapes(log: dict):
+    """Record in ``log`` (kernel -> set of shapes) the shapes of the first
+    operands the model hands each kernel's entry point: K4's r, K5's xb,
+    K3's q and k."""
+    from unittest import mock
+    import repro_torch.models.attention as attention
+    import repro_torch.models.rglru as rglru
+    import repro_torch.models.rwkv6 as rwkv6
+
+    def rec(name, fn, n):
+        def wrapped(*args, **kw):
+            log.setdefault(name, set()).update(
+                tuple(a.shape) for a in args[:n])
+            return fn(*args, **kw)
+        return wrapped
+    with mock.patch.object(rwkv6, "wkv6", rec("wkv6", rwkv6.wkv6, 1)), \
+            mock.patch.object(rglru, "lru_scan",
+                              rec("rglru", rglru.lru_scan, 1)), \
+            mock.patch.object(attention, "flash",
+                              rec("flash_attention", attention.flash, 2)):
+        yield
+
+
+def cache_leaves(cache, prefix: str = "") -> dict:
+    """A decode cache's tensors by "/"-joined path ("pos", "kv_shards"
+    left out)."""
+    if isinstance(cache, dict):
+        items = [(k, v) for k, v in cache.items()
+                 if k not in ("pos", "kv_shards")]
+    elif isinstance(cache, (list, tuple)):
+        items = list(enumerate(cache))
+    else:
+        return {prefix[:-1]: cache}
+    out = {}
+    for k, v in items:
+        out.update(cache_leaves(v, f"{prefix}{k}/"))
+    return out
+
+
+def tp_part_inputs(torch, np, cfg, spec: dict) -> dict:
+    """A part's seeded prefill tokens (batch x seq), decode tokens (batch x
+    decode) and, for the audio family, encoder frames, on the host."""
+    rng = np.random.default_rng(10)
+    b = spec["batch"]
+    out = {"tokens": torch.from_numpy(rng.integers(
+               0, cfg.vocab_size, (b, spec["seq"]))),
+           "steps": torch.from_numpy(rng.integers(
+               0, cfg.vocab_size, (b, spec["decode"])))}
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq_len, cfg.d_model), dtype=np.float32))
+    return out
+
+
+def tp_part_references(torch, np, d: Path, name: str) -> dict:
+    """Part ``name`` of phase 25 (d)-(f) unsharded on the kernel path,
+    saved under ``d`` for the ranks: the prefill's logits and cache, the
+    decode steps' logits (from position seq - decode of the audio family's
+    self cache, each step overwriting its row; the others go on from the
+    prefill), and the bf16 step's loss and gradients (and the float32
+    step's where ``fp32``). Returns their times."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import Policy
+    from repro_torch.models.model import Model
+    spec = TP_PARTS[name]
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              num_layers=spec["serve_layers"])
+    model = Model(cfg, device="cuda", seed=0)
+    inp = tp_part_inputs(torch, np, cfg, spec)
+    fwd = {"enc_frames": inp["frames"].cuda()} if "frames" in inp else {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(inp["tokens"].cuda(), **fwd)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    saved = {**inp, "logits": logits.cpu(),
+             "cache": {k: t.to("cpu", copy=True)
+                       for k, t in cache_leaves(cache).items()}}
+    if cfg.is_encoder_decoder:
+        cache["pos"] = spec["seq"] - spec["decode"]
+    saved["pos"] = cache["pos"]
+    saved["decode"] = [model.decode_step(inp["steps"][:, i].cuda(),
+                                         cache)[0].cpu()
+                       for i in range(spec["decode"])]
+    torch.save(saved, d / f"{name}_serve.pt")
+    del model, cache, logits, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, _, batch, _, _ = train_setup(
+        torch, spec["arch"], spec["train_layers"], seq=spec["train_seq"],
+        batch=spec["train_batch"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = train_step_grads(torch, model, batch)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step = {"loss": float(loss)}
+    if name != "ssm":            # its bf16 gradients hold nothing (13(b))
+        step["grads"] = {n: g.cpu() for n, g in grads.items()}
+    del grads
+    if spec["fp32"]:
+        f32 = widened(torch, model)
+        del model
+        loss32, grads32 = train_step_grads(torch, f32, batch)
+        step.update(loss32=float(loss32),
+                    grads32={n: g.cpu() for n, g in grads32.items()})
+        del f32, grads32
+    else:
+        del model
+    torch.save(step, d / f"{name}_step.pt")
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_ms, "step_ms": step_ms}
+
+
+def widened(torch, model):
+    """``model`` in float32: its bf16 weights widened into a model of the
+    same config and mesh (the rank's slices under tensor parallelism),
+    each weight wanting a gradient."""
+    from repro_torch.models.common import Policy
+    from repro_torch.models.model import Model
+    f32 = Model(model.cfg, Policy(compute_dtype=torch.float32),
+                device="cuda", seed=None, remat="full")
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(f32.named_parameters(),
+                                  model.named_parameters()):
+            a.copy_(b)
+    for p in f32.parameters():
+        p.requires_grad_(True)
+    return f32
+
+
+def tp_part(torch, np, d: Path, mesh, counters: dict, name: str) -> dict:
+    """Part ``name`` of phase 25 (d)-(f) on one rank (see TP_PARTS): the
+    served model and the training step under the mesh, held against
+    ``tp_part_references``'. Fails on a rank whose kernels launched other
+    counts or saw other shapes, or whose numbers miss a limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import whole_cache
+    from repro_torch.dist import api as dist
+    from repro_torch.models.model import Model
+    spec = TP_PARTS[name]
+    ref = torch.load(d / f"{name}_serve.pt", mmap=True)
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              num_layers=spec["serve_layers"])
+    rank = mesh.get_local_rank("model")
+    tag = f"(25 {name}) {spec['arch']} at (1, {TP_RANKS}), rank {rank}"
+
+    def only(want):
+        return {n: want.get(n, 0) for n in counters}
+
+    def held(spans: dict, what: str) -> dict:
+        errs = {k: e / max(m, 1e-30) for k, (e, m) in spans.items()}
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= PATH_REL_TOL, f"{tag}: {what} {worst} differs "
+              f"from the unsharded kernel path by {errs[worst]:.3e} of its "
+              f"largest magnitude (> {PATH_REL_TOL})")
+        return {"worst": worst, "err": errs[worst]}
+
+    def shaped(log: dict, what: str) -> None:
+        want_shapes = spec["shapes"] if what == "prefill" else \
+            spec.get("step_shapes", spec["shapes"])
+        for kernel, want in want_shapes.items():
+            got = sorted(log.get(kernel, ()))
+            check(got == sorted(set(want)), f"{tag}: the {what} handed "
+                  f"{kernel} {got}, not the rank's {sorted(set(want))}")
+    out = {}
+    with dist.use_mesh(mesh):
+        model = Model(cfg, device="cuda", seed=0)
+        fwd = {"enc_frames": ref["frames"].cuda()} if "frames" in ref \
+            else {}
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        shapes: dict = {}
+        with kernel_shapes(shapes):
+            (logits, cache), ms, busy, top = profiled_call(
+                torch, lambda: model.prefill(ref["tokens"].cuda(), **fwd))
+        launches = {n: c.launches for n, c in counters.items()}
+        check(launches == only(spec["prefill"]), f"{tag}: the prefill "
+              f"launched {launches}, not {spec['prefill']}")
+        shaped(shapes, "prefill")
+        V = cfg.vocab_size
+        spans = {"logits": tp_span(torch, logits[..., :V],
+                                   ref["logits"][..., :V])}
+        whole = whole_cache(model, cache)
+        for path, t in cache_leaves(whole).items():
+            spans[f"cache {path}"] = tp_span(torch, t, ref["cache"][path])
+        del whole
+        out["prefill"] = dict(launches=launches, ms=ms, busy_ms=busy,
+                              top=top, shapes={k: sorted(v) for k, v in
+                                               shapes.items()},
+                              **held(spans, "the prefill's"))
+        cache["pos"] = ref["pos"]
+        spans, walls = {}, []
+        for i in range(spec["decode"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = model.decode_step(ref["steps"][:, i].cuda(), cache)[0]
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            spans[f"decode {i}"] = tp_span(torch, got[..., :V],
+                                           ref["decode"][i][..., :V])
+        check(not any(c.launches - launches[n]
+                      for n, c in counters.items()),
+              f"{tag}: a decode step launched a kernel")
+        out["decode"] = dict(ms=float(np.median(walls)) * 1e3,
+                             **held(spans, "a decode step's"))
+        out["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model, cache, logits, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["step"] = tp_part_step(torch, d, counters, name, tag, only,
+                                   shaped)
+    return out
+
+
+def tp_part_step(torch, d: Path, counters: dict, name: str, tag: str,
+                 only, shaped) -> dict:
+    """The training half of ``tp_part`` (under the mesh)."""
+    spec = TP_PARTS[name]
+    ref = torch.load(d / f"{name}_step.pt", mmap=True)
+    model, _, batch, opt, _ = train_setup(
+        torch, spec["arch"], spec["train_layers"], seq=spec["train_seq"],
+        batch=spec["train_batch"])
+    calls: list = []
+    keep = {"ssm": kept_wkv6_bwd_calls, "audio": kept_attention_bwd_calls
+            }.get(name)
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    shapes: dict = {}
+    with keep(calls) if keep else contextlib.nullcontext(), \
+            kernel_shapes(shapes):
+        (loss, grads), ms, busy, top = profiled_call(
+            torch, lambda: train_step_grads(torch, model, batch))
+    launches = {n: c.launches for n, c in counters.items()}
+    check(launches == only(spec["step"]), f"{tag}: a step launched "
+          f"{launches}, not {spec['step']}")
+    shaped(shapes, "step")
+    loss_err = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+    check(loss_err <= LOSS_REL_TOL, f"{tag}: the bf16 step's loss "
+          f"{float(loss)} vs the unsharded {ref['loss']} ({loss_err:.3e})")
+    out = dict(launches=launches, ms=ms, busy_ms=busy, top=top,
+               loss_err=loss_err)
+    if name == "ssm":
+        out.update(hold_wkv6_calls(torch, calls, tag))
+    elif name == "audio":
+        out.update(hold_attention_calls(torch, calls, tag))
+    del calls
+    if "grads" in ref:
+        want = {n: model.tp_slice(n, g) for n, g in ref["grads"].items()}
+        g = step_gaps(torch, model, loss, grads, ref["loss"], want, opt)
+        if spec["fp32"]:        # ill-conditioned in bf16: the updates only
+            check(g["update_cos"] >= UPDATE_COS
+                  and g["update_flip"] <= UPDATE_FLIP,
+                  f"{tag}: bf16 AdamW updates' cosine {g['update_cos']:.5f}"
+                  f" or sign changes {g['update_flip']:.3e} against the "
+                  f"unsharded step's")
+            out.update(bf16_update_cos=g["update_cos"],
+                       bf16_update_flip=g["update_flip"],
+                       bf16_grad_err=g["grad_err"])
+        else:
+            out.update(hold_step(g, loss, ref["loss"], tag, "in bfloat16",
+                                 launches, "sharded vs unsharded"))
+        del want, g
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    if spec["fp32"]:
+        f32 = widened(torch, model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        loss32, grads32 = train_step_grads(torch, f32, batch)
+        want = {n: f32.tp_slice(n, g) for n, g in ref["grads32"].items()}
+        g = step_gaps(torch, f32, loss32, grads32, ref["loss32"], want, opt)
+        out["fp32"] = hold_step(g, loss32, ref["loss32"], tag, "in float32 "
+                                "(the bf16 weights widened)", launches,
+                                "sharded vs unsharded")
+        del f32, grads32, want, g
+    else:
+        del model
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_rank(rank: int, d: str) -> None:
     """One rank of phase 25: a gloo process group of TP_RANKS ranks, all on
     cuda:0 (NCCL refuses two ranks on one device), the (1, 4) mesh, parts
-    (a)-(c); writes ``rank<r>.json``. A failed check or an exception
+    (a)-(c), then the ssm, hybrid and audio parts (d)-(f); writes
+    ``rank<r>.json``. A failed check or an exception
     prints its traceback and exits non-zero."""
     import numpy as np
     import torch
@@ -4206,7 +4619,9 @@ def tp_rank(rank: int, d: str) -> None:
         for part, fn, args in (
                 ("serve", tp_serve, (torch, np, d, mesh, counters, rank)),
                 ("train", tp_train, (torch, np, d, mesh, counters)),
-                ("moe", tp_moe, (torch, np, mesh, counters))):
+                ("moe", tp_moe, (torch, np, mesh, counters)),
+                *((name, tp_part, (torch, np, d, mesh, counters, name))
+                  for name in TP_PARTS)):
             t0 = time.perf_counter()
             out[part] = fn(*args)
             out[part]["seconds"] = time.perf_counter() - t0
@@ -4226,17 +4641,31 @@ def phase_tp(torch, np, card: str):
     prefill's logits and the gathered caches, and each decode step's
     logits, at PATH_REL_TOL (layer 1's caches at FIRST_REL_TOL), K3 once a
     layer at per-rank heads; (b) one step's loss, gradients and AdamW
-    updates at phase 10's limits, three Trainer steps' losses at
+    updates at phase 10's limits, TP_TRAIN_STEPS Trainer steps' losses at
     LOSS_REL_TOL, K3 16 and K3' 8 a step, K1 once a Guard window; (c) the
-    moe checks inside each rank (``tp_moe``). One card shows that the
-    ranks compute the right thing, not how fast tensor parallelism is.
-    Returns (rank 0's launches by part, numbers)."""
+    moe checks inside each rank (``tp_moe``); (d)-(f) the ssm, hybrid and
+    audio families' checks inside each rank (``tp_part``), their numbers
+    printed here. One card shows that the ranks compute the right thing,
+    not how fast tensor parallelism is. Returns (rank 0's launches by
+    part, numbers)."""
     import multiprocessing
     import tempfile
     tmp = tempfile.TemporaryDirectory(prefix="tp_")
     d = Path(tmp.name)
     try:
         ref = tp_references(torch, np, d)
+        for name in TP_PARTS:
+            t0 = time.perf_counter()
+            ref[name] = tp_part_references(torch, np, d, name)
+            ref[name]["seconds"] = time.perf_counter() - t0
+        print(f"phase 25: the unsharded runs (a)-(f) in "
+              f"{sum(ref[n]['seconds'] for n in TP_PARTS):.1f} s for "
+              f"(d)-(f); cut for the phase's time: (a) {TP_DECODE_STEPS} "
+              f"decode steps (was 8), (b) {TP_TRAIN_STEPS} Trainer steps "
+              f"(was 3), (f) training at "
+              f"{TP_PARTS['audio']['train_batch']} x (1,500 frames, "
+              f"{AUDIO_SEQ} tokens) (was {AUDIO_BATCH}); the depths of "
+              f"(d)-(f) as TP_PARTS gives them", flush=True)
         procs = [multiprocessing.get_context("spawn").Process(
             target=tp_rank, args=(r, str(d))) for r in range(TP_RANKS)]
         for p in procs:
@@ -4357,16 +4786,66 @@ def phase_tp(torch, np, card: str):
           f"seconds (a, b, c) " + str([[round(f[p]["seconds"], 1) for p in
                                          ("serve", "train", "moe")]
                                         for f in facts]), flush=True)
+    parts = {}
+    for name, spec in TP_PARTS.items():
+        p0 = f0[name]
+        pre, dec, st = p0["prefill"], p0["decode"], p0["step"]
+        fp32 = st.get("fp32", {})
+        parts[name] = dict(
+            prefill_ms=pre["ms"], prefill_busy_ms=pre["busy_ms"],
+            decode_ms=dec["ms"], step_ms=st["ms"], step_busy_ms=st["busy_ms"],
+            prefill_err=max(f[name]["prefill"]["err"] for f in facts),
+            decode_err=max(f[name]["decode"]["err"] for f in facts),
+            step_loss_err=max(f[name]["step"]["loss_err"] for f in facts),
+            peak_gb=max(max(f[name]["serve_peak_gb"], f[name]["step"][
+                "peak_gb"]) for f in facts),
+            prefill_launches=pre["launches"], step_launches=st["launches"],
+            shapes=pre["shapes"], unsharded=ref[name],
+            seconds=[round(f[name]["seconds"], 1) for f in facts],
+            **{k: v for k, v in st.items() if k not in (
+                "launches", "ms", "busy_ms", "top", "loss_err", "peak_gb",
+                "fp32")},
+            **{f"fp32_{k}": v for k, v in fp32.items()})
+        q = parts[name]
+        print(f"({'def'[list(TP_PARTS).index(name)]}) ({card}) "
+              f"{spec['arch']} at {spec['serve_layers']} layers served, "
+              f"{spec['train_layers']} trained, (1, {TP_RANKS}): prefill "
+              f"of {spec['batch']} x {spec['seq']} tokens "
+              f"{q['prefill_ms']:.1f} ms under the profiler (unsharded "
+              f"{ref[name]['prefill_ms']:.1f}), rank 0's kernels "
+              f"{q['prefill_busy_ms']:.1f} ms "
+              f"({q['prefill_busy_ms'] / q['prefill_ms']:.0%}); logits and "
+              f"gathered caches within {q['prefill_err']:.3e} of the "
+              f"unsharded kernel path's largest magnitude (worst "
+              f"{pre['worst']}); {spec['decode']} decode steps, median "
+              f"{q['decode_ms']:.1f} ms, within {q['decode_err']:.3e}; "
+              f"kernels saw {q['shapes']}; launches a prefill "
+              f"{q['prefill_launches']}; a bf16 step {q['step_ms']:.1f} ms "
+              f"(unsharded {ref[name]['step_ms']:.1f}), rank 0's kernels "
+              f"{q['step_busy_ms']:.1f} ms "
+              f"({q['step_busy_ms'] / q['step_ms']:.0%}), launches "
+              f"{q['step_launches']}, loss gap {q['step_loss_err']:.3e}"
+              + (f", float32 step: loss gap {fp32['loss_err']:.3e}, "
+                 f"gradients within {fp32['grad_err']:.3e} (worst "
+                 f"{fp32['worst']}), update cosine {fp32['update_cos']:.6f}"
+                 if fp32 else "")
+              + f"; peak {q['peak_gb']:.2f} GB a rank; ranks' seconds "
+              f"{q['seconds']}", flush=True)
     launches = {"prefill": sv["launches"], "train": tr["run_launches"],
                 "moe_prefill": mo["prefill_launches"],
-                "moe_step": mo["step_launches"]}
+                "moe_step": mo["step_launches"],
+                **{f"{n}_prefill": parts[n]["prefill_launches"]
+                   for n in TP_PARTS},
+                **{f"{n}_step": parts[n]["step_launches"]
+                   for n in TP_PARTS}}
     nums = dict(card=card, serve={**{k: v for k, v in sv.items()
                                      if k not in ("top", "spans")}, **a,
                                   "unsharded_prefill_ms": ref["prefill_ms"]},
                 train={**{k: v for k, v in tr.items() if k != "top"},
                        "unsharded_losses": losses,
                        "unsharded_step_ms": ref["step_ms"]},
-                moe=[f["moe"] for f in facts], gloo_cuda=f0["gloo_cuda"])
+                moe=[f["moe"] for f in facts], gloo_cuda=f0["gloo_cuda"],
+                **parts)
     return launches, nums
 
 
@@ -4616,7 +5095,15 @@ def main() -> None:
          "launches_tp_moe_prefill_a_rank":
              tp["moe_prefill"]["flash_attention"],
          "launches_tp_moe_step_a_rank": tp["moe_step"]["flash_attention"],
-         "vlm": k3["vlm"], "tp": k3["tp"], "window": k3w},
+         "launches_tp_hybrid_prefill_a_rank":
+             tp["hybrid_prefill"]["flash_attention"],
+         "launches_tp_hybrid_step_a_rank":
+             tp["hybrid_step"]["flash_attention"],
+         "launches_tp_audio_prefill_a_rank":
+             tp["audio_prefill"]["flash_attention"],
+         "launches_tp_audio_step_a_rank": tp["audio_step"]["flash_attention"],
+         "vlm": k3["vlm"], "tp": k3["tp"], "tp_audio": k3["tp_audio"],
+         "window": k3w},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention/ops.py:42",
@@ -4631,6 +5118,10 @@ def main() -> None:
          "launches_tp_train_a_rank": tp["train"]["flash_attention_bwd"],
          "launches_tp_moe_step_a_rank":
              tp["moe_step"]["flash_attention_bwd"],
+         "launches_tp_hybrid_step_a_rank":
+             tp["hybrid_step"]["flash_attention_bwd"],
+         "launches_tp_audio_step_a_rank":
+             tp["audio_step"]["flash_attention_bwd"],
          "max_abs_err": k3b["max_abs_err"],
          "max_rel_err": k3b["max_rel_err"], "ms": k3b["ms"],
          "device_ms": k3b["device_ms"],
@@ -4638,7 +5129,7 @@ def main() -> None:
          "plain_ms": k3b["plain_ms"], "bound_ms": k3b["bound_ms"],
          "bound_by": k3b["bound_by"], "library_ms": k3b["library_ms"],
          "shape": k3b["shape"], "vlm": k3b["vlm"], "tp": k3b["tp"],
-         "window": k3bw},
+         "tp_audio": k3b["tp_audio"], "window": k3bw},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/wkv6/wkv6.py:76",
@@ -4647,11 +5138,16 @@ def main() -> None:
          "device_kernels_per_call": k4["kernels_per_call"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": None,
-         "shape": k4["shape"], "launches_train": train_ssm["wkv6"]},
+         "shape": k4["shape"], "launches_train": train_ssm["wkv6"],
+         "launches_tp_ssm_prefill_a_rank": tp["ssm_prefill"]["wkv6"],
+         "launches_tp_ssm_step_a_rank": tp["ssm_step"]["wkv6"],
+         "tp": k4["tp"]},
         {"name": "wkv6_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv6_bwd.cu",
          "replaces": "src/repro/models/rwkv6.py:82",
          "launches": train_ssm["wkv6_bwd"],
+         "launches_tp_ssm_step_a_rank": tp["ssm_step"]["wkv6_bwd"],
+         "tp": k4b["tp"],
          "max_abs_err": k4b["max_abs_err"],
          "max_rel_err": k4b["max_rel_err"], "ms": k4b["ms"],
          "device_ms": k4b["device_ms"],
@@ -4668,11 +5164,16 @@ def main() -> None:
          "device_ms": k5["device_ms"], "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
          "library_ms": None, "shape": k5["shape"],
-         "launches_train": train_hyb["rglru"]},
+         "launches_train": train_hyb["rglru"],
+         "launches_tp_hybrid_prefill_a_rank": tp["hybrid_prefill"]["rglru"],
+         "launches_tp_hybrid_step_a_rank": tp["hybrid_step"]["rglru"],
+         "tp": k5["tp"]},
         {"name": "rglru_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_bwd.cu",
          "replaces": "src/repro/models/rglru.py:81",
          "launches": train_hyb["rglru_bwd"],
+         "launches_tp_hybrid_step_a_rank": tp["hybrid_step"]["rglru_bwd"],
+         "tp": k5b["tp"],
          "max_abs_err": k5b["max_abs_err"],
          "max_rel_err": k5b["max_rel_err"],
          "worst_limit_ratio": k5b["worst_ratio"], "ms": k5b["ms"],

@@ -30,6 +30,10 @@ moves both across without importing ``repro``:
       the inverse of ``named_params``: port parameters, gradients or
       moments as the JAX package's nested tree of numpy arrays, layers
       stacked again, so tests compare leaf by leaf.
+  whole_cache(model, cache)
+      a rank's decode cache under tensor parallelism gathered over
+      "model" into the reference's whole layout (a collective on every
+      rank of the group), so tests compare it with the reference's.
   run_config(cfg, device=...)
       the port's simulator ``RunConfig`` from the reference's, nested
       ``FaultRates`` / ``WorkloadProfile`` / ``RecoveryModel`` /
@@ -330,6 +334,31 @@ def reference_tree(named: Mapping[str, object]) -> Dict[str, object]:
                 np.stack([layers[i][key] for i in sorted(layers)]))
         tree[group] = stacked
     return tree
+
+
+def _map_cache(fn, cache, dims):
+    """``fn(tensor, dim)`` over the tensors of ``cache`` and the split dims
+    ``Model.cache_tp_dims`` gives them, in ``dims``' structure."""
+    if isinstance(dims, Mapping):
+        return {k: _map_cache(fn, cache[k], d) for k, d in dims.items()}
+    if isinstance(dims, (list, tuple)):
+        return type(dims)(_map_cache(fn, c, d) for c, d in zip(cache, dims))
+    return fn(cache, dims)
+
+
+def whole_cache(model: Model, cache: Mapping) -> Dict[str, object]:
+    """``cache``, a rank's decode cache (``prefill``'s or
+    ``init_cache``'s), in the reference's layout: each tensor the rank
+    holds a slice of gathered over "model" (every rank of the group must
+    call this), the others as they are, "pos" kept and "kv_shards"
+    dropped."""
+    from repro_torch.dist import api as dist
+
+    def whole(t, d):
+        return t if d is None else dist.gather_dim(t, d, model.tp)
+    out = _map_cache(whole, cache, model.cache_tp_dims(cache))
+    out["pos"] = cache["pos"]
+    return out
 
 
 def fault_rates(cfg) -> FaultRates:

@@ -1,7 +1,7 @@
 """Attention: GQA projections, prefill attention through the flash-attention
 kernel (causal, or in a sliding window for the hybrid family's
-``local_attention``, or full for the audio family's encoder and
-``cross_attention``), and decode-step attention over a KV cache.
+``local_attention``, or full for the audio family's encoder and cross
+attention), and decode-step attention over a KV cache.
 
 Under tensor parallelism (``Attention.tp``, set by the model, see
 ``repro_torch.dist.api``) each rank projects its own query heads (the
@@ -9,12 +9,17 @@ rank's slice of ``wq``, ``bq``, ``wo``) and runs the kernel on them; its
 KV heads are its own slice where "model" divides them, else every rank
 projects all of them (the whole ``wk``, ``wv``) and attends with those its
 query heads use. Where the query heads do not divide "model" but the
-reference's query chunk does, the query rows split over "model" instead
-(the reference's ``_seq_shard_fallback``): each rank attends with its
-rows over the whole K/V and the rows are gathered. ``out_projection`` is
-row-parallel. Decode (``decode_attention``) is the reference's
-flash-decode where the cache is sequence-sharded: each rank's partial
-attention over its slice of the cache, combined by a max and two sums.
+reference's query chunk does (``min(2048, S)``, or the window in a
+windowed attention over more than one window), the query rows split over
+"model" instead (the reference's ``_seq_shard_fallback``): each rank
+attends with its rows over the whole K/V and the rows are gathered;
+where neither divides, every rank computes the whole attention, as the
+reference replicates it. ``tp_attention`` takes these three cases for the
+causal, the windowed and the non-causal (encoder, cross) attentions
+alike. ``out_projection`` is row-parallel. Decode (``decode_attention``)
+is the reference's flash-decode where the cache is sequence-sharded: each
+rank's partial attention over its slice of the cache, combined by a max
+and two sums.
 """
 from __future__ import annotations
 
@@ -118,45 +123,56 @@ def out_projection(p: Attention, attn_out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _kv_of_heads(k: torch.Tensor, v: torch.Tensor, heads: int,
-                 tp: dist.TPGroup) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Of k/v (B, S, Hkv, hd) with every KV head, those the rank's
-    ``heads`` query heads read: one KV head where they share it, else
-    each query head's own (a group of one)."""
-    Hkv = k.shape[2]
+def kv_of_heads(k: torch.Tensor, v: torch.Tensor, heads: int,
+                 tp: dist.TPGroup, dim: int = 2
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Of k/v with every KV head on ``dim`` ((B, S, Hkv, hd); dim 1 for a
+    cache's (B, Hkv, T, hd)), those the rank's ``heads`` query heads read:
+    one KV head where they share it, else each query head's own (a group
+    of one)."""
+    Hkv = k.shape[dim]
     G = heads * tp.size // Hkv
     first = tp.rank * heads
     if G % heads == 0:
-        return (k.narrow(2, first // G, 1), v.narrow(2, first // G, 1))
+        return (k.narrow(dim, first // G, 1), v.narrow(dim, first // G, 1))
     idx = torch.div(torch.arange(first, first + heads, device=k.device), G,
                     rounding_mode="floor")
-    return k.index_select(2, idx), v.index_select(2, idx)
+    return k.index_select(dim, idx), v.index_select(dim, idx)
 
 
-def self_attention(p: Attention, q: torch.Tensor, k: torch.Tensor,
-                   v: torch.Tensor) -> torch.Tensor:
-    """A layer's causal self-attention over ``project_qkv``'s q/k/v ->
-    (B, S, H, hd), H the query heads ``q`` holds. Under tensor
-    parallelism: the rank's query heads over their KV heads; or, where
-    the query heads do not divide "model" and the reference's query chunk
-    (``min(2048, S)``, S when that does not divide S) does, the rank's
-    S / tp query rows over the whole K/V (the kernel's ``q_offset``), the
-    rows gathered; or, where neither divides, the whole attention on
-    every rank, as the reference replicates it."""
+def tp_attention(p: Attention, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, *, causal: bool = True, window: int = 0
+                 ) -> torch.Tensor:
+    """Attention of ``q`` over ``k``/``v`` (``project_qkv``'s, or the cross
+    attention's) -> (B, S, H, hd), H the query heads ``q`` holds: causal,
+    in a sliding ``window`` (``local_attention``) or full (``causal``
+    False: the encoder's and the cross attention). Under tensor
+    parallelism: the rank's query heads over their KV heads; or, where the
+    query heads do not divide "model" and the reference's query chunk
+    (``min(2048, S)``, the window where the keys span more than one, S
+    where the chunk does not divide S) does, the rank's S / tp query rows
+    over the whole K/V (the kernel's ``q_offset``), the rows gathered; or,
+    where neither divides, the whole attention on every rank, as the
+    reference replicates it."""
+    def attend(q, k, v, q_offset=0):
+        if window:
+            return local_attention(q, k, v, window=window, q_offset=q_offset)
+        return full_attention(q, k, v, causal=causal, q_offset=q_offset)
+
     tp = p.tp
     if tp is None or p.kv_local:
-        return full_attention(q, k, v, causal=True)
+        return attend(q, k, v)
     if p.heads_local:
-        return full_attention(q, *_kv_of_heads(k, v, q.shape[2], tp),
-                              causal=True)
+        return attend(q, *kv_of_heads(k, v, q.shape[2], tp))
     S = q.shape[1]
-    chunk = min(2048, S)
-    if S % chunk or chunk % tp.size:
-        return full_attention(q, k, v, causal=True)
+    chunk = window if window and k.shape[1] > window else min(2048, S)
+    if S % chunk:
+        chunk = S
+    if chunk % tp.size:
+        return attend(q, k, v)
     n = S // tp.size
-    o = full_attention(dist.split_dim(q, 1, tp), dist.copy_in(k, tp),
-                       dist.copy_in(v, tp), causal=True,
-                       q_offset=tp.rank * n)
+    o = attend(dist.split_dim(q, 1, tp), dist.copy_in(k, tp),
+               dist.copy_in(v, tp), q_offset=tp.rank * n if causal else 0)
     return dist.gather_dim(o, 1, tp)
 
 
@@ -172,32 +188,25 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int) -> torch.Tensor:
+                    window: int, q_offset: int = 0) -> torch.Tensor:
     """Sliding-window causal attention, O(S window): query position p sees
-    the keys k with p - window < k <= p. q (B, S, Hq, hd), k/v (B, S, Hkv,
-    hd) -> (B, S, Hq, hd).
+    the keys k with p - window < k <= p. q (B, S, Hq, hd), k/v (B, T, Hkv,
+    hd) -> (B, S, Hq, hd); the queries are positions ``q_offset`` to
+    ``q_offset + S - 1`` of the keys' T (S = T and 0 unless a rank holds
+    its slice of the rows).
 
     As in the JAX package, a sequence no longer than the window is plain
     causal attention, and a longer one must be a multiple of the window
     (the reference asserts it: its chunks are window-sized). On the card
     this is the flash-attention kernel with its window; on the CPU its
     plain version with the same mask."""
-    S = q.shape[1]
-    if S <= window:
-        return flash(q, k, v, causal=True)
-    if S % window:
-        raise ValueError(f"local_attention: {S} tokens are more than the "
+    T = k.shape[1]
+    if T <= window:
+        return flash(q, k, v, causal=True, q_offset=q_offset)
+    if T % window:
+        raise ValueError(f"local_attention: {T} tokens are more than the "
                          f"window {window} and not a multiple of it")
-    return flash(q, k, v, causal=True, window=window)
-
-
-def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                    ) -> torch.Tensor:
-    """Full (non-causal) attention of S decoder queries over T encoder
-    keys, S != T allowed: q (B, S, Hq, hd), k/v (B, T, Hkv, hd) -> (B, S,
-    Hq, hd). The flash-attention kernel on the card, its plain version on
-    the CPU."""
-    return flash(q, k, v, causal=False)
+    return flash(q, k, v, causal=True, q_offset=q_offset, window=window)
 
 
 def decode_attention(q: torch.Tensor, kcache: torch.Tensor,
@@ -240,6 +249,6 @@ def decode_attention(q: torch.Tensor, kcache: torch.Tensor,
     return out.reshape(B, Hq, hd).to(q.dtype)
 
 
-__all__ = ["Attention", "cross_attention", "decode_attention",
+__all__ = ["Attention", "decode_attention", "kv_of_heads",
            "full_attention", "local_attention", "out_projection",
-           "project_qkv", "self_attention"]
+           "project_qkv", "tp_attention"]

@@ -70,27 +70,44 @@ recompute gathers again, the hybrid "tail" once before it, and "out"
 weights hold no storage (``weights_released``) and every entry point
 raises until ``repro_torch.train.load_working`` brings them back.
 
-Tensor parallelism: a model of the dense, moe or vlm family built under
-a mesh whose "model" axis is wider than 1 draws (or, with ``seed=None``,
-allocates) every parameter whole, as every rank does, and keeps the
-rank's slice of the query heads (``wq``, ``bq``, ``wo``), the KV heads
-where "model" divides them (``wk``, ``wv``, ``bk``, ``bv``), the MLPs' ff,
-the vocabulary (``tok``, ``head``) and the experts (``wi``, ``wo``)
+Tensor parallelism: a model of any family built under a mesh whose
+"model" axis is wider than 1 draws (or, with ``seed=None``, allocates)
+every parameter whole, as every rank does, and keeps the rank's slice
 (``tp_dims``: parameter -> the dim split; ``global_shapes`` the whole
-shapes). The residual stream stays replicated over "model"; in training
-with remat "full" each checkpointed layer keeps the rank's S / tp
-sequence slice of its input (the reference's "act_seq_ckpt") and gathers
-it in the forward and in the recompute. Logits are the rank's vocabulary
-slice in training (``cross_entropy`` over the slices) and gathered whole
-at the last position (``prefill``, ``decode_step``), so every rank's
-server takes the same greedy token. The KV cache holds every KV head;
-where its length divides "model" it is the rank's sequence slice (B,
-Hkv, Sl / tp, hd) and decode is flash-decode, else the whole cache on
-every rank; ``cache["kv_shards"]`` says which (prefill turns its
-head-sliced K/V into that layout with one ``all_to_all`` a tensor). The
-other families raise ``NotImplementedError`` under such a mesh, and every
-entry point raises ``ValueError`` under a mesh whose "model" width is not
-the one the model was built for.
+shapes) of the query heads (``wq``, ``bq``, ``wo``; the audio family's
+encoder and cross attention too), the KV heads where "model" divides them
+(``wk``, ``wv``, ``bk``, ``bv``), the MLPs' ff, the vocabulary (``tok``,
+``head``), the experts (``wi``, ``wo``), rwkv6's time-mix heads (``wr``,
+``wk``, ``wv``, ``wg``, ``u``, ``wo``) and channel-mix ff (``wk``,
+``wv``); each slice only where "model" divides what it splits, else the
+module computes whole on every rank, as the reference's divisibility
+fallback replicates it. The RG-LRU block keeps its weights whole (the
+reference's "lru" axis has no rule) and computes on the rank's slice of
+its width (``models.rglru``). The residual stream stays replicated over
+"model"; in training with remat "full" each checkpointed layer of the
+dense, moe and vlm families keeps the rank's S / tp sequence slice of its
+input (the reference's "act_seq_ckpt") and gathers it in the forward and
+in the recompute. Logits are the rank's vocabulary slice in training
+(``cross_entropy`` over the slices) and gathered whole at the last
+position (``prefill``, ``decode_step``), so every rank's server takes the
+same greedy token. The self-attention KV cache (the audio family's
+decoder's too) holds every KV head; where its length divides "model" it
+is the rank's sequence slice (B, Hkv, Sl / tp, hd) and decode is
+flash-decode, else the whole cache on every rank; ``cache["kv_shards"]``
+says which (prefill turns its head-sliced K/V into that layout with one
+``all_to_all`` a tensor). The hybrid family's rings hold their KV heads
+whole on every rank (its one KV head of 2,048 x 256 is 1 MB a layer and a
+row in bf16, and ring decode is no flash-decode in the reference either).
+The other per-rank caches: the ssm family's ``wkv`` holds the rank's
+heads (L, B, H / tp, hd, hd) (``x_tm``, ``x_cm`` whole); the hybrid
+family's ``h`` and ``conv`` the rank's LRU width; the audio family's cross
+K/V the rank's KV heads (L, B, Hkv / tp, T, hd) where "model" divides
+them: they never grow, so cross decode needs no collective (the
+reference's "act_kv_seq" layout is a placement, not an answer), else every
+KV head. ``cache_tp_dims`` names each cache tensor's split dim and
+``repro_torch.convert.whole_cache`` gathers a rank's cache into the
+reference's layout. Every entry point raises ``ValueError`` under a mesh
+whose "model" width is not the one the model was built for.
 """
 from __future__ import annotations
 
@@ -116,7 +133,6 @@ from repro_torch.models.layers import (MLP, Embed, cross_entropy,
                                        rms_norm, rope_tables)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
-TP_FAMILIES = ("dense", "moe", "vlm")   # tensor parallelism over "model"
 MAX_DECODE_LEN = 32_768       # rows of the audio decoder's position table
 REMAT = ("full", "none")
 
@@ -196,11 +212,6 @@ class Model(nn.Module):
         self._full_shapes: Dict[str, Tuple[int, ...]] = {}
         ctx = dist.current()
         if ctx is not None and ctx.sizes.get(dist.TP_AXIS, 1) > 1:
-            if cfg.family not in TP_FAMILIES:
-                raise NotImplementedError(
-                    f"tensor parallelism over {dist.TP_AXIS!r} is not ported "
-                    f"for the {cfg.family} family ({cfg.name}); the port "
-                    f"shards {TP_FAMILIES} (ROADMAP queue 1 item 3)")
             self._shard_tp(dist.tp_group(ctx))
 
     # ------------------------------------------------ tensor parallelism
@@ -229,6 +240,15 @@ class Model(nn.Module):
                     cfg.moe.num_experts % n == 0:
                 mod.tp = tp
                 dims.update(wi=0, wo=0)
+            elif isinstance(mod, rwkv6.TimeMix) and mod.heads % n == 0:
+                mod.tp = tp
+                dims.update(u=0, wr=1, wk=1, wv=1, wg=1, wo=0)
+            elif isinstance(mod, rwkv6.ChannelMix) and \
+                    mod.wv.shape[0] % n == 0:
+                mod.tp = tp
+                dims.update(wk=1, wv=0)
+            elif isinstance(mod, rglru.RecBlock) and mod.lru_width % n == 0:
+                mod.tp = tp             # whole weights, the rank's width
             for pname, d in dims.items():
                 param = getattr(mod, pname, None)
                 if param is None:
@@ -510,19 +530,40 @@ class Model(nn.Module):
         enc = self._encode(self._frames(enc_frames))
         x = self._embed_audio(tokens)
         B, S = tokens.shape
-        L, hd, nkv = len(self.dec_layers), cfg.resolved_head_dim, \
-            cfg.num_kv_heads
+        L, hd = len(self.dec_layers), cfg.resolved_head_dim
+        shards = self._kv_shards(S)
         kv = dict(dtype=x.dtype, device=self.device)
-        kc, vc = (torch.empty((L, B, nkv, S, hd), **kv) for _ in range(2))
-        ck, cv = (torch.empty((L, B, nkv, enc.shape[1], hd), **kv)
-                  for _ in range(2))
+        kc, vc = (torch.empty((L, B, cfg.num_kv_heads, S // shards, hd),
+                              **kv) for _ in range(2))
+        ck, cv = (torch.empty((L, B, self._cross_kv_heads(), enc.shape[1],
+                               hd), **kv) for _ in range(2))
         for i, lp in enumerate(self.dec_layers):
             x, _, (k, v, kx, vx) = tfm.decoder_layer(lp, cfg, x, None,
                                                      enc_out=enc)
-            kc[i] = k.transpose(1, 2)           # (B, Hkv, S, hd) cache layout
-            vc[i] = v.transpose(1, 2)
+            kc[i] = self._to_cache(lp, k, shards)
+            vc[i] = self._to_cache(lp, v, shards)
             ck[i], cv[i] = kx, vx
-        return x, {"layers": (kc, vc, ck, cv)}
+        cache = {"layers": (kc, vc, ck, cv)}
+        if self.tp is not None:
+            cache["kv_shards"] = shards
+        return x, cache
+
+    def _cross_kv_heads(self) -> int:
+        """The KV heads of the audio family's cross caches on this rank."""
+        cross = self.dec_layers[0].cross
+        return self.cfg.num_kv_heads // (self.tp.size if cross.kv_local
+                                         else 1)
+
+    def _rec_block(self) -> rglru.RecBlock:
+        """The hybrid family's first RG-LRU block (all hold one width)."""
+        return next(m for m in self.modules()
+                    if isinstance(m, rglru.RecBlock))
+
+    def _rwkv_heads(self) -> int:
+        """The WKV heads this rank computes: H, or H / tp where the time
+        mix is head-sharded."""
+        tm = self.layers[0].tm
+        return tm.heads // (1 if tm.tp is None else tm.tp.size)
 
     def _forward_rwkv(self, tokens: torch.Tensor
                       ) -> Tuple[torch.Tensor, Cache]:
@@ -531,7 +572,7 @@ class Model(nn.Module):
         x = embed_tokens(self.embed, tokens)
         x = layer_norm(x, 1.0 + self.ln0, torch.zeros_like(self.ln0),
                        cfg.norm_eps)
-        H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        H, hd = self._rwkv_heads(), cfg.rwkv_head_dim
         states, x_tm, x_cm = [], [], []
         for lp in self.layers:
             s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
@@ -557,7 +598,7 @@ class Model(nn.Module):
         state {"h", "conv"}; "conv" None unless ``collect``)."""
         cfg = self.cfg
         h = rms_norm(x, lp.ln_rec, cfg.norm_eps)
-        h0 = torch.zeros((x.shape[0], cfg.lru_width or cfg.d_model),
+        h0 = torch.zeros((x.shape[0], rglru.width(lp.rec)),
                          dtype=torch.float32, device=x.device)
         out, h_last, conv = rglru.rec_block(lp.rec, cfg, h, h0,
                                             collect_state=collect)
@@ -574,13 +615,15 @@ class Model(nn.Module):
         x = x + out
         return x + lp.mlp(rms_norm(x, lp.ln_mlp, cfg.norm_eps)), state
 
-    def _to_ring(self, t: torch.Tensor) -> torch.Tensor:
-        """(B, S, Hkv, hd) -> the ring (B, Hkv, W, hd): slot i holds the
-        position p with p % W == i. S < W is right-padded with zeros (the
-        decode's warm-up mask covers them); S >= W keeps the last W rows,
-        which S % W == 0 keeps aligned."""
+    def _to_ring(self, lp: tfm.DecoderLayer, t: torch.Tensor
+                 ) -> torch.Tensor:
+        """Layer ``lp``'s (B, S, H, hd) K or V -> the ring (B, Hkv, W, hd)
+        of every KV head (gathered over "model" where the rank holds its
+        slice of them): slot i holds the position p with p % W == i. S < W
+        is right-padded with zeros (the decode's warm-up mask covers them);
+        S >= W keeps the last W rows, which S % W == 0 keeps aligned."""
         W = self.cfg.window
-        t = t.transpose(1, 2)
+        t = self._to_cache(lp, t, 1)
         S = t.shape[2]
         if S < W:
             return torch.nn.functional.pad(t, (0, 0, 0, W - S))
@@ -603,7 +646,7 @@ class Model(nn.Module):
             if kind == "attn":
                 x, _, (k, v) = tfm.decoder_layer(lp, cfg, x, rope,
                                                  window=cfg.window)
-                return x, (self._to_ring(k), self._to_ring(v))
+                return x, (self._to_ring(lp, k), self._to_ring(lp, v))
             return self._rec_layer(lp, x)
 
         per_key: Dict[str, list] = {key: [] for key, _ in self._hybrid_keys()}
@@ -682,10 +725,12 @@ class Model(nn.Module):
             # outside the checkpoint, as in the reference; its aux is 0
             self._gather("dense0")
             x = tfm.decoder_layer(self.dense0, cfg, x, *extra)[0]
-        # under tensor parallelism each checkpointed layer keeps the rank's
-        # sequence slice of its input (the reference's "act_seq_ckpt")
+        # under tensor parallelism each checkpointed decoder layer keeps the
+        # rank's sequence slice of its input (the reference's
+        # "act_seq_ckpt")
         sliced = self.tp is not None and S % self.tp.size == 0 and \
-            self.remat == "full" and torch.is_grad_enabled()
+            self.remat == "full" and torch.is_grad_enabled() and \
+            cfg.family in ("dense", "moe", "vlm")
         if sliced:
             x = dist.split_dim(x, 1, self.tp)
             layer = functools.partial(self._train_layer, sliced=True)
@@ -784,7 +829,7 @@ class Model(nn.Module):
     def _train_rwkv_layer(self, i: int, lp, x: torch.Tensor) -> torch.Tensor:
         self._gather(f"layers.{i}")
         cfg = self.cfg
-        H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        H, hd = self._rwkv_heads(), cfg.rwkv_head_dim
         s0 = torch.zeros((x.shape[0], H, hd, hd), dtype=torch.float32,
                          device=self.device)
         return rwkv6.block(lp, cfg, x, s0)[0]
@@ -826,7 +871,7 @@ class Model(nn.Module):
         B, L, d = batch_size, cfg.num_layers, cfg.d_model
         f32 = dict(dtype=torch.float32, device=self.device)
         if cfg.family == "ssm":
-            H, rhd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+            H, rhd = self._rwkv_heads(), cfg.rwkv_head_dim
             return {"wkv": torch.zeros((L, B, H, rhd, rhd), **f32),
                     "x_tm": torch.zeros((L, B, d), **f32),
                     "x_cm": torch.zeros((L, B, d), **f32),
@@ -835,7 +880,7 @@ class Model(nn.Module):
         if cfg.family == "hybrid":
             # the ring of ``window`` slots: cache_len does not enter
             ring = (B, cfg.num_kv_heads, cfg.window, cfg.resolved_head_dim)
-            w, K = cfg.lru_width or d, cfg.conv_width
+            K, w = cfg.conv_width, rglru.width(self._rec_block())
 
             def layer_cache(kind, lead=()):
                 if kind == "attn":
@@ -849,15 +894,19 @@ class Model(nn.Module):
                     "tail": [layer_cache(kind)
                              for kind in self._hybrid_tail_kinds()],
                     "pos": 0}
+        shards = self._kv_shards(cache_len)
         if cfg.is_encoder_decoder:
             # the cross K/V stay zero until a prefill writes them
-            self_kv = (L, B, cfg.num_kv_heads, cache_len,
-                       cfg.resolved_head_dim)
-            cross_kv = self_kv[:3] + (cfg.encoder_seq_len, self_kv[4])
-            return {"layers": tuple(torch.zeros(shape, **kv) for shape in
-                                    (self_kv, self_kv, cross_kv, cross_kv)),
-                    "pos": 0}
-        shards = self._kv_shards(cache_len)
+            hd = cfg.resolved_head_dim
+            self_kv = (L, B, cfg.num_kv_heads, cache_len // shards, hd)
+            cross_kv = (L, B, self._cross_kv_heads(), cfg.encoder_seq_len,
+                        hd)
+            cache = {"layers": tuple(torch.zeros(shape, **kv) for shape in
+                                     (self_kv, self_kv, cross_kv, cross_kv)),
+                     "pos": 0}
+            if self.tp is not None:
+                cache["kv_shards"] = shards
+            return cache
         shape = (len(self.layers), B, cfg.num_kv_heads, cache_len // shards,
                  cfg.resolved_head_dim)
         cache = {"layers": (torch.zeros(shape, **kv),
@@ -886,12 +935,14 @@ class Model(nn.Module):
             return self._decode_hybrid(self._tokens(tokens), cache, pos)
         x = dist.constraint(embed_tokens(self.embed, self._tokens(tokens)),
                             "act_batch", "act_embed")
+        sharded = cache.get("kv_shards", 1) > 1
         if cfg.is_encoder_decoder:
             x = x + self.pos_dec.to(x.dtype)[pos]
             kc, vc, ck, cv = cache["layers"]
             for i, lp in enumerate(self.dec_layers):
                 x = tfm.decoder_layer_step(lp, cfg, x, kc[i], vc[i], pos,
-                                           None, enc_kv=(ck[i], cv[i]))
+                                           None, enc_kv=(ck[i], cv[i]),
+                                           kv_sharded=sharded)
         elif cfg.family == "ssm":
             for i, lp in enumerate(self.layers):
                 st = {name: cache[name][i] for name in ("wkv", "x_tm",
@@ -902,7 +953,6 @@ class Model(nn.Module):
         else:
             kc, vc = cache["layers"]
             rope = self._rope_at(x.shape[0], pos)
-            sharded = cache.get("kv_shards", 1) > 1
             if hasattr(self, "dense0"):
                 x = tfm.decoder_layer_step(self.dense0, cfg, x,
                                            *cache["dense0"], pos, rope,
@@ -912,6 +962,35 @@ class Model(nn.Module):
                                            rope, kv_sharded=sharded)
         cache["pos"] = pos + 1
         return self._final_logits(x), cache
+
+    def cache_tp_dims(self, cache: Cache):
+        """``cache``'s structure (without "pos" and "kv_shards") with, in
+        place of each tensor, the dim that holds the rank's slice of it over
+        "model", or None where the rank holds it whole (see the module's
+        docstring)."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            heads = 2 if self.layers[0].tm.tp is not None else None
+            return {"wkv": heads, "x_tm": None, "x_cm": None}
+        if cfg.family == "hybrid":
+            split = self._rec_block().tp is not None
+
+            def dims(c, lead):
+                if isinstance(c, tuple):        # a ring: whole
+                    return (None, None)
+                return {"h": lead + 1 if split else None,
+                        "conv": lead + 2 if split else None}
+            return {"units": {key: dims(c, 1)
+                              for key, c in cache["units"].items()},
+                    "tail": [dims(c, 0) for c in cache["tail"]]}
+        seq = 3 if cache.get("kv_shards", 1) > 1 else None
+        if cfg.is_encoder_decoder:
+            cross = 2 if self.dec_layers[0].cross.kv_local else None
+            return {"layers": (seq, seq, cross, cross)}
+        out: Dict[str, Any] = {"layers": (seq, seq)}
+        if "dense0" in cache:
+            out["dense0"] = (None if seq is None else seq - 1,) * 2
+        return out
 
     def _decode_hybrid(self, tokens: torch.Tensor, cache: Cache, pos: int
                        ) -> Tuple[torch.Tensor, Cache]:

@@ -12,15 +12,28 @@ sequence (prefill) the LRU is the RG-LRU scan kernel on the card
 (``repro_torch.kernels.rglru``, K5) and its plain version on the CPU,
 where the JAX package runs ``lax.associative_scan``; one decode step is
 plain tensor code, elementwise on (B, W), as there.
+
+Under tensor parallelism (``RecBlock.tp``, set by the model where "model"
+divides the LRU width) the block runs on the rank's slice of the width:
+the reference gives the LRU's weights the logical axis "lru", which has no
+rule, so they stay whole on every rank, and only its activations split
+("act_ff"). Each rank takes its columns of ``wx``, ``wg``, ``conv``,
+``conv_b``, ``wa``, ``wi`` and ``lam`` and its rows of ``wo`` through
+``dist.split_dim`` (so each gradient is gathered whole on every rank),
+its input through ``dist.copy_in``, runs the conv and the scan on (B, S,
+W / tp), and sums the partial outputs over "model". Its decode state is
+the rank's slice: ``h`` (B, W / tp), ``conv`` (B, K-1, W / tp).
 """
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from repro_torch.dist import api as dist
 from repro_torch.kernels.rglru import decay_and_input
 from repro_torch.kernels.rglru import gates as lru_gates
 from repro_torch.kernels.rglru import rglru as lru_scan
@@ -43,6 +56,7 @@ class RecBlock(nn.Module):
     def __init__(self, init: Init, cfg):
         super().__init__()
         d, w = cfg.d_model, cfg.lru_width or cfg.d_model
+        self.lru_width = w
         self.wx = init.dense(d, w)
         self.wg = init.dense(d, w)
         self.conv = init.normal((cfg.conv_width, w),
@@ -52,6 +66,32 @@ class RecBlock(nn.Module):
         self.wi = init.normal((w,), 0.1)
         self.lam = init.full((w,), 0.65)            # a ~ .9 at init
         self.wo = init.dense(w, d)
+        self.tp: Optional[dist.TPGroup] = None     # set when width-sharded
+
+    # the dim of each parameter that holds the LRU width
+    WIDTH = {"wx": 1, "wg": 1, "conv": 1, "conv_b": 0, "wa": 0, "wi": 0,
+             "lam": 0, "wo": 0}
+
+
+def width(p: RecBlock) -> int:
+    """The LRU width this rank computes: W, or W / tp under tensor
+    parallelism."""
+    return p.lru_width // (1 if p.tp is None else p.tp.size)
+
+
+def _used(p: RecBlock):
+    """The block's parameters as this rank computes with them: ``p``
+    itself without tensor parallelism, else each cut to the rank's slice of
+    the width by ``dist.split_dim``."""
+    if p.tp is None:
+        return p
+    return SimpleNamespace(**{name: dist.split_dim(getattr(p, name), d, p.tp)
+                              for name, d in RecBlock.WIDTH.items()})
+
+
+def _out(p: RecBlock, y: torch.Tensor) -> torch.Tensor:
+    """The rank's partial output projections summed over "model"."""
+    return y if p.tp is None else dist.reduce_out(y, p.tp)
 
 
 class RecLayer(nn.Module):
@@ -113,32 +153,37 @@ def rg_lru_step(p: RecBlock, xb: torch.Tensor, h0: torch.Tensor
 
 def rec_block(p: RecBlock, cfg, x: torch.Tensor, h0: torch.Tensor, *,
               collect_state: bool = False):
-    """The recurrent block over a sequence (prefill). x (B, S, D).
+    """The recurrent block over a sequence (prefill). x (B, S, D); h0 (B,
+    ``width(p)``).
 
     Returns (out (B, S, D), h_last (B, W) float32, conv_state): the last
     K-1 raw conv inputs in float32, the decode's seed (None unless
-    ``collect_state``)."""
-    gate = gelu(x @ p.wg)
-    xb = x @ p.wx
+    ``collect_state``); W the rank's width."""
+    if p.tp is not None:
+        x = dist.copy_in(x, p.tp)
+    w = _used(p)
+    gate = gelu(x @ w.wg)
+    xb = x @ w.wx
     conv_state = None
     if collect_state:
-        K = p.conv.shape[0]
+        K = w.conv.shape[0]
         conv_state = xb[:, -(K - 1):].float()
-    xbc = _conv1d(xb, p.conv, p.conv_b)
-    y, h_last = rg_lru(p, xbc, h0)
-    return (y * gate) @ p.wo, h_last, conv_state
+    xbc = _conv1d(xb, w.conv, w.conv_b)
+    y, h_last = rg_lru(w, xbc, h0)
+    return _out(p, (y * gate) @ w.wo), h_last, conv_state
 
 
 def rec_block_step(p: RecBlock, cfg, x: torch.Tensor, state: State
                    ) -> Tuple[torch.Tensor, State]:
     """One decode step. x (B, D); state {"h" (B, W), "conv" (B, K-1, W)},
-    both float32 -> (out (B, D), the new state)."""
-    gate = gelu(x @ p.wg)
-    xb = x @ p.wx
-    xb2, conv_state = _conv1d(xb[:, None], p.conv, p.conv_b, state["conv"])
-    y, h = rg_lru_step(p, xb2[:, 0], state["h"])
-    return (y * gate) @ p.wo, {"h": h, "conv": conv_state}
+    both float32, W the rank's width -> (out (B, D), the new state)."""
+    w = _used(p)
+    gate = gelu(x @ w.wg)
+    xb = x @ w.wx
+    xb2, conv_state = _conv1d(xb[:, None], w.conv, w.conv_b, state["conv"])
+    y, h = rg_lru_step(w, xb2[:, 0], state["h"])
+    return _out(p, (y * gate) @ w.wo), {"h": h, "conv": conv_state}
 
 
 __all__ = ["RecBlock", "RecLayer", "State", "rec_block", "rec_block_step",
-           "rg_lru", "rg_lru_step"]
+           "rg_lru", "rg_lru_step", "width"]

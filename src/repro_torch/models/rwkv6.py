@@ -7,15 +7,31 @@ of the whole sequence. With gradients on, the call is differentiated by
 the WKV6 backward kernel (``kernels.wkv6.ops``). Decode is one O(1) state
 update in plain PyTorch, as in the JAX package, where it is no Pallas
 kernel either.
+
+Under tensor parallelism (``TimeMix.tp`` and ``ChannelMix.tp``, set by
+the model where "model" divides the heads and the channel mix's ff, see
+``repro_torch.dist.api``) the time mix runs on the rank's heads: ``wr``,
+``wk``, ``wv`` and ``wg`` hold the rank's columns, ``u`` its rows and
+``wo`` its rows (row-parallel, the partial outputs summed over "model");
+the token shift's interpolation (``_ddlerp``) and the decay's low-rank
+product stay whole on every rank, and the per-channel ``dw0``, ``dw2``,
+``ln_x_s`` and ``ln_x_b`` are cut to the rank's heads (the group norm has
+one group a head, so it is local). The channel mix holds the rank's ff
+slice of ``wk`` and ``wv`` and the whole ``wr``. Every replicated tensor a
+rank uses for its part only enters through ``dist.copy_in`` (or, cut to
+its slice, ``dist.split_dim``), so its gradient is whole on every rank.
+The decode state's ``wkv`` is the rank's heads (B, H / tp, hd, hd).
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist import api as dist
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models.common import Init
 from repro_torch.models.layers import group_norm, layer_norm
@@ -45,6 +61,7 @@ class TimeMix(nn.Module):
         self.dw0 = init.full((d,), -3.0)                  # decay ~ .95
         self.dw1 = init.dense(d, LORA_DECAY)
         self.dw2 = init.normal((LORA_DECAY, d), 0.01)
+        self.heads = H
         self.u = init.normal((H, hd), 0.1)
         self.wr = init.dense(d, d)
         self.wk = init.dense(d, d)
@@ -53,6 +70,12 @@ class TimeMix(nn.Module):
         self.wo = init.dense(d, d)
         self.ln_x_s = init.ones((d,))
         self.ln_x_b = init.zeros((d,))
+        self.tp: Optional[dist.TPGroup] = None     # set when head-sharded
+
+    # the replicated parameters that feed the rank's heads: whole, and cut
+    # to the rank's channels (their dim)
+    WHOLE = ("mu_x", "mu_rkvgw", "w1", "w2", "dw1")
+    CUT = {"dw0": 0, "dw2": 1, "ln_x_s": 0, "ln_x_b": 0}
 
 
 class ChannelMix(nn.Module):
@@ -67,6 +90,7 @@ class ChannelMix(nn.Module):
         self.wk = init.dense(d, cfg.d_ff)
         self.wv = init.dense(cfg.d_ff, d)
         self.wr = init.dense(d, d)
+        self.tp: Optional[dist.TPGroup] = None     # set when ff-sharded
 
 
 class Block(nn.Module):
@@ -122,29 +146,66 @@ def wkv_step(r, k, v, logw, u, state):
     return y, state
 
 
+def _used(tm: TimeMix):
+    """The time mix's parameters as this rank computes with them: ``tm``
+    itself without tensor parallelism; else the rank's slices as they are,
+    the replicated parameters through ``dist.copy_in`` and the
+    per-channel ones cut to the rank's heads by ``dist.split_dim``."""
+    tp = tm.tp
+    if tp is None:
+        return tm
+    used = dict(tm.named_parameters(recurse=False))
+    for name in TimeMix.WHOLE:
+        used[name] = dist.copy_in(used[name], tp)
+    for name, d in TimeMix.CUT.items():
+        used[name] = dist.split_dim(used[name], d, tp)
+    return SimpleNamespace(**used)
+
+
+def _mix(tm: TimeMix, x, sx, state, wkv):
+    """The time mix over x (B, S, D) (sx = shifted x minus x), the WKV
+    recurrence ``wkv(r, k, v, logw, u, state)`` on the rank's heads ->
+    (out (B, S, D), state); the row-parallel partial outputs are summed
+    over "model"."""
+    B, S, _ = x.shape
+    hd = tm.u.shape[1]
+    tp = tm.tp
+    if tp is not None:
+        x, sx = dist.copy_in(x, tp), dist.copy_in(sx, tp)
+    w = _used(tm)
+    xr, xk, xv, xg, xw = _ddlerp(w, x, sx)
+    r = (xr @ w.wr).reshape(B, S, -1, hd)
+    H = r.shape[2]
+    k = (xk @ w.wk).reshape(B, S, H, hd)
+    v = (xv @ w.wv).reshape(B, S, H, hd)
+    g = F.silu(xg @ w.wg)
+    logw = _decay_logw(w, xw).reshape(B, S, H, hd)
+    y, state = wkv(r, k, v, logw, w.u, state)
+    y = y.reshape(B, S, H * hd).to(x.dtype)
+    y = group_norm(y, w.ln_x_s, w.ln_x_b, num_groups=H) * g
+    out = y @ w.wo
+    return (out if tp is None else dist.reduce_out(out, tp)), state
+
+
 def time_mix(p: Block, cfg, x, sx, state):
-    """x (B, S, D) prefill (sx = shifted x minus x); state (B, H, hd, hd)."""
-    B, S, d = x.shape
-    H, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
-    tm = p.tm
-    xr, xk, xv, xg, xw = _ddlerp(tm, x, sx)
-    r = (xr @ tm.wr).reshape(B, S, H, hd)
-    k = (xk @ tm.wk).reshape(B, S, H, hd)
-    v = (xv @ tm.wv).reshape(B, S, H, hd)
-    g = F.silu(xg @ tm.wg)
-    logw = _decay_logw(tm, xw).reshape(B, S, H, hd)
-    y, state = wkv_chunked(r, k, v, logw, tm.u, state)
-    y = y.reshape(B, S, d).to(x.dtype)
-    y = group_norm(y, tm.ln_x_s, tm.ln_x_b, num_groups=H) * g
-    return y @ tm.wo, state
+    """x (B, S, D) prefill (sx = shifted x minus x); state (B, H, hd, hd),
+    H the heads the rank holds."""
+    return _mix(p.tm, x, sx, state, wkv_chunked)
 
 
 def channel_mix(p: Block, x, sx):
+    """x (..., D); with ``tp`` the rank's ff slice, its partial outputs
+    summed over "model" (the receptance gate stays whole)."""
     pc = p.cm
     xk = x + sx * pc.mu_k.to(x.dtype)
     xr = x + sx * pc.mu_r.to(x.dtype)
+    if pc.tp is not None:
+        xk = dist.copy_in(xk, pc.tp)
     k = F.relu(xk @ pc.wk).square()
-    return torch.sigmoid(xr @ pc.wr) * (k @ pc.wv)
+    kv = k @ pc.wv
+    if pc.tp is not None:
+        kv = dist.reduce_out(kv, pc.tp)
+    return torch.sigmoid(xr @ pc.wr) * kv
 
 
 def shift(x: torch.Tensor) -> torch.Tensor:
@@ -171,23 +232,18 @@ def block(p: Block, cfg, x, wkv_state, *, collect_last: bool = False
     return x, wkv_state, last
 
 
+def _step_wkv(r, k, v, logw, u, state):
+    """``wkv_step`` on the (B, 1, H, hd) rows of ``_mix``."""
+    y, state = wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], u, state)
+    return y[:, None], state
+
+
 def block_step(p: Block, cfg, x, state: Dict[str, torch.Tensor]):
     """One decode step. x (B, D); state dict(wkv, x_tm, x_cm)."""
-    B, d = x.shape
-    H, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
-    tm = p.tm
     h = _ln(x, p.ln1, cfg.norm_eps)
     sx = state["x_tm"].to(h.dtype) - h
-    xr, xk, xv, xg, xw = _ddlerp(tm, h[:, None], sx[:, None])
-    r = (xr @ tm.wr).reshape(B, H, hd)
-    k = (xk @ tm.wk).reshape(B, H, hd)
-    v = (xv @ tm.wv).reshape(B, H, hd)
-    g = F.silu(xg @ tm.wg)[:, 0]
-    logw = _decay_logw(tm, xw).reshape(B, H, hd)
-    y, wkv = wkv_step(r, k, v, logw, tm.u, state["wkv"])
-    y = y.reshape(B, d).to(x.dtype)
-    y = group_norm(y, tm.ln_x_s, tm.ln_x_b, num_groups=H) * g
-    x = x + y @ tm.wo
+    dt, wkv = _mix(p.tm, h[:, None], sx[:, None], state["wkv"], _step_wkv)
+    x = x + dt[:, 0]
 
     h2 = _ln(x, p.ln2, cfg.norm_eps)
     sx2 = state["x_cm"].to(h2.dtype) - h2

@@ -5,7 +5,14 @@ family's attention layers, a sliding window (``local_attention`` over a
 sequence, the ring-buffer decode ``_ring_decode``); and the audio family's
 (whisper) encoder layer and decoder layer with cross attention over the
 encoder's output (``project_cross_kv``, ``_plain_decode_attn`` in
-decode), both normed by LayerNorm (``norm``)."""
+decode), both normed by LayerNorm (``norm``).
+
+Under tensor parallelism every attention of these layers runs through
+``attention.tp_attention`` (the rank's heads, its query rows, or the
+whole) and ``attention.out_projection``, the decoder's cross attention
+included: its queries and K/V are the rank's heads where those divide
+"model" (the cross caches then hold the rank's KV heads, so cross decode
+needs no collective)."""
 from __future__ import annotations
 
 import math
@@ -77,11 +84,27 @@ def norm(cfg, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def project_cross_kv(p: attn.Attention, cfg, enc_out: torch.Tensor) -> KV:
     """A layer's cross-attention K/V of the encoder output (B, T, D), in
     the cache layout (B, Hkv, T, hd): views of (B, T, Hkv, hd) products,
-    so that the kernel reads them through strides."""
+    so that the kernel reads them through strides. Under tensor
+    parallelism the rank's KV heads where "model" divides them, else all
+    of them; ``enc_out``, and the replicated ``wk`` and ``wv`` where each
+    rank uses part of them, have their gradients summed over "model"."""
     B, T, _ = enc_out.shape
-    shape = (B, T, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return ((enc_out @ p.wk).reshape(shape).transpose(1, 2),
-            (enc_out @ p.wv).reshape(shape).transpose(1, 2))
+    wk, wv = p.wk, p.wv
+    if p.tp is not None and p.heads_local:
+        enc_out = dist.copy_in(enc_out, p.tp)
+        if not p.kv_local:
+            wk, wv = dist.copy_in(wk, p.tp), dist.copy_in(wv, p.tp)
+    shape = (B, T, -1, cfg.resolved_head_dim)
+    return ((enc_out @ wk).reshape(shape).transpose(1, 2),
+            (enc_out @ wv).reshape(shape).transpose(1, 2))
+
+
+def _cross_q(p: attn.Attention, cfg, h: torch.Tensor) -> torch.Tensor:
+    """The cross attention's queries of h (..., D) -> (..., H, hd), H the
+    query heads the rank holds."""
+    if p.tp is not None and p.heads_local:
+        h = dist.copy_in(h, p.tp)
+    return (h @ p.wq).unflatten(-1, (-1, cfg.resolved_head_dim))
 
 
 def decoder_layer(p: DecoderLayer, cfg, x: torch.Tensor,
@@ -96,22 +119,18 @@ def decoder_layer(p: DecoderLayer, cfg, x: torch.Tensor,
     family's encoder output, adds the cross-attention branch. Returns (x,
     aux, cache): the MoE's aux (zero for a dense FFN); the cache (k, v)
     (B, S, Hkv, hd), and with ``enc_out`` also the cross K/V of
-    ``project_cross_kv`` (B, Hkv, T, hd)."""
+    ``project_cross_kv`` (B, Hkv, T, hd) (the KV heads the rank holds)."""
     h = norm(cfg, x, p.ln_attn)
     q, k, v = attn.project_qkv(p.attn, cfg, h, rope)
-    if window:
-        o = attn.local_attention(q, k, v, window=window)
-    else:
-        o = attn.self_attention(p.attn, q, k, v)
+    o = attn.tp_attention(p.attn, q, k, v, window=window)
     x = x + attn.out_projection(p.attn, o)
     cache: Tuple = (k, v)
     if enc_out is not None:
         h = norm(cfg, x, p.ln_cross)
-        B, S, _ = h.shape
-        qc = (h @ p.cross.wq).reshape(B, S, cfg.num_heads,
-                                      cfg.resolved_head_dim)
+        qc = _cross_q(p.cross, cfg, h)
         kc, vc = project_cross_kv(p.cross, cfg, enc_out)
-        oc = attn.cross_attention(qc, kc.transpose(1, 2), vc.transpose(1, 2))
+        oc = attn.tp_attention(p.cross, qc, kc.transpose(1, 2),
+                               vc.transpose(1, 2), causal=False)
         x = x + attn.out_projection(p.cross, oc)
         cache = (k, v, kc, vc)
     h = norm(cfg, x, p.ln_mlp)
@@ -134,46 +153,53 @@ def decoder_layer_step(p: DecoderLayer, cfg, x: torch.Tensor,
     tables of ``pos`` (None in the audio family); ``enc_kv`` the audio
     family's cross caches (B, Hkv, T, hd), read, not written
     (``_plain_decode_attn``). An MoE layer routes the step's B tokens as
-    one call and drops its aux. Under tensor parallelism the caches hold
-    every KV head, ``kv_sharded`` says whether they are this rank's
-    sequence slice (flash-decode) or the whole, the rank's q/k/v heads
-    are gathered over "model" for the attention, and its query heads of
-    the output go into its slice of ``wo``. Returns x."""
+    one call and drops its aux. Under tensor parallelism the self caches
+    hold every KV head, ``kv_sharded`` says whether they are this rank's
+    sequence slice (flash-decode) or the whole (a ring is always whole),
+    the rank's q/k/v heads are gathered over "model" for the attention,
+    and its query heads of the output go into its slice of ``wo``; the
+    cross caches hold the KV heads of the rank's cross projection
+    (``project_cross_kv``). Returns x."""
     B, _ = x.shape
     h = norm(cfg, x, p.ln_attn)[:, None]                       # (B, 1, D)
     q, k, v = attn.project_qkv(p.attn, cfg, h, rope)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
     tp = p.attn.tp
+    if tp is None:
+        if window:
+            o = _ring_decode(q, kcache, vcache, k, v, pos)
+        else:
+            o = attn.decode_attention(q, kcache, vcache, k, v, pos)
+        return _step_rest(p, cfg, x + o.reshape(B, -1) @ p.attn.wo, enc_kv)
+    heads = q.shape[1]
+    if p.attn.heads_local:
+        q = dist.gather_dim(q, 1, tp)
+    if p.attn.kv_local:
+        k, v = dist.gather_dim(k, 1, tp), dist.gather_dim(v, 1, tp)
     if window:
         o = _ring_decode(q, kcache, vcache, k, v, pos)
-    elif tp is None:
-        o = attn.decode_attention(q, kcache, vcache, k, v, pos)
     else:
-        heads = q.shape[1]
-        if p.attn.heads_local:
-            q = dist.gather_dim(q, 1, tp)
-        if p.attn.kv_local:
-            k, v = dist.gather_dim(k, 1, tp), dist.gather_dim(v, 1, tp)
         o = attn.decode_attention(q, kcache, vcache, k, v, pos,
                                   tp if kv_sharded else None)
-        if p.attn.heads_local:
-            o = o.narrow(1, tp.rank * heads, heads)
-        return _step_rest(p, cfg, x + attn.out_projection(
-            p.attn, o[:, None])[:, 0], enc_kv)
-    return _step_rest(p, cfg, x + o.reshape(B, -1) @ p.attn.wo, enc_kv)
+    if p.attn.heads_local:
+        o = o.narrow(1, tp.rank * heads, heads)
+    return _step_rest(p, cfg, x + attn.out_projection(
+        p.attn, o[:, None])[:, 0], enc_kv)
 
 
 def _step_rest(p: DecoderLayer, cfg, x: torch.Tensor,
                enc_kv: Optional[KV]) -> torch.Tensor:
     """A decode step after its self-attention: the cross attention (the
-    audio family), then the FFN."""
-    B, _ = x.shape
+    audio family; the rank's query heads over the KV heads they read),
+    then the FFN."""
     if enc_kv is not None:
-        hc = norm(cfg, x, p.ln_cross)
-        qc = (hc @ p.cross.wq).reshape(B, cfg.num_heads,
-                                       cfg.resolved_head_dim)
-        oc = _plain_decode_attn(qc, *enc_kv)
-        x = x + oc.reshape(B, -1) @ p.cross.wo
+        cross, (ck, cv) = p.cross, enc_kv
+        qc = _cross_q(cross, cfg, norm(cfg, x, p.ln_cross))
+        if cross.tp is not None and cross.heads_local and \
+                not cross.kv_local:
+            ck, cv = attn.kv_of_heads(ck, cv, qc.shape[1], cross.tp, dim=1)
+        oc = _plain_decode_attn(qc, ck, cv)
+        x = x + attn.out_projection(cross, oc[:, None])[:, 0]
     h = norm(cfg, x, p.ln_mlp)
     if p.moe_layer:
         return x + moe_mod.apply_moe(p.moe, cfg, h[:, None])[0][:, 0]
@@ -185,7 +211,7 @@ def encoder_layer(p: EncoderLayer, cfg, x: torch.Tensor) -> torch.Tensor:
     self-attention without RoPE, then the MLP."""
     h = norm(cfg, x, p.ln_attn)
     q, k, v = attn.project_qkv(p.attn, cfg, h, None)
-    o = attn.full_attention(q, k, v, causal=False)
+    o = attn.tp_attention(p.attn, q, k, v, causal=False)
     x = x + attn.out_projection(p.attn, o)
     return x + p.mlp(norm(cfg, x, p.ln_mlp))
 

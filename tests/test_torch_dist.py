@@ -11,10 +11,10 @@ against the JAX package's, exactly.
 - ``sharding``: the DTensor placements mean the reference's spec
   (``Shard(i)`` on each mesh axis of dim i's entry), per leaf through
   ``param_sharding``, a "model" axis wider than 1 included; under such an
-  axis the families tensor parallelism does not cover yet (audio, ssm,
-  hybrid) raise ``NotImplementedError`` naming the family, and a model
-  built outside the mesh raises when it runs under it (the tensor-parallel
-  runs themselves: ``tests/test_torch_tp*.py``).
+  axis a family outside ``FAMILIES`` raises ``NotImplementedError``
+  naming it, and a model built outside the mesh raises when it runs
+  under it (the tensor-parallel runs themselves:
+  ``tests/test_torch_tp*.py``).
 - Context management, ``constraint`` and ``gather_fsdp`` without a
   context: the reference's ``tests/test_dist*.py`` cases.
 - ``Model.param_axes()`` equals the reference's with its layer axis
@@ -35,6 +35,7 @@ against the JAX package's, exactly.
   back, after which prefill gives the unsharded model's logits exactly;
   the step's gradient hooks go with the trainer.
 """
+import dataclasses
 import gc
 import types
 
@@ -167,6 +168,10 @@ def test_param_sharding_requires_a_context():
 
 
 def test_tensor_parallel_mesh_raises_not_implemented():
+    """Under a "model" axis wider than 1 a family outside ``FAMILIES``
+    raises ``NotImplementedError`` naming it; every ported family builds
+    there (``tests/test_torch_tp_train.py``); a model built for another
+    "model" width raises ``ValueError``."""
     ctx = dist.DistContext(fake_mesh(data=2, model=2))
     assert ctx.spec(("fsdp", "tp"), (8, 8)) == ("data", "model")
     assert ctx.sharding(("fsdp", "tp"), (8, 8)) == [Shard(0), Shard(1)]
@@ -175,10 +180,10 @@ def test_tensor_parallel_mesh_raises_not_implemented():
     model = Model(reduced(get_config("qwen3-4b")), device="cpu")
     batch = SyntheticLM(DataConfig(512, 8, 2)).batch_at(0)
     with dist.use_mesh(fake_mesh(data=1, model=16)):
-        for arch, family in (("whisper-small", "audio"), ("rwkv6-7b", "ssm"),
-                             ("recurrentgemma-9b", "hybrid")):
-            with pytest.raises(NotImplementedError, match=family):
-                Model(reduced(get_config(arch)), device="cpu")
+        cfg = dataclasses.replace(reduced(get_config("qwen3-4b")),
+                                  family="retnet")
+        with pytest.raises(NotImplementedError, match="retnet"):
+            Model(cfg, device="cpu")
         with pytest.raises(ValueError, match="build the model under"):
             model.train_loss(batch)
 

@@ -1,6 +1,7 @@
 """Reference runs and rank processes of the port's tensor-parallel CPU tests
 (``tests/test_torch_tp.py``, ``test_torch_tp_moe.py``,
-``test_torch_tp_train.py``).
+``test_torch_tp_train.py``, ``test_torch_tp_ssm.py``,
+``test_torch_tp_hybrid.py``, ``test_torch_tp_audio.py``).
 
 The parameters of each case are the port's seed-0 draw, its q/k/v biases
 drawn from N(0, 0.5^2) so that they count, written as the reference's
@@ -28,6 +29,14 @@ each parameter, the cache layout, the server's tokens). A (1, 2) case runs
 on the four ranks' (2, 2) mesh: a plain ``train_loss``, ``prefill`` or
 ``decode_step`` call does not split its batch over "data", so each of the
 mesh's two "model" groups is a (1, 2) run.
+
+The ssm, hybrid and audio suites (``FAMILY_SUITES``, ``family_suite``)
+write each rank's prefill cache gathered into the reference's whole layout
+(``repro_torch.convert.whole_cache``), decode from one seeded cache that
+both packages read (``seeded_<case>.npz``, written by ``write_inits``; the
+ranks take their slices, ``rank_cache``), run a mutant of the
+family's partly used replicated leaf (``MUTANT``) and two ``Trainer``
+steps at (2, 2) (``FAMILY_TRAIN``) in the same spawn.
 """
 from __future__ import annotations
 
@@ -66,11 +75,57 @@ MOE = {
     "deepseek-moe-16b-drops@1x4": ("deepseek-moe-16b", (1, 4), ((1, 4),),
                                    {}, 0.5),
 }
-SUITES = {"dense": DENSE, "moe": MOE}
-# what the reference runs beyond the loss and its gradients: the dense
-# family's port is held to the unsharded prefill, decode and server (a
-# mesh does not change them), the moe family's to the mesh run's
-SERVED = {"dense": ("plain",), "moe": ("mesh",)}
+# the hybrid cases: a unit and the (rec, rec) tail, two windows of tokens
+# (the windowed path); the other suites run SEQ tokens
+HYBRID_LAYERS, HYBRID_SEQ = 5, 128
+SSM = {
+    # 4 heads of 32: 2 (or 1) a rank; the reference's (2, 2) run splits
+    # the batch over "data" too, which moves u's float32 gradient sum
+    "rwkv6-7b@2x2": ("rwkv6-7b", (2, 2), ((2, 2),), {}, None),
+    "rwkv6-7b@1x4": ("rwkv6-7b", (1, 4), (), {}, None),
+    # 3 heads on 4 ranks: the time mix replicates, the channel mix splits
+    "rwkv6-7b-d96@1x4": ("rwkv6-7b", (1, 4), (), {"d_model": 96}, None),
+}
+HYBRID = {
+    # 4 query heads over 1 KV head: 2 (or 1) a rank, the KV head whole
+    "recurrentgemma-9b@2x2": ("recurrentgemma-9b", (2, 2), (),
+                              {"num_layers": HYBRID_LAYERS}, None),
+    "recurrentgemma-9b@1x4": ("recurrentgemma-9b", (1, 4), (),
+                              {"num_layers": HYBRID_LAYERS}, None),
+    # 6 query heads on 4 ranks: the windowed attention's query rows split
+    "recurrentgemma-9b-h6@1x4": ("recurrentgemma-9b", (1, 4), (),
+                                 {"num_layers": HYBRID_LAYERS,
+                                  "num_heads": 6}, None),
+}
+AUDIO = {
+    # 4 heads over 2 KV heads: both split at (1, 2), the KV whole at (1, 4)
+    "whisper-small@2x2": ("whisper-small", (2, 2), (), {}, None),
+    "whisper-small@1x4": ("whisper-small", (1, 4), (), {}, None),
+    # 6 heads on 4 ranks: every attention's query rows split
+    "whisper-small-h6@1x4": ("whisper-small", (1, 4), (),
+                             {"num_heads": 6, "num_kv_heads": 6}, None),
+}
+SUITES = {"dense": DENSE, "moe": MOE, "ssm": SSM, "hybrid": HYBRID,
+          "audio": AUDIO}
+FAMILY_SUITES = ("ssm", "hybrid", "audio")
+CASES = {case: spec for suite in SUITES.values()
+         for case, spec in suite.items()}
+# what the reference runs beyond the loss and its gradients: the dense,
+# ssm, hybrid and audio families' port is held to the unsharded prefill,
+# decode and server (a mesh does not change them), the moe family's to
+# the mesh run's
+SERVED = {"dense": ("plain",), "moe": ("mesh",), "ssm": ("plain",),
+          "hybrid": ("plain",), "audio": ("plain",)}
+# the suites whose mesh runs also take the gradients: rwkv6's bonus u at
+# (2, 2) is held to the reference's own mesh run
+MESH_GRADS = ("ssm",)
+# suite -> (case, the collective taken out, the leaf whose gradient it
+# makes partial): a rank's partly used replicated leaf
+MUTANT = {"ssm": ("rwkv6-7b@1x4", "split_dim", "layers.0.tm.ln_x_s"),
+          "hybrid": ("recurrentgemma-9b@1x4", "split_dim",
+                     "units.0.l0_rec.rec.wx"),
+          "audio": ("whisper-small@1x4", "copy_in",
+                    "dec_layers.0.cross.wk")}
 DECODE_TOKENS = [[7, 11, 13, 17], [19, 23, 29, 31], [37, 41, 43, 47],
                  [53, 59, 61, 67]]
 
@@ -78,7 +133,7 @@ DECODE_TOKENS = [[7, 11, 13, 17], [19, 23, 29, 31], [37, 41, 43, 47],
 def case_config(case: str, package):
     """The reduced config of ``case`` from ``package``'s configs."""
     import dataclasses
-    arch, _, _, overrides, cf = {**DENSE, **MOE}[case]
+    arch, _, _, overrides, cf = CASES[case]
     cfg = package.reduced(package.get_config(arch), **overrides)
     if cf is not None:
         cfg = dataclasses.replace(
@@ -86,12 +141,57 @@ def case_config(case: str, package):
     return cfg
 
 
-def case_batch(cfg, data_cls, config_cls) -> dict:
-    """Step 0's batch of ``SyntheticLM(DataConfig(vocab, SEQ, BATCH))``
-    (either package's), with the vlm family's image and positions."""
+def seq_of(case: str) -> int:
+    return HYBRID_SEQ if case in HYBRID else SEQ
+
+
+def case_batch(cfg, data_cls, config_cls, seq: int = SEQ) -> dict:
+    """Step 0's batch of ``SyntheticLM(DataConfig(vocab, seq, BATCH))``
+    (either package's), with the vlm family's image and positions and the
+    audio family's frames."""
     from torch_dist_workers import run_data
-    return run_data(cfg, data_cls(config_cls(cfg.vocab_size, SEQ,
+    return run_data(cfg, data_cls(config_cls(cfg.vocab_size, seq,
                                              BATCH))).batch_at(0)
+
+
+def depth_of(cfg):
+    """The stacked depth ``convert.named_params`` takes for ``cfg``."""
+    if cfg.is_encoder_decoder:
+        return {"enc_layers": cfg.encoder_layers,
+                "dec_layers": cfg.num_layers}
+    if cfg.block_pattern:
+        return cfg.num_layers // len(cfg.block_pattern)
+    return cfg.num_layers - (1 if cfg.moe and cfg.moe.first_layer_dense
+                             else 0)
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """A cache's tensors (nested dicts, lists and tuples) as ``{"/"-joined
+    path: numpy array}``, "pos" and "kv_shards" left out."""
+    if isinstance(tree, dict):
+        items = [(k, v) for k, v in tree.items()
+                 if k not in ("pos", "kv_shards")]
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return {prefix[:-1]: np.array(tree, np.float32)}
+    out = {}
+    for k, v in items:
+        out.update(flat_tree(v, f"{prefix}{k}/"))
+    return out
+
+
+def fill_tree(template, flat: dict, wrap, prefix: str = ""):
+    """``template``'s structure (a cache) with each tensor taken from
+    ``flat`` (``flat_tree``'s keys) through ``wrap``."""
+    if isinstance(template, dict):
+        return {k: (v if k in ("pos", "kv_shards") else
+                    fill_tree(v, flat, wrap, f"{prefix}{k}/"))
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(fill_tree(v, flat, wrap, f"{prefix}{i}/")
+                              for i, v in enumerate(template))
+    return wrap(flat[prefix[:-1]])
 
 
 def mesh_tag(shape) -> str:
@@ -99,9 +199,12 @@ def mesh_tag(shape) -> str:
 
 
 def _flat(tree, prefix=""):
+    """A parameter tree as ``{"/"-joined path: array}``; a list (the hybrid
+    ``tail``) by its indices."""
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = enumerate(tree) if isinstance(tree, list) else tree.items()
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             out.update(_flat(v, f"{prefix}{k}/"))
         else:
             out[f"{prefix}{k}"] = np.asarray(v)
@@ -110,7 +213,7 @@ def _flat(tree, prefix=""):
 
 def nested(flat) -> dict:
     """``init_<case>.npz``'s "/"-joined keys as the nested parameter
-    tree ``convert.model_params`` takes."""
+    tree ``convert.model_params`` takes (a node of indices a list)."""
     out: dict = {}
     for key, val in flat.items():
         node = out
@@ -118,7 +221,15 @@ def nested(flat) -> dict:
         for p in path:
             node = node.setdefault(p, {})
         node[leaf] = val
-    return out
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return lists(out)
 
 
 def load(path: str) -> dict:
@@ -155,6 +266,7 @@ def _reference(suite: str, out: str) -> None:
     jax_moe._route = route
 
     facts = {}
+    family = suite in FAMILY_SUITES
     for case in SUITES[suite]:
         _, _, meshes, _, _ = SUITES[suite][case]
         cfg = case_config(case, repro.configs)
@@ -162,10 +274,10 @@ def _reference(suite: str, out: str) -> None:
         params = jax.tree.map(jnp.asarray, nested(load(
             os.path.join(out, f"init_{case}.npz"))))
         batch = {k: jnp.asarray(v) for k, v in
-                 case_batch(cfg, SyntheticLM, DataConfig).items()}
+                 case_batch(cfg, SyntheticLM, DataConfig,
+                            seq_of(case)).items()}
         fwd = {k: v for k, v in batch.items() if k != "labels"}
-        depth = cfg.num_layers - (1 if cfg.moe and cfg.moe.first_layer_dense
-                                  else 0)
+        depth = depth_of(cfg)
         arrays = {}
         for tag, shape in [("plain", None)] + [(f"mesh{mesh_tag(m)}", m)
                                                for m in meshes]:
@@ -179,7 +291,7 @@ def _reference(suite: str, out: str) -> None:
                     stack.enter_context(jax_dist.use_mesh(mesh))
                 served = ("plain" if mesh is None else "mesh") in \
                     SERVED[suite]
-                if served:
+                if served or suite in MESH_GRADS:
                     loss, grads = jax.jit(jax.value_and_grad(
                         lambda p, b: jm.train_loss(p, b)[0]))(params, batch)
                     for name, g in named_params(
@@ -197,14 +309,18 @@ def _reference(suite: str, out: str) -> None:
                 for i, r in enumerate(routes):
                     arrays[f"{tag}/experts/{i}"] = r
                 arrays[f"{tag}/prefill"] = np.asarray(logits)
-                for name, c in _flat({k: v for k, v in cache.items()
-                                      if k != "pos"}).items():
+                flat = flat_tree if family else lambda c: _flat(
+                    {k: v for k, v in c.items() if k != "pos"})
+                for name, c in flat(cache).items():
                     arrays[f"{tag}/cache/{name}"] = c
                 step = jax.jit(jm.decode_step)
                 tok = jnp.asarray(DECODE_TOKENS[0], jnp.int32)
                 arrays[f"{tag}/decode_after"] = np.asarray(
                     step(params, tok, cache)[0])
                 cache = jm.init_cache(BATCH, CACHE_LEN)
+                if family:          # the seeded cache both packages read
+                    cache = fill_tree(cache, load(os.path.join(
+                        out, f"seeded_{case}.npz")), jnp.asarray)
                 cache["pos"] = jnp.asarray(DECODE_FROM, jnp.int32)
                 for i in range(DECODE_STEPS):
                     tok = jnp.asarray(DECODE_TOKENS[i + 1], jnp.int32)
@@ -223,8 +339,9 @@ def _reference(suite: str, out: str) -> None:
 
 
 def write_inits(suite: str, out: str) -> None:
-    """``init_<case>.npz`` of each case of ``suite`` (see the module's
-    docstring)."""
+    """``init_<case>.npz`` of each case of ``suite``, and for the ssm,
+    hybrid and audio suites ``seeded_<case>.npz``, a whole decode cache of
+    N(0, 0.5^2) draws (see the module's docstring)."""
     import torch
     import repro_torch.configs
     from repro_torch.convert import reference_tree
@@ -240,8 +357,20 @@ def write_inits(suite: str, out: str) -> None:
         for n, v in named.items():
             if n.endswith((".bq", ".bk", ".bv")):
                 named[n] = rng.normal(0.0, 0.5, v.shape).astype(np.float32)
+            elif suite in FAMILY_SUITES and v.size > 1 and \
+                    np.all(v == v.flat[0]):
+                # a leaf drawn constant (norm scales and biases, rwkv6's
+                # dw0, the RG-LRU's lam and conv_b): a rank reading another
+                # rank's slice of it would read the same values
+                named[n] = (v + rng.normal(0.0, 0.1, v.shape)).astype(
+                    np.float32)
         np.savez(os.path.join(out, f"init_{case}.npz"),
                  **_flat(reference_tree(named)))
+        if suite in FAMILY_SUITES:
+            seeded = {k: rng.normal(0.0, 0.5, v.shape).astype(np.float32)
+                      for k, v in flat_tree(model.init_cache(
+                          BATCH, CACHE_LEN)).items()}
+            np.savez(os.path.join(out, f"seeded_{case}.npz"), **seeded)
 
 
 def start_reference(suite: str, out: str) -> subprocess.Popen:
@@ -319,6 +448,8 @@ def run_rank(rank: int, world: int, store: str, out: str, suite: str
     try:
         if suite == "train":
             _train_suite(rank, out)
+        elif suite in FAMILY_SUITES:
+            family_suite(rank, out, suite)
         else:
             _model_suite(rank, out, suite)
     finally:
@@ -438,6 +569,140 @@ def _model_suite(rank: int, out: str, suite: str) -> None:
             json.dump(facts, f)
 
 
+def rank_cache(model, seeded: dict) -> dict:
+    """``model``'s ``init_cache`` at DECODE_FROM holding the rank's slice
+    (``Model.cache_tp_dims``) of each tensor of ``seeded``, a whole cache
+    by ``flat_tree`` path."""
+    import torch
+    cache = model.init_cache(BATCH, CACHE_LEN)
+
+    def fill(c, d, prefix):
+        if isinstance(d, dict):
+            for k in d:
+                fill(c[k], d[k], f"{prefix}{k}/")
+        elif isinstance(d, (list, tuple)):
+            for i, (ci, di) in enumerate(zip(c, d)):
+                fill(ci, di, f"{prefix}{i}/")
+        else:
+            t = torch.from_numpy(seeded[prefix[:-1]])
+            if d is not None:
+                n = c.shape[d]
+                t = t.narrow(d, model.tp.rank * n, n)
+            c.copy_(t)
+    fill(cache, model.cache_tp_dims(cache), "")
+    cache["pos"] = DECODE_FROM
+    return cache
+
+
+def _layout(model) -> dict:
+    """Which of the case's modules hold the rank's slice."""
+    from repro_torch.models import rglru, rwkv6
+    from repro_torch.models.attention import Attention
+    mods = list(model.modules())
+
+    def first(cls):
+        return next((m for m in mods if isinstance(m, cls)), None)
+    out = {}
+    att = first(Attention)
+    if att is not None:
+        out.update(heads_local=att.heads_local, kv_local=att.kv_local)
+    if model.cfg.is_encoder_decoder:
+        out["cross_kv_local"] = model.dec_layers[0].cross.kv_local
+    if first(rwkv6.TimeMix) is not None:
+        out.update(tm_split=first(rwkv6.TimeMix).tp is not None,
+                   cm_split=first(rwkv6.ChannelMix).tp is not None)
+    if first(rglru.RecBlock) is not None:
+        out["rec_split"] = first(rglru.RecBlock).tp is not None
+    return out
+
+
+def _mutant(name: str, leaf):
+    """The collective ``name`` of ``repro_torch.dist`` as it is, but
+    without its backward's sum or gather where it takes the parameter
+    ``leaf``: that leaf keeps the rank's own share of its gradient."""
+    from repro_torch.dist import api as dist
+    real = getattr(dist, name)
+    if name == "copy_in":
+        return lambda x, tp: x if x is leaf else real(x, tp)
+
+    def split(x, d, tp):
+        if x is not leaf:
+            return real(x, d, tp)
+        n = x.shape[d] // tp.size
+        return x.narrow(d, tp.rank * n, n)
+    return split
+
+
+def family_suite(rank: int, out: str, suite: str) -> None:
+    """A rank's runs of the ssm, hybrid or audio ``suite`` (see the
+    module's docstring), then its ``FAMILY_TRAIN`` run."""
+    from unittest import mock
+
+    import torch
+    import repro_torch.configs
+    from repro_torch.convert import model_params, whole_cache
+    from repro_torch.dist import api as dist
+    from repro_torch.launch import serve
+    from repro_torch.models.common import Policy
+    from repro_torch.train import DataConfig, SyntheticLM
+
+    for case, (_, shape, _, _, _) in SUITES[suite].items():
+        cfg = case_config(case, repro_torch.configs)
+        init = nested(load(os.path.join(out, f"init_{case}.npz")))
+        batch = case_batch(cfg, SyntheticLM, DataConfig, seq_of(case))
+        fwd = {"enc_frames": batch["enc_frames"]} \
+            if "enc_frames" in batch else {}
+        arrays, facts = {}, {}
+        with dist.use_mesh(mesh_of(shape)):
+            model = model_params(init, cfg,
+                                 policy=Policy(compute_dtype=torch.float32),
+                                 device="cpu")
+            facts.update(model_rank=model.tp.rank, tp=model.tp.size,
+                         tp_dims=model.tp_dims, layout=_layout(model))
+            params = dict(model.named_parameters())
+            for p in params.values():
+                p.requires_grad_(True)
+            loss, _ = model.train_loss(batch)
+            loss.backward()
+            arrays["loss"] = loss.detach().numpy()
+            for name, p in params.items():
+                arrays[f"grad/{name}"] = p.grad.numpy()
+                p.grad = None
+            if MUTANT[suite][0] == case:
+                _, fn, leaf = MUTANT[suite]
+                with mock.patch.object(dist, fn, _mutant(fn, params[leaf])):
+                    model.train_loss(batch)[0].backward()
+                arrays["mutant"] = params[leaf].grad.numpy()
+            for p in params.values():
+                p.requires_grad_(False)
+            logits, cache = model.prefill(batch["tokens"], **fwd)
+            arrays["prefill"] = logits.numpy()
+            facts["kv_shards"] = cache.get("kv_shards")
+            for name, t in flat_tree(whole_cache(model, cache)).items():
+                arrays[f"cache/{name}"] = t
+            tok = torch.tensor(DECODE_TOKENS[0])
+            arrays["decode_after"] = model.decode_step(tok, cache)[0].numpy()
+            cache = rank_cache(model, load(os.path.join(
+                out, f"seeded_{case}.npz")))
+            facts["decode_kv_shards"] = cache.get("kv_shards")
+            for i in range(DECODE_STEPS):
+                tok = torch.tensor(DECODE_TOKENS[i + 1])
+                arrays[f"decode/{i}"] = model.decode_step(tok,
+                                                          cache)[0].numpy()
+            queue = serve.synthetic_requests(SERVER["requests"],
+                                             cfg.vocab_size, 0)
+            reqs = list(queue)
+            serve.BatchedServer(model, SERVER["slots"],
+                                SERVER["cache_len"]).run(queue)
+            facts["server"] = [r.out for r in reqs]
+        np.savez(os.path.join(out, f"{case}_rank{rank}.npz"), **arrays)
+        with open(os.path.join(out, f"{case}_rank{rank}.json"), "w") as f:
+            json.dump(facts, f)
+    facts = {run: trainer_run(rank, out, run) for run in FAMILY_TRAIN[suite]}
+    with open(os.path.join(out, f"train_rank{rank}.json"), "w") as f:
+        json.dump(facts, f)
+
+
 # ------------------------------------------------------------ the trainer
 
 OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)
@@ -452,11 +717,26 @@ TRAIN = {
     "qwen2-vl-72b@2x2": ("qwen2-vl-72b", (2, 2), ("data", "model"), {}),
 }
 TRAIN_STEPS = 2
+# the ssm, hybrid and audio suites' Trainer runs, in their own spawns
+FAMILY_TRAIN = {
+    "ssm": {"rwkv6-7b@2x2": ("rwkv6-7b", (2, 2), ("data", "model"), {})},
+    "hybrid": {"recurrentgemma-9b@2x2": (
+        "recurrentgemma-9b", (2, 2), ("data", "model"),
+        {"num_layers": HYBRID_LAYERS})},
+    "audio": {"whisper-small@2x2": ("whisper-small", (2, 2),
+                                    ("data", "model"), {})},
+}
+RUNS = {**TRAIN, **{run: spec for runs in FAMILY_TRAIN.values()
+                    for run, spec in runs.items()}}
 
 
 def train_config(run: str, package):
-    arch, _, _, overrides = TRAIN[run]
+    arch, _, _, overrides = RUNS[run]
     return package.reduced(package.get_config(arch), **overrides)
+
+
+def train_seq(run: str) -> int:
+    return HYBRID_SEQ if run in FAMILY_TRAIN["hybrid"] else SEQ
 
 
 def trainer(run: str, steps: int = TRAIN_STEPS, ckpt=None):
@@ -472,7 +752,8 @@ def trainer(run: str, steps: int = TRAIN_STEPS, ckpt=None):
     cfg = train_config(run, repro_torch.configs)
     model = Model(cfg, Policy(compute_dtype=torch.float32), device="cpu",
                   seed=0)
-    data = run_data(cfg, SyntheticLM(DataConfig(cfg.vocab_size, SEQ, 4)))
+    data = run_data(cfg, SyntheticLM(DataConfig(cfg.vocab_size,
+                                                train_seq(run), 4)))
     return Trainer(model, data, TrainConfig(steps=steps, ckpt_interval=2,
                                             opt=AdamWConfig(**OPT)),
                    ckpt=ckpt)
@@ -488,6 +769,122 @@ def state_of(tr) -> dict:
     return arrays
 
 
+def trainer_run(rank: int, out: str, run: str) -> dict:
+    """Two steps of ``run`` under its mesh: this rank's facts, and (rank
+    0) ``<run>_step1.npz`` and ``<run>.npz``, every master weight and
+    moment in full after the first and after the last step."""
+    from repro_torch.dist import api as dist
+    _, shape, names, _ = RUNS[run]
+
+    def after(step, _):
+        if step == 1:
+            state = state_of(tr)            # a collective: every rank
+            if rank == 0:
+                np.savez(os.path.join(out, f"{run}_step1.npz"), **state)
+    with dist.use_mesh(mesh_of(shape, names)) as ctx:
+        tr = trainer(run)
+        want = dist.param_sharding(tr.model.param_axes(), tr.params, ctx)
+        facts = {
+            "placements_equal": all(
+                list(tr.params[n].placements) == want[n]
+                and list(tr.opt_state[m][n].placements) == want[n]
+                for n in want for m in ("mu", "nu")),
+            "model_split": sorted(
+                n for n, pl in want.items()
+                if any(getattr(p, "dim", None) is not None
+                       and a == "model" for a, p in zip(ctx.sizes, pl))),
+            "tp_dims": tr.model.tp_dims,
+            "batch_shard": list(tr.batch_shard),
+            "history": [{k: h[k] for k in ("step", "loss", "grad_norm",
+                                           "lr")}
+                        for h in tr.run(after)["history"]]}
+        state = state_of(tr)
+        if rank == 0:
+            np.savez(os.path.join(out, f"{run}.npz"), **state)
+    return facts
+
+
+def _state(tr) -> dict:
+    state = {f"p/{k}": v.detach().numpy().copy() for k, v in
+             tr.params.items()}
+    for m in ("mu", "nu"):
+        state.update({f"{m}/{k}": v.numpy().copy()
+                      for k, v in tr.opt_state[m].items()})
+    return state
+
+
+def single_steps(run: str, state1: dict):
+    """``run`` in one process, no mesh: (the history of its two steps,
+    every master weight and moment as numpy after its first step, and
+    after a second step taken from ``state1``, a state after one step)."""
+    import torch
+    tr, kept = trainer(run), []
+
+    def after(step, _):
+        if step == 1:
+            kept.append(_state(tr))
+    hist = tr.run(after)["history"]
+    again = trainer(run)
+    with torch.no_grad():
+        for k, v in again.params.items():
+            v.copy_(torch.from_numpy(state1[f"p/{k}"]))
+        for m in ("mu", "nu"):
+            for k, v in again.opt_state[m].items():
+                v.copy_(torch.from_numpy(state1[f"{m}/{k}"]))
+        again.opt_state["count"].fill_(1)
+    again.params, again.opt_state, _ = again._step_fn(
+        again.params, again.opt_state, again.data.batch_at(1))
+    return hist, kept[0], _state(again)
+
+
+def _hold_state(got: dict, want: dict, lr_sum: float) -> None:
+    """``tests/test_torch_dist_train.py``'s limits: every moment within
+    1e-4 of its leaf's largest magnitude, and every master weight too but
+    for at most 1 in 10^4 entries, none by more than 5 % of the summed
+    learning rate ``lr_sum``."""
+    assert sorted(got) == sorted(want)
+    outside = total = 0
+    for key, w in want.items():
+        d = np.abs(got[key] - w)
+        tol = 1e-4 * float(np.abs(w).max())
+        if key.startswith("p/"):
+            assert float(d.max()) <= tol + 0.05 * lr_sum, key
+            outside += int((d > tol).sum())
+            total += d.size
+        else:
+            assert float(d.max()) <= tol, key
+    assert outside <= 1e-4 * total, (outside, total)
+
+
+def check_trainer(out, facts: list, run: str, step2: bool = True) -> None:
+    """Rank facts, ``<run>_step1.npz`` and ``<run>.npz`` of ``trainer_run``
+    against ``single_steps``: the two steps' losses and gradient norms
+    within 1e-5 (relative) of the single-process run's, the state after
+    the first step against its state, and (``step2``) the state after the
+    second against its second step from the sharded first step's state,
+    each at ``_hold_state``'s limits: step by step, since the first AdamW
+    step turns float32 noise in near-zero gradients into master weights
+    that differ by up to 5 % of its learning rate, which compounds into the
+    second step (rwkv6's there, ``tests/test_torch_tp_ssm.py``)."""
+    import pytest
+    got1 = load(os.path.join(str(out), f"{run}_step1.npz"))
+    single_hist, want1, want2 = single_steps(run, got1)
+    hist = facts[0][run]["history"]
+    assert [h["step"] for h in hist] == [1, 2]
+    for f in facts[1:]:                     # the metrics are global means
+        assert f[run]["history"] == hist
+    for h, sh in zip(hist, single_hist):
+        assert h["loss"] == pytest.approx(sh["loss"], rel=1e-5)
+        assert h["grad_norm"] == pytest.approx(sh["grad_norm"], rel=1e-5)
+        assert h["lr"] == sh["lr"]
+    _hold_state(got1, want1, single_hist[0]["lr"])
+    if step2:
+        _hold_state(load(os.path.join(str(out), f"{run}.npz")), want2,
+                    single_hist[1]["lr"])
+    for f in facts:
+        assert f[run]["placements_equal"]
+
+
 def _train_suite(rank: int, out: str) -> None:
     import repro_torch.configs
     from repro_torch.dist import api as dist
@@ -495,27 +892,8 @@ def _train_suite(rank: int, out: str) -> None:
     from repro_torch.train import CheckpointManager, TieredCheckpointManager
 
     facts: dict = {"rank": rank}
-    for run, (_, shape, names, _) in TRAIN.items():
-        with dist.use_mesh(mesh_of(shape, names)) as ctx:
-            tr = trainer(run)
-            want = dist.param_sharding(tr.model.param_axes(), tr.params, ctx)
-            facts[run] = {
-                "placements_equal": all(
-                    list(tr.params[n].placements) == want[n]
-                    and list(tr.opt_state[m][n].placements) == want[n]
-                    for n in want for m in ("mu", "nu")),
-                "model_split": sorted(
-                    n for n, pl in want.items()
-                    if any(getattr(p, "dim", None) is not None
-                           and a == "model" for a, p in zip(ctx.sizes, pl))),
-                "tp_dims": tr.model.tp_dims,
-                "batch_shard": list(tr.batch_shard),
-                "history": [{k: h[k] for k in ("step", "loss", "grad_norm",
-                                               "lr")}
-                            for h in tr.run()["history"]]}
-            state = state_of(tr)
-            if rank == 0:
-                np.savez(os.path.join(out, f"{run}.npz"), **state)
+    for run in TRAIN:
+        facts[run] = trainer_run(rank, out, run)
 
     # a checkpoint at (2, 2): the durable tier and the fast local tier,
     # each restored under the mesh into a fresh trainer
@@ -538,19 +916,134 @@ def _train_suite(rank: int, out: str) -> None:
                 "equal": sorted(got) == sorted(saved) and all(
                     np.array_equal(got[k], saved[k]) for k in saved)}
 
-    # the families outside this slice raise under a "model" axis of 4
-    facts["raises"] = {}
-    with dist.use_mesh(mesh_of((1, 4))):
+    # the ssm, hybrid and audio families built under a "model" axis of 4:
+    # each parameter's shape, its whole shape and param_sharding's split
+    # dim over "model" (None: whole)
+    facts["builds"] = {}
+    with dist.use_mesh(mesh_of((1, 4))) as ctx:
         for arch in ("whisper-small", "rwkv6-7b", "recurrentgemma-9b"):
             cfg = repro_torch.configs.reduced(
                 repro_torch.configs.get_config(arch))
-            try:
-                Model(cfg, device="cpu")
-                facts["raises"][arch] = None
-            except NotImplementedError as e:
-                facts["raises"][arch] = str(e)
+            model = Model(cfg, device="cpu")
+            shapes = model.global_shapes()
+            placements = dist.param_sharding(model.param_axes(), shapes, ctx)
+            model_dim = {n: next((pl.dim for a, pl in zip(ctx.sizes, p)
+                                  if a == "model" and hasattr(pl, "dim")),
+                                 None) for n, p in placements.items()}
+            facts["builds"][arch] = {
+                n: [list(p.shape), list(shapes[n]), model_dim[n]]
+                for n, p in model.named_parameters()}
     with open(os.path.join(out, f"train_rank{rank}.json"), "w") as f:
         json.dump(facts, f)
+
+
+# ---------------------------------------------- the family suites' checks
+
+LOSS_TOL, GRAD_TOL, MESH_TOL, OUT_TOL = 1e-5, 1e-4, 1e-5, 1e-4
+
+
+def ranks_of(out, case: str) -> list:
+    """Each rank's (arrays, facts) of ``case``."""
+    return [(load(os.path.join(str(out), f"{case}_rank{r}.npz")),
+             json.loads(open(os.path.join(str(out),
+                                          f"{case}_rank{r}.json")).read()))
+            for r in range(4)]
+
+
+def rank_slice(full, dim, rank: int, tp: int):
+    """The rank's slice of ``full`` along ``dim`` (None: ``full``)."""
+    if dim is None:
+        return full
+    n = full.shape[dim] // tp
+    index = [slice(None)] * full.ndim
+    index[dim] = slice(rank * n, (rank + 1) * n)
+    return full[tuple(index)]
+
+
+def leaf_err(got, want) -> float:
+    """max |got - want| over the largest magnitude of ``want``."""
+    return float(np.abs(got - want).max() /
+                 max(np.abs(want).max(), 1e-30))
+
+
+def check_loss_and_grads(out, case: str, grads_of: str = "plain") -> None:
+    """Every rank's ``train_loss`` within LOSS_TOL of the reference's
+    unsharded loss and MESH_TOL of each mesh run's; its gradients (its
+    slice of each) within GRAD_TOL of each leaf's largest magnitude of the
+    reference's ``grads_of`` run."""
+    import pytest
+    ref = load(os.path.join(str(out), f"ref_{case}.npz"))
+    for arrays, facts in ranks_of(out, case):
+        loss = float(arrays["loss"])
+        assert loss == pytest.approx(float(ref["plain/loss"]), rel=LOSS_TOL)
+        for m in CASES[case][2]:
+            assert loss == pytest.approx(float(ref[f"mesh{mesh_tag(m)}/loss"]),
+                                         rel=MESH_TOL)
+        grads = {k[5:]: v for k, v in arrays.items()
+                 if k.startswith("grad/")}
+        prefix = f"{grads_of}/grad/"
+        assert sorted(grads) == sorted(k[len(prefix):] for k in ref
+                                       if k.startswith(prefix))
+        for name, g in grads.items():
+            want = rank_slice(ref[prefix + name], facts["tp_dims"].get(name),
+                              facts["model_rank"], facts["tp"])
+            assert g.shape == want.shape, name
+            assert leaf_err(g, want) <= GRAD_TOL, name
+
+
+def check_prefill(out, case: str) -> None:
+    """Every rank's prefill logits and its cache gathered into the
+    reference's layout within OUT_TOL of the reference's, elementwise."""
+    ref = load(os.path.join(str(out), f"ref_{case}.npz"))
+    names = sorted(k[len("plain/cache/"):] for k in ref
+                   if k.startswith("plain/cache/"))
+    for arrays, _ in ranks_of(out, case):
+        np.testing.assert_allclose(arrays["prefill"], ref["plain/prefill"],
+                                   atol=OUT_TOL, rtol=0)
+        got = sorted(k[len("cache/"):] for k in arrays
+                     if k.startswith("cache/"))
+        assert got == names
+        for name in names:
+            np.testing.assert_allclose(arrays[f"cache/{name}"],
+                                       ref[f"plain/cache/{name}"],
+                                       atol=OUT_TOL, rtol=0, err_msg=name)
+
+
+def check_decode(out, case: str) -> None:
+    """The decode step after the prefill and DECODE_STEPS steps from the
+    seeded cache at DECODE_FROM within OUT_TOL of the reference's."""
+    ref = load(os.path.join(str(out), f"ref_{case}.npz"))
+    for arrays, _ in ranks_of(out, case):
+        np.testing.assert_allclose(arrays["decode_after"],
+                                   ref["plain/decode_after"], atol=OUT_TOL,
+                                   rtol=0)
+        for i in range(DECODE_STEPS):
+            np.testing.assert_allclose(arrays[f"decode/{i}"],
+                                       ref[f"plain/decode/{i}"],
+                                       atol=OUT_TOL, rtol=0)
+
+
+def check_server(out, case: str) -> None:
+    want = json.loads(open(os.path.join(str(out), "ref.json")).read())
+    for _, facts in ranks_of(out, case):
+        assert facts["server"] == want[case]["server"]
+
+
+def check_mutant(out, suite: str) -> None:
+    """``MUTANT``: without its collective's backward the leaf's gradient
+    on a rank is the rank's share, beyond GRAD_TOL of the whole, and the
+    shares of a "model" group sum to the whole; with it, each rank's
+    gradient is the whole."""
+    case, _, leaf = MUTANT[suite]
+    want = load(os.path.join(str(out), f"ref_{case}.npz"))[
+        f"plain/grad/{leaf}"]
+    ranks = ranks_of(out, case)
+    assert leaf not in ranks[0][1]["tp_dims"]        # whole on every rank
+    shares = [a["mutant"] for a, _ in ranks]
+    for (arrays, _), share in zip(ranks, shares):
+        assert leaf_err(arrays[f"grad/{leaf}"], want) <= GRAD_TOL
+        assert leaf_err(share, want) > 100 * GRAD_TOL
+    assert leaf_err(sum(shares), want) <= GRAD_TOL
 
 
 if __name__ == "__main__":
