@@ -229,11 +229,24 @@ order, it
      (phases 5, 6, 9, 13(a), 17 and 19 also time each kernel at its
      per-rank shape: ``TP_ATTN``, ``TP_AUDIO_ATTN``, ``TP_K4``, ``TP_K4B``,
      ``TP_K5``, ``TP_K5B``, ``TP_WINDOW``);
- 26. prints one JSON line of per-kernel numbers, then
+ 26. holds the dry run's counts (``repro_torch.launch.step_analysis`` on
+     the meta device, the kernels as their stand-ins, as
+     ``repro_torch.launch.dryrun`` counts every cell) against the card, at
+     phase 7's qwen3-4b prefill and phase 10's 8-layer training step,
+     without a mesh: (a) the stand-ins of K3 and K3' give the shapes,
+     dtypes and strides of one real call each, and the meta count's aten
+     FLOPs equal ``FlopCounterMode``'s count of one real call of each on
+     the card (which does not see the hand-written kernels); (b) the
+     counted bound (``Roofline.step_bound_s``, H100 peaks) is no more than
+     phase 7's prefill time and phase 10's step median, and the roofline
+     fraction the card reached is printed; (c) the counted working-weight
+     bytes equal the bytes of the card's parameters, and the counted
+     memory of the step is printed beside phase 10's peak;
+ 27. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
 The phases run in the order 1–6, 9, 13(a), 17, 19, 7, 8, 10–12, 13(b),
-14–16, 18, 20–25: the kernel phases whose checks read profiler traces come
+14–16, 18, 20–26: the kernel phases whose checks read profiler traces come
 before the model phases' profiles, after which sessions of one call can
 trace nothing (``call_segments``).
 
@@ -4849,6 +4862,200 @@ def phase_tp(torch, np, card: str):
     return launches, nums
 
 
+# -------------------------------- phase 26: dry-run counts against the card
+
+DRYRUN_SEQ = 4096          # phase 7's prefill and phase 10's step
+
+
+def same_layout(torch, got, want, what: str) -> None:
+    """Fails unless the stand-in's outputs have the real call's shapes,
+    dtypes and strides."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        check((tuple(g.shape), g.dtype, g.stride()) ==
+              (tuple(w.shape), w.dtype, w.stride()),
+              f"{what} output {i}: stand-in {tuple(g.shape)} {g.dtype} "
+              f"{g.stride()}, kernel {tuple(w.shape)} {w.dtype} "
+              f"{w.stride()}")
+    check(len(got) == len(want), f"{what}: {len(got)} outputs, kernel "
+          f"{len(want)}")
+
+
+def real_aten_flops(torch, fn) -> float:
+    """``FlopCounterMode``'s count of one call of ``fn`` on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    torch.cuda.synchronize()
+    return float(fc.get_total_flops())
+
+
+def phase_dryrun(torch, np, measured: dict):
+    """Phase 26 (see the module's docstring). ``measured`` holds phase 7's
+    prefill ms and phase 10's step median and peak; run alone, the phase
+    times both itself (a prefill after one warm call, the median of three
+    steps after one)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_meta,
+        flash_attention_meta)
+    from repro_torch.launch.roofline import (HBM_BW, PEAK_FLOPS, Roofline,
+                                             model_flops_for)
+    from repro_torch.launch.step_analysis import analyze
+    from repro_torch.models.model import Model
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.trainer import make_train_step, master_params
+    S = DRYRUN_SEQ
+    out = {}
+
+    # (a) K3 and K3' stand-ins against one real call each at phase 7's
+    # shape, in the model's layout seen through transposes
+    rng = np.random.default_rng(26)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        shp, dtype=np.float32)).to("cuda", torch.bfloat16).transpose(1, 2)
+        for shp in ((1, S, 32, 128), (1, S, 8, 128), (1, S, 8, 128)))
+    o, lse = flash_attention(q, k, v, lse=True)
+    do = torch.randn_like(o)
+    real_bwd = flash_attention_bwd(q, k, v, o, lse, do)
+    qm, km, vm = (t.to("meta") for t in (q, k, v))
+    same_layout(torch, flash_attention_meta(qm, km, vm, lse=True), (o, lse),
+                "K3 stand-in")
+    same_layout(torch, flash_attention_bwd_meta(qm, km, vm), real_bwd,
+                "K3' stand-in")
+    del q, k, v, o, lse, do, real_bwd
+
+    cfg = get_config("qwen3-4b")
+    meta_model = Model(cfg, device="meta", seed=None)
+    tok_meta = torch.empty((1, S), dtype=torch.long, device="meta")
+    mc_p = analyze(meta_model.prefill, tok_meta)
+    weights_p = sum(p.numel() * p.element_size()
+                    for p in meta_model.parameters())
+    del meta_model
+    before = torch.cuda.memory_allocated()
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    alloc_p = torch.cuda.memory_allocated() - before
+    card_p = sum(p.untyped_storage().nbytes() for p in model.parameters())
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, S))).cuda()
+    aten_p = real_aten_flops(torch, lambda: model.prefill(tokens))
+    prefill_ms = measured.get("prefill_ms")
+    if prefill_ms is None:
+        model.prefill(tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(tokens)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    del model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    layers8 = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS)
+    meta_model = Model(layers8, device="meta", seed=None, remat="full")
+    step = make_train_step(meta_model, AdamWConfig(
+        peak_lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS))
+    params = master_params(meta_model)
+    opt = init_opt_state(params)
+    batch = {"tokens": tok_meta, "labels": tok_meta}
+    mc_s = analyze(step, params, opt, batch)
+    weights_s = sum(p.numel() * p.element_size()
+                    for p in meta_model.parameters())
+    state_s = sum(t.numel() * t.element_size() for tree in
+                  (params, opt["mu"], opt["nu"]) for t in tree.values())
+    del meta_model, step, params, opt, batch
+    model, data, batch, opt_cfg, tag = train_setup(torch, "qwen3-4b",
+                                                   TRAIN_LAYERS)
+    card_s = sum(p.untyped_storage().nbytes() for p in model.parameters())
+    step = make_train_step(model, opt_cfg)
+    params = master_params(model)
+    opt = init_opt_state(params)
+    aten_s = real_aten_flops(torch, lambda: step(params, opt, batch))
+    step_ms = measured.get("step_ms")
+    if step_ms is None:
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(params, opt, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        step_ms = float(np.median(walls[1:]))
+    del model, data, batch, step, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for what, mc, aten in (("prefill", mc_p, aten_p), ("step", mc_s, aten_s)):
+        counted = mc.flops - mc.kernel_flops
+        check(counted == aten,
+              f"{what}: the meta count's aten FLOPs {counted:.6e} differ "
+              f"from FlopCounterMode's on the card {aten:.6e}")
+    check(mc_p.kernel_calls == {"flash_attention": 36},
+          f"prefill stand-ins {mc_p.kernel_calls} (flash_attention 36)")
+    check(mc_s.kernel_calls == {"flash_attention": 2 * TRAIN_LAYERS,
+                                "flash_attention_bwd": TRAIN_LAYERS},
+          f"step stand-ins {mc_s.kernel_calls}")
+
+    # (b) the counted bounds against the measured times
+    for what, mc, c, kind, ms in (
+            ("prefill", mc_p, cfg, "prefill", prefill_ms),
+            ("step", mc_s, layers8, "train", step_ms)):
+        rl = Roofline(arch="qwen3-4b", shape=f"{kind} 1 x {S}", mesh="1",
+                      chips=1, hlo_flops=mc.flops,
+                      hlo_bytes=mc.traffic_bytes,
+                      coll_bytes_per_chip=mc.collective_bytes,
+                      coll_breakdown=mc.collective_breakdown,
+                      model_flops=model_flops_for(
+                          c, ShapeConfig(kind, S, 1, kind)),
+                      hlo_bytes_lower=mc.dot_traffic_bytes)
+        bound_ms = rl.step_bound_s * 1e3
+        ideal_ms = max(rl.model_flops / PEAK_FLOPS,
+                       rl.hlo_bytes_lower / HBM_BW) * 1e3
+        check(bound_ms <= ms,
+              f"{what}: counted bound {bound_ms:.2f} ms above the measured "
+              f"{ms:.2f} ms: a count is wrong")
+        out[what] = dict(measured_ms=ms, bound_ms=bound_ms,
+                         dominant=rl.dominant, compute_ms=rl.compute_s * 1e3,
+                         memory_ms=rl.memory_s * 1e3, ideal_ms=ideal_ms,
+                         fraction_reached=ideal_ms / ms,
+                         flops=mc.flops, aten_flops=mc.flops - mc.kernel_flops,
+                         kernel_flops=mc.kernel_flops,
+                         traffic_bytes=mc.traffic_bytes,
+                         dot_traffic_bytes=mc.dot_traffic_bytes)
+        print(f"dry-run count of qwen3-4b's {what} (1 x {S}): "
+              f"{mc.flops / 1e12:.3f} TFLOP ({(mc.flops - mc.kernel_flops) / 1e12:.3f} "
+              f"aten, equal to the card's count; {mc.kernel_flops / 1e12:.3f} "
+              f"in the kernels), {mc.traffic_bytes / 1e9:.2f} GB traffic "
+              f"(matmul-only {mc.dot_traffic_bytes / 1e9:.2f}); bound "
+              f"{bound_ms:.2f} ms ({rl.dominant}) <= measured {ms:.2f} ms; "
+              f"ideal {ideal_ms:.2f} ms, roofline fraction reached "
+              f"{ideal_ms / ms:.3f}", flush=True)
+
+    # (c) the counted bytes against the card's
+    for what, counted, card in (("prefill model", weights_p, card_p),
+                                ("step model", weights_s, card_s)):
+        check(counted == card,
+              f"{what}: counted working weights {counted} B, the card's "
+              f"parameters {card} B")
+    check(alloc_p >= weights_p,
+          f"the card allocated {alloc_p} B for {weights_p} B of parameters")
+    peak_gb = measured.get("peak_gb")
+    counted_gb = (weights_s + state_s) / 1e9
+    out["memory"] = dict(weights_prefill=weights_p, allocated_prefill=alloc_p,
+                         weights_step=weights_s, state_step=state_s,
+                         counted_step_gb=counted_gb, phase10_peak_gb=peak_gb)
+    print(f"dry-run bytes: qwen3-4b's working weights {weights_p / 1e9:.4f} "
+          f"GB counted = the card's parameters (allocated {alloc_p / 1e9:.4f} "
+          f"GB); 8 layers {weights_s / 1e9:.4f} GB; the step's counted "
+          f"memory (weights, masters, moments; no activations) "
+          f"{counted_gb:.2f} GB beside phase 10's peak "
+          f"{'not measured' if peak_gb is None else f'{peak_gb:.2f} GB'}",
+          flush=True)
+    return out
+
+
 def run_phase(torch, label: str, fn, *args):
     """Run one phase: print its start with the card's free memory, then,
     on success, its seconds and peak memory, and drop what it held. Any
@@ -4953,8 +5160,11 @@ def main() -> None:
     def only(**want):
         return {n: want.get(n, 0) for n in counters}
 
+    measured = {}               # phase 26 reads phases 7 and 10
+
     def serve_dense():
-        dense, _ = phase_serve(torch, np, "qwen3-4b", 4096, counters)
+        dense, nums = phase_serve(torch, np, "qwen3-4b", 4096, counters)
+        measured["prefill_ms"] = nums["prefill_s"] * 1e3
         check(dense == only(flash_attention=36),
               f"qwen3-4b prefill launched {dense} (flash_attention once per "
               f"layer, 36)")
@@ -5051,6 +5261,9 @@ def main() -> None:
         VLM_PEAK_LR, VLM_LATER_STEPS)
     tp, tp_nums = run_phase(torch, "25 tensor parallelism, four ranks",
                             phase_tp, torch, np, card)
+    measured.update(step_ms=tnums["step_ms"], peak_gb=tnums["peak_gb"])
+    dry_nums = run_phase(torch, "26 dry-run counts against the card",
+                         phase_dryrun, torch, np, measured)
 
     kernels = [
         {"name": "fleet_score", "route": "cuda",
@@ -5201,6 +5414,7 @@ def main() -> None:
     print(f"vlm training (phase 24): {json.dumps(vlm_tnums)}", flush=True)
     print(f"tensor parallelism (phase 25): {json.dumps(tp_nums)}",
           flush=True)
+    print(f"dry-run counts (phase 26): {json.dumps(dry_nums)}", flush=True)
     print(f"every phase passed in {time.perf_counter() - t0:.1f} s, the "
           f"builds included; {SESSIONS['lost']} of {SESSIONS['taken']} "
           f"profiler sessions traced no whole call and were taken again",

@@ -4,6 +4,9 @@ Every entry point takes an explicit ``device`` and defaults to
 ``"cuda"``. Asking for the card on a machine without one raises: there is
 no silent fall back to the CPU, so a measurement or a verdict always
 names the device it ran on. Only the tests pass ``device="cpu"``.
+``"meta"`` is taken where a caller names it (the dry run,
+``repro_torch.launch.dryrun``, builds and steps a model of shapes only);
+nothing falls back to it.
 """
 from __future__ import annotations
 
@@ -17,8 +20,8 @@ DeviceLike = Union[str, torch.device]
 def resolve(device: DeviceLike = "cuda") -> torch.device:
     """Validate ``device`` and return it as a ``torch.device``.
 
-    Accepts ``"cpu"`` and ``"cuda"``/``"cuda:i"``; raises ``RuntimeError``
-    for a CUDA device that this process cannot see."""
+    Accepts ``"cpu"``, ``"meta"`` and ``"cuda"``/``"cuda:i"``; raises
+    ``RuntimeError`` for a CUDA device that this process cannot see."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -31,9 +34,9 @@ def resolve(device: DeviceLike = "cuda") -> torch.device:
                 f"{torch.cuda.device_count()} CUDA device(s) are visible")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {str(device)!r}: "
-                         f"expected 'cpu' or 'cuda[:i]'")
+                         f"expected 'cpu', 'meta' or 'cuda[:i]'")
     return dev
 
 

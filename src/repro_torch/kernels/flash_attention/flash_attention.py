@@ -44,9 +44,10 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 
 HEAD_DIMS = (32, 64, 128, 256)
 BWD_HEAD_DIMS = (32, 64, 128, 256)
@@ -264,11 +265,9 @@ def attention_flops(B: int, Hq: int, S: int, T: int, hd: int, *,
     """Multiply-adds x 2 of QK^T and PV over the (query, key) pairs the
     mask leaves live: the work these inputs need."""
     if causal:
-        live = 0
-        for i in range(S):
-            pos = q_offset + i
-            lo = max(0, pos - window + 1) if window else 0
-            live += max(0, min(T, pos + 1) - lo)
+        pos = q_offset + np.arange(S, dtype=np.int64)
+        lo = np.maximum(0, pos - window + 1) if window else 0
+        live = int(np.maximum(0, np.minimum(T, pos + 1) - lo).sum())
     else:
         live = S * T
     return 4.0 * B * Hq * hd * live
@@ -283,6 +282,63 @@ def attention_bwd_flops(B: int, Hq: int, S: int, T: int, hd: int, *,
                                  q_offset=q_offset, window=window)
 
 
+def attention_bytes(B: int, Hq: int, Hkv: int, S: int, T: int, hd: int,
+                    itemsize: int, *, lse: bool = False) -> int:
+    """Bytes a forward call must move: q, k, v read and o written in their
+    dtype, and with ``lse`` the rows' float32 log-sum-exp written."""
+    return (2 * B * Hq * S + 2 * B * Hkv * T) * hd * itemsize + \
+        (4 * B * Hq * S if lse else 0)
+
+
+def attention_bwd_bytes(B: int, Hq: int, Hkv: int, S: int, T: int, hd: int,
+                        itemsize: int) -> int:
+    """Bytes a backward call must move: q, k, v, o, dO read and dQ, dK, dV
+    written in their dtype, the forward's float32 log-sum-exp read."""
+    return (4 * B * Hq * S + 4 * B * Hkv * T) * hd * itemsize + 4 * B * Hq * S
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, q_offset: int = 0,
+                         kv_len: int = 0, window: int = 0, lse: bool = False):
+    """``flash_attention``'s stand-in on meta tensors (``kernels.meta``):
+    its outputs' shapes, dtypes and strides, nothing computed; reports the
+    call's operations and bytes."""
+    B, Hq, S, hd = q.shape
+    _, Hkv, T, _ = k.shape
+    out = torch.empty((B, S, Hq, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    rows = (torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+            if lse else None)
+    meta.report("flash_attention",
+                attention_flops(B, Hq, S, kv_len or T, hd, causal=causal,
+                                q_offset=q_offset, window=window),
+                attention_bytes(B, Hq, Hkv, S, T, hd, q.element_size(),
+                                lse=lse))
+    return out if rows is None else (out, rows)
+
+
+def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             q_offset: int = 0, kv_len: int = 0,
+                             window: int = 0):
+    """``flash_attention_bwd``'s stand-in on meta tensors: dq, dk, dv in
+    the backward kernel's layouts; reports the call's operations and
+    bytes."""
+    B, Hq, S, hd = q.shape
+    _, Hkv, T, _ = k.shape
+    dq = torch.empty((B, S, Hq, hd), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dk, dv = (torch.empty((B, T, Hkv, hd), dtype=q.dtype,
+                          device=q.device).transpose(1, 2) for _ in range(2))
+    meta.report("flash_attention_bwd",
+                attention_bwd_flops(B, Hq, S, kv_len or T, hd, causal=causal,
+                                    q_offset=q_offset, window=window),
+                attention_bwd_bytes(B, Hq, Hkv, S, T, hd, q.element_size()))
+    return dq, dk, dv
+
+
 __all__ = ["BWD_COUNTER", "BWD_HEAD_DIMS", "COUNTER", "HEAD_DIMS",
-           "aligned16", "attention_bwd_flops", "attention_flops",
-           "dkdv_split", "flash_attention", "flash_attention_bwd"]
+           "aligned16", "attention_bwd_bytes", "attention_bwd_flops",
+           "attention_bytes", "attention_flops", "dkdv_split",
+           "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_meta", "flash_attention_meta"]

@@ -30,7 +30,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
+from repro_torch.kernels.rglru.ref import (rglru_bwd_bytes, rglru_bwd_flops,
+                                           rglru_bytes, rglru_flops)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -164,4 +166,40 @@ def rglru_scan_bwd(xb: torch.Tensor, wa: torch.Tensor, wi: torch.Tensor,
     return dxb, grads[0], grads[1], grads[2], dh0
 
 
-__all__ = ["BWD_COUNTER", "COUNTER", "rglru_scan", "rglru_scan_bwd"]
+def rglru_scan_meta(xb: torch.Tensor, wa: torch.Tensor, wi: torch.Tensor,
+                    lam: torch.Tensor, h0: torch.Tensor, *,
+                    keep_states: bool = False):
+    """``rglru_scan``'s stand-in on meta tensors (``kernels.meta``): H,
+    h_last and, with ``keep_states``, the float32 states, nothing computed;
+    reports the call's operations (``rglru_flops``) and bytes
+    (``rglru_bytes``)."""
+    B, S, W = xb.shape
+    out = torch.empty_like(xb, memory_format=torch.contiguous_format)
+    h_last = torch.empty((B, W), dtype=torch.float32, device=xb.device)
+    meta.report("rglru", rglru_flops(B, S, W),
+                rglru_bytes(B, S, W, xb.element_size()))
+    if not keep_states:
+        return out, h_last
+    states = out if xb.dtype == torch.float32 else torch.empty(
+        (B, S, W), dtype=torch.float32, device=xb.device)
+    return out, h_last, states
+
+
+def rglru_scan_bwd_meta(xb: torch.Tensor, wa: torch.Tensor, wi: torch.Tensor,
+                        lam: torch.Tensor, h0: torch.Tensor, H: torch.Tensor,
+                        dH: torch.Tensor, dh_last: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """``rglru_scan_bwd``'s stand-in on meta tensors: dxb, dwa, dwi, dlam,
+    dh0 in the backward kernel's shapes and dtypes; reports the call's
+    operations and bytes."""
+    B, S, W = xb.shape
+    dxb = torch.empty_like(xb, memory_format=torch.contiguous_format)
+    grads = torch.empty((3, W), dtype=torch.float32, device=xb.device)
+    dh0 = torch.empty((B, W), dtype=torch.float32, device=xb.device)
+    meta.report("rglru_bwd", rglru_bwd_flops(B, S, W),
+                rglru_bwd_bytes(B, S, W, xb.element_size()))
+    return dxb, grads[0], grads[1], grads[2], dh0
+
+
+__all__ = ["BWD_COUNTER", "COUNTER", "rglru_scan", "rglru_scan_bwd",
+           "rglru_scan_bwd_meta", "rglru_scan_meta"]

@@ -8,9 +8,12 @@ from repro_torch.kernels.wkv6.wkv6 import (BWD_COUNTER, COUNTER, HEAD_DIMS,
                                            scratch_bytes, supports,
                                            wkv6_bwd_bytes, wkv6_bwd_flops,
                                            wkv6_bytes, wkv6_chunked,
-                                           wkv6_chunked_bwd, wkv6_flops)
+                                           wkv6_chunked_bwd,
+                                           wkv6_chunked_bwd_meta,
+                                           wkv6_chunked_meta, wkv6_flops)
 
 __all__ = ["BWD_COUNTER", "COUNTER", "HEAD_DIMS", "chunk_of", "scratch_bytes",
            "supports", "wkv6", "wkv6_bwd_bytes", "wkv6_bwd_flops",
            "wkv6_bwd_ref", "wkv6_bytes", "wkv6_chunked", "wkv6_chunked_bwd",
+           "wkv6_chunked_bwd_meta", "wkv6_chunked_meta",
            "wkv6_flops", "wkv6_naive", "wkv6_plain", "wkv6_ref"]

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.wkv6.ref import chunk_of
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -288,7 +288,48 @@ def wkv6_bytes(B: int, H: int, S: int, hd: int, itemsize: int) -> int:
     return n * (3 * itemsize + 4 + 4) + H * hd * 4 + 2 * B * H * hd * hd * 4
 
 
+def wkv6_chunked_meta(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                      *, chunk: int = 64, keep_states: bool = False
+                      ) -> Tuple[torch.Tensor, ...]:
+    """``wkv6_chunked``'s stand-in on meta tensors (``kernels.meta``): y,
+    the state and, with ``keep_states``, the chunk-start states in the
+    kernel's layouts, nothing computed; reports the call's operations
+    (``wkv6_flops``) and bytes (``wkv6_bytes``)."""
+    B, H, S, hd = r.shape
+    C = chunk_of(S, chunk)
+    y = torch.empty((B, S, H, hd), dtype=torch.float32,
+                    device=r.device).transpose(1, 2)
+    state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    meta.report("wkv6", wkv6_flops(B, H, S, hd, C),
+                wkv6_bytes(B, H, S, hd, r.element_size()))
+    if keep_states:
+        return y, state, torch.empty((B, H, S // C, hd, hd),
+                                     dtype=torch.float32, device=r.device)
+    return y, state
+
+
+def wkv6_chunked_bwd_meta(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          logw: torch.Tensor, u: torch.Tensor, *,
+                          chunk: int = 64) -> Tuple[torch.Tensor, ...]:
+    """``wkv6_chunked_bwd``'s stand-in on meta tensors: dr, dk, dv, dlogw,
+    du, ds0 in the backward kernel's layouts and dtypes; reports the call's
+    operations and bytes."""
+    B, H, S, hd = r.shape
+    dev = r.device
+    dr, dk, dv = (torch.empty((B, S, H, hd), dtype=r.dtype,
+                              device=dev).transpose(1, 2) for _ in range(3))
+    dw = torch.empty((B, S, H, hd), dtype=torch.float32,
+                     device=dev).transpose(1, 2)
+    du = torch.empty((H, hd), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
+    meta.report("wkv6_bwd", wkv6_bwd_flops(B, H, S, hd, chunk_of(S, chunk)),
+                wkv6_bwd_bytes(B, H, S, hd, r.element_size()))
+    return dr, dk, dv, dw, du, ds0
+
+
 __all__ = ["BWD_COUNTER", "COUNTER", "HEAD_DIMS", "aligned16", "scratch_bytes",
            "supports",
            "wkv6_bwd_bytes", "wkv6_bwd_flops", "wkv6_bytes", "wkv6_chunked",
-           "wkv6_chunked_bwd", "wkv6_flops"]
+           "wkv6_chunked_bwd", "wkv6_chunked_bwd_meta", "wkv6_chunked_meta",
+           "wkv6_flops"]

@@ -963,6 +963,40 @@ class Model(nn.Module):
         cache["pos"] = pos + 1
         return self._final_logits(x), cache
 
+    def cache_dims(self) -> Dict[str, Any]:
+        """The reference's ``cache_dims``: logical axes of every cache leaf,
+        in ``init_cache``'s structure ("pos" ``()``): the batch over
+        "act_batch", the KV cache's sequence over "act_kv_seq", the ssm
+        state's heads over "act_heads", the RG-LRU width over "act_ff".
+        The port's layout over "model" follows ``cache_tp_dims``, which
+        differs where the module's docstring says (the hybrid rings and
+        the audio cross caches); the batch rows (the "data" placement) are
+        the reference's."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return {"wkv": (None, "act_batch", "act_heads", None, None),
+                    "x_tm": (None, "act_batch", None),
+                    "x_cm": (None, "act_batch", None), "pos": ()}
+        kv = (None, "act_batch", None, "act_kv_seq", None)
+        if cfg.family == "hybrid":
+            def layer_dims(kind, lead):
+                pre = (None,) * lead
+                if kind == "attn":
+                    return (pre + ("act_batch", None, "act_kv_seq", None),) * 2
+                return {"h": pre + ("act_batch", "act_ff"),
+                        "conv": pre + ("act_batch", None, "act_ff")}
+            return {"units": {key: layer_dims(kind, 1)
+                              for key, kind in self._hybrid_keys()},
+                    "tail": [layer_dims(kind, 0)
+                             for kind in self._hybrid_tail_kinds()],
+                    "pos": ()}
+        if cfg.is_encoder_decoder:
+            return {"layers": (kv, kv, kv, kv), "pos": ()}
+        out: Dict[str, Any] = {"layers": (kv, kv), "pos": ()}
+        if hasattr(self, "dense0"):
+            out["dense0"] = (kv[1:], kv[1:])
+        return out
+
     def cache_tp_dims(self, cache: Cache):
         """``cache``'s structure (without "pos" and "kv_shards") with, in
         place of each tensor, the dim that holds the rank's slice of it over
@@ -1024,4 +1058,42 @@ class Model(nn.Module):
         return self._final_logits(x), cache
 
 
-__all__ = ["Cache", "FAMILIES", "Model"]
+def input_specs(cfg, shape, policy: Optional[Policy] = None, *,
+                rows: Optional[int] = None, model: Optional[Model] = None
+                ) -> Dict[str, Any]:
+    """Meta-tensor stand-ins for every input of a cell (``cfg`` x
+    ``shape``) in the port's call signature: the reference's
+    ``input_specs`` with ``rows`` batch rows (default: the shape's global
+    batch). train and prefill -> {"batch": {"tokens", and for train
+    "labels", (B, S) int32; the vlm family's "positions" (3, B, S) and
+    "patch_embeds" (B, min(256, S), D), the audio family's "enc_frames"
+    (B, T, D), both in the compute dtype}}; ``Model.train_loss`` takes the
+    batch, ``Model.prefill`` its tokens, ``enc_frames``, ``positions`` and
+    ``patch_embeds``. decode -> {"tokens" (B,) int32, "cache": the
+    ``init_cache`` of B rows and ``seq_len`` positions of ``model`` (built
+    on the meta device; default: a new one of ``cfg``), in its layout
+    over "model"}."""
+    policy = policy or Policy()
+    B, S = (shape.global_batch if rows is None else rows), shape.seq_len
+
+    def empty(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        model = model or Model(cfg, policy, device="meta", seed=None)
+        return {"tokens": empty((B,), torch.int32),
+                "cache": model.init_cache(B, S)}
+    batch = {"tokens": empty((B, S), torch.int32)}
+    if shape.kind == "train":
+        batch["labels"] = empty((B, S), torch.int32)
+    if cfg.mrope_sections:
+        batch["positions"] = empty((3, B, S), torch.int32)
+        batch["patch_embeds"] = empty((B, min(256, S), cfg.d_model),
+                                      policy.compute_dtype)
+    if cfg.is_encoder_decoder:
+        batch["enc_frames"] = empty((B, cfg.encoder_seq_len, cfg.d_model),
+                                    policy.compute_dtype)
+    return {"batch": batch}
+
+
+__all__ = ["Cache", "FAMILIES", "Model", "input_specs"]

@@ -197,6 +197,15 @@ def dispatch_compute_combine(x: torch.Tensor, idx: torch.Tensor,
     return out.reshape(B, S, D)
 
 
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(idx, minlength=n)`` of expert indices below ``n``;
+    on the meta device (the dry run), where ``bincount`` has no kernel, an
+    empty count of that shape."""
+    if idx.device.type == "meta":
+        return torch.empty(n, dtype=torch.long, device=idx.device)
+    return torch.bincount(idx, minlength=n)
+
+
 def _route_across(p: MoE, x: torch.Tensor, cfg, token_shard: TokenShard
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor, int]:
@@ -214,9 +223,8 @@ def _route_across(p: MoE, x: torch.Tensor, cfg, token_shard: TokenShard
     probs = _probs(p.router, x)
     w, idx = _top_k(probs, K)
     T = x.shape[0] * x.shape[1]
-    mine = torch.stack([torch.bincount(idx.reshape(-1), minlength=E),
-                        torch.bincount(idx[..., 0].reshape(-1),
-                                       minlength=E)])
+    mine = torch.stack([_counts(idx.reshape(-1), E),
+                        _counts(idx[..., 0].reshape(-1), E)])
     mine = torch.cat([torch.full((1,), index, dtype=mine.dtype,
                                  device=mine.device), mine.reshape(-1)])
     rows = [torch.empty_like(mine) for _ in range(world)]
@@ -255,8 +263,7 @@ def _expert_parallel(p: MoE, cfg, x: torch.Tensor,
     else:                   # the whole batch's top-1 counts, each rank once
         probs = _probs(p.router, x)
         w, idx = _top_k(probs, K)
-        top1 = dist.all_reduce(torch.bincount(idx[..., 0].reshape(-1),
-                                              minlength=E).float())
+        top1 = dist.all_reduce(_counts(idx[..., 0].reshape(-1), E).float())
         frac = top1 / (tp.size * B * S * shards)
         aux = E * (frac * probs.mean(dim=(0, 1))).sum()
     if S % tp.size == 0:

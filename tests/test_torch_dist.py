@@ -23,7 +23,9 @@ against the JAX package's, exactly.
   under a context give the reference's answers.
 - Decode under a one-rank CPU mesh (a gloo group in this process) gives
   the logits it gives without one: the port of
-  ``test_decode_matches_unsharded``, with qwen3-4b (the port has no glm4).
+  ``test_decode_matches_unsharded``, with qwen3-4b where the reference
+  takes glm4-9b (the port builds glm4-9b at full width in
+  ``tests/test_torch_dryrun.py``).
 - Two ``Trainer`` steps under that mesh (the ZeRO-3 step: DTensor masters,
   the gather, the gradient reduction, the clip's all-reduce) give the
   loss, master weights and moments of the same steps without it, bit for

@@ -75,7 +75,11 @@ def test_every_module_is_covered():
                  "repro_torch.kernels.rglru.rglru",
                  "repro_torch.kernels.rglru.ops",
                  "repro_torch.kernels.rglru.ref",
-                 "repro_torch.configs.recurrentgemma_9b"):
+                 "repro_torch.configs.recurrentgemma_9b",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.launch.step_analysis",
+                 "repro_torch.launch.roofline",
+                 "repro_torch.kernels.meta"):
         assert want in names
 
 
