@@ -242,11 +242,25 @@ order, it
      fraction the card reached is printed; (c) the counted working-weight
      bytes equal the bytes of the card's parameters, and the counted
      memory of the step is printed beside phase 10's peak;
- 27. prints one JSON line of per-kernel numbers, then
+ 27. serves under the mesh with the working weights sharded over "fsdp"
+     (``repro_torch.models.fsdp.ServeShards``): four gloo ranks on cuda:0
+     at ("data", "model") = (2, 2), each holding its shards of every
+     weight and gathering a unit at a time over "data", serve a row each of
+     a 2 x 2,048-token prefill and 4 decode steps of qwen3-4b at 8 of 36
+     layers (K3 8 launches a rank at q (1, 2,048, 16, 128), k (1, 2,048,
+     4, 128)) and of rwkv6-7b at 4 of 32 (K4 4 at r (1, 2,048, 32, 64)),
+     each against the unsharded kernel path run first in this process: the
+     logits, the caches gathered into the unsharded layout and every
+     decode step's logits at PATH_REL_TOL, each rank's resident weights
+     between units equal to its shard bytes under ``param_sharding``, the
+     launch counts and shapes exact; the phase has FSDP_LIMIT_S (120 s)
+     (phases 5 and 6 hold and time K3 and K4 at these per-rank shapes:
+     ``FSDP_ATTN``, ``FSDP_K4``);
+ 28. prints one JSON line of per-kernel numbers, then
      ``{"ok": true, "device": {...}}`` as its last line.
 
 The phases run in the order 1–6, 9, 13(a), 17, 19, 7, 8, 10–12, 13(b),
-14–16, 18, 20–26: the kernel phases whose checks read profiler traces come
+14–16, 18, 20–27: the kernel phases whose checks read profiler traces come
 before the model phases' profiles, after which sessions of one call can
 trace nothing (``call_segments``).
 
@@ -749,6 +763,9 @@ VLM_ATTN = (1, 64, 8, 4096, 4096, 128, True, 0, 0, "bfloat16")
 # qwen3-4b's attention on each rank of phase 25's (1, 4) mesh: its 8 of
 # the 32 query heads over its 2 of the 8 KV heads (G = 4)
 TP_ATTN = (1, 8, 2, 4096, 4096, 128, True, 0, 0, "bfloat16")
+# qwen3-4b's prefill on each rank of phase 27's (2, 2) mesh: its row of
+# 2,048 tokens, its 16 of the 32 query heads over its 4 of the 8 KV heads
+FSDP_ATTN = (1, 16, 4, 2048, 2048, 128, True, 0, 0, "bfloat16")
 # whisper-small's encoder attention on each rank of phase 25(f): 3 of its
 # 12 heads at 4 x 1,500 frames; then its cross and decoder self attention
 # there (checked, not timed beside plain and sdpa)
@@ -774,6 +791,7 @@ K3_CASES = [
     TP_ATTN,
     TP_AUDIO_ATTN,
     *TP_AUDIO_OTHER,
+    FSDP_ATTN,
 ]
 K3_TOL = {"bfloat16": 3e-2, "float32": 2e-5}   # the reference's own
 
@@ -814,7 +832,8 @@ def phase_k3(torch, np):
                 f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s, "
                 f"{bnd / ms:.1%} of bound), bound {bnd:.4f} ms ({by}; "
                 f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
-        if i < 3 or case in (VLM_ATTN, TP_ATTN, TP_AUDIO_ATTN):  # plain, sdpa
+        if i < 3 or case in (VLM_ATTN, TP_ATTN, TP_AUDIO_ATTN,  # plain,
+                             FSDP_ATTN):                        # sdpa
             plain = time_ms(lambda: attention_ref(q, k, v, **kw), reps=5,
                             warm=1)
             lib = time_ms(lambda: F.scaled_dot_product_attention(
@@ -833,6 +852,8 @@ def phase_k3(torch, np):
             main["tp"] = nums
         if case == TP_AUDIO_ATTN:
             main["tp_audio"] = nums
+        if case == FSDP_ATTN:
+            main["fsdp"] = nums
         del q, k, v
     torch.cuda.empty_cache()
     return main
@@ -851,7 +872,10 @@ K4_CASES = [(1, 2048, 64, 64, 32, "bfloat16"), (2, 128, 4, 32, 32, "float32"),
             (2, 300, 2, 128, 300, "bfloat16"), (1, 7, 2, 64, 7, "float32")]
 # rwkv6-7b's prefill on each rank of phase 25(d): 16 of its 64 heads
 TP_K4 = (1, 2048, 16, 64, 32, "bfloat16")
-K4_CASES.append(TP_K4)
+# rwkv6-7b's prefill on each rank of phase 27's (2, 2) mesh: its row of
+# 2,048 tokens at 32 of its 64 heads
+FSDP_K4 = (1, 2048, 32, 64, 32, "bfloat16")
+K4_CASES += [TP_K4, FSDP_K4]
 
 
 def phase_k4(torch, np):
@@ -927,6 +951,8 @@ def phase_k4(torch, np):
             main = nums
         if K4_CASES[i] == TP_K4:
             main["tp"] = nums
+        if K4_CASES[i] == FSDP_K4:
+            main["fsdp"] = nums
         del r, k, v, logw, y, y2, wy
     torch.cuda.empty_cache()
     return main
@@ -5056,6 +5082,312 @@ def phase_dryrun(torch, np, measured: dict):
     return out
 
 
+# ------------------------ phase 27: serving under fsdp, four ranks
+
+FSDP_MESH = (2, 2)         # ("data", "model") on one card, four gloo ranks
+FSDP_LIMIT_S = 120.0       # the phase's limit, its references included
+FSDP_WAIT_S = 90.0         # a collective's
+# each part: the layers served, a prefill of FSDP_BATCH x FSDP_SEQ tokens
+# (a row a "data" rank), FSDP_DECODE decode steps over the prefill's cache
+# from position FSDP_SEQ - FSDP_DECODE (each overwrites its row); a rank's
+# launches a prefill and the per-rank shapes its kernels see: K3's q and k
+# (B, S, H, hd), K4's r (B, S, H, hd)
+FSDP_BATCH, FSDP_SEQ, FSDP_DECODE = 2, 2048, 4
+FSDP_PARTS = {
+    "dense": dict(arch="qwen3-4b", layers=8, prefill={"flash_attention": 8},
+                  shapes={"flash_attention": [
+                      (1, FSDP_SEQ, FSDP_ATTN[1], 128),
+                      (1, FSDP_SEQ, FSDP_ATTN[2], 128)]}),
+    "ssm": dict(arch="rwkv6-7b", layers=4, prefill={"wkv6": 4},
+                shapes={"wkv6": [FSDP_K4[:4]]}),
+}
+
+
+def fsdp_config(name: str):
+    from repro_torch.configs import get_config
+    spec = FSDP_PARTS[name]
+    return dataclasses.replace(get_config(spec["arch"]),
+                               num_layers=spec["layers"])
+
+
+def fsdp_references(torch, np, d: Path, name: str) -> dict:
+    """Part ``name`` of phase 27 unsharded on the kernel path (seed-0
+    weights, the whole batch), saved under ``d`` for the ranks: the
+    tokens, the prefill's logits and cache, the decode steps' logits.
+    Returns the prefill's ms."""
+    from repro_torch.models.model import Model
+    cfg = fsdp_config(name)
+    rng = np.random.default_rng(27)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (FSDP_BATCH, FSDP_SEQ)))
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (FSDP_BATCH, FSDP_DECODE)))
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens.cuda())
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    saved = {"tokens": tokens, "steps": steps, "logits": logits.cpu(),
+             "cache": {k: t.to("cpu", copy=True)
+                       for k, t in cache_leaves(cache).items()}}
+    cache["pos"] = FSDP_SEQ - FSDP_DECODE
+    saved["decode"] = [model.decode_step(steps[:, i].cuda(), cache)[0].cpu()
+                       for i in range(FSDP_DECODE)]
+    torch.save(saved, d / f"fsdp_{name}.pt")
+    del model, cache, logits, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_ms}
+
+
+def shard_bytes(torch, model, ctx) -> int:
+    """A rank's bytes of ``model``'s working weights under
+    ``param_sharding``'s placements on ``ctx``'s mesh: each parameter's
+    whole shape cut by the mesh axes it is split over, in the compute
+    dtype."""
+    import math
+    from repro_torch.dist import api as dist
+    shapes = model.global_shapes()
+    placed = dist.param_sharding(model.param_axes(), shapes, ctx)
+    size = torch.empty((), dtype=model.policy.compute_dtype).element_size()
+    total = 0
+    for name, shape in shapes.items():
+        local = list(shape)
+        for axis, pl in zip(ctx.sizes, placed[name]):
+            if isinstance(pl, dist.Shard):
+                local[pl.dim] //= ctx.sizes[axis]
+        total += math.prod(local) * size
+    return total
+
+
+def fsdp_part(torch, np, d: Path, mesh, counters: dict, name: str) -> dict:
+    """Part ``name`` of phase 27 on one rank: the model built under the
+    mesh, its working weights handed to a ``ServeShards`` (this rank's
+    "fsdp" shards), its row of the prefill and the decode steps, held
+    against ``fsdp_references``'. Fails where the rank's resident weights
+    between units are not its shard bytes, where its kernels launched
+    other counts or saw other shapes, or where its numbers miss
+    PATH_REL_TOL."""
+    from repro_torch.convert import whole_cache
+    from repro_torch.dist import api as dist
+    from repro_torch.models.fsdp import ServeShards
+    from repro_torch.models.model import Model
+    spec = FSDP_PARTS[name]
+    ref = torch.load(d / f"fsdp_{name}.pt", mmap=True)
+    cfg = fsdp_config(name)
+    out = {}
+    with dist.use_mesh(mesh) as ctx:
+        model = Model(cfg, device="cuda", seed=0)
+        want_bytes = shard_bytes(torch, model, ctx)
+        holder = ServeShards(model)
+        index, shards = holder.token_shard
+        tag = (f"(27 {name}) {spec['arch']} at {FSDP_MESH}, rank "
+               f"{tdist_rank()}, batch shard {index} of {shards}")
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def resident(when: str) -> int:
+            held = holder.nbytes() + sum(p.numel() * p.element_size()
+                                         for p in model.parameters())
+            check(held == want_bytes, f"{tag}: {held} B of weights resident "
+                  f"{when}, not its {want_bytes} B of shards")
+            return held
+
+        resident("before the prefill")
+        rows = slice(index, index + 1)
+
+        def held(spans: dict, what: str) -> dict:
+            errs = {k: e / max(m, 1e-30) for k, (e, m) in spans.items()}
+            worst = max(errs, key=errs.get)
+            check(errs[worst] <= PATH_REL_TOL, f"{tag}: {what} {worst} "
+                  f"differs from the unsharded kernel path by "
+                  f"{errs[worst]:.3e} of its largest magnitude (> "
+                  f"{PATH_REL_TOL})")
+            return {"worst": worst, "err": errs[worst]}
+
+        for c in counters.values():
+            c.reset()
+        shapes: dict = {}
+        tokens = ref["tokens"][rows].cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with kernel_shapes(shapes):
+            logits, cache = model.prefill(tokens)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = {n: c.launches for n, c in counters.items()}
+        want = {n: spec["prefill"].get(n, 0) for n in counters}
+        check(launches == want, f"{tag}: the prefill launched {launches}, "
+              f"not {want}")
+        for kernel, want_shapes in spec["shapes"].items():
+            got = sorted(shapes.get(kernel, ()))
+            check(got == sorted(want_shapes), f"{tag}: the prefill handed "
+                  f"{kernel} {got}, not the rank's {sorted(want_shapes)}")
+        out["resident_bytes"] = resident("after the prefill")
+        V = cfg.vocab_size
+        spans = {"logits": tp_span(torch, logits[..., :V],
+                                   ref["logits"][rows][..., :V])}
+        for path, t in cache_leaves(whole_cache(model, cache)).items():
+            want_t = ref["cache"][path]       # the batch: its one dim
+            bdim = [i for i, (g, w) in enumerate(zip(t.shape, want_t.shape))
+                    if g != w]                # of another size
+            check(len(bdim) == 1 and t.dim() == want_t.dim(),
+                  f"{tag}: cache {path} of shape {tuple(t.shape)} against "
+                  f"the unsharded {tuple(want_t.shape)}")
+            spans[f"cache {path}"] = tp_span(
+                torch, t, want_t.narrow(bdim[0], index, 1))
+        out["prefill"] = dict(ms=prefill_ms, launches=launches,
+                              shapes={k: sorted(v) for k, v in
+                                      shapes.items()},
+                              **held(spans, "the prefill's"))
+        cache["pos"] = FSDP_SEQ - FSDP_DECODE
+        spans, walls = {}, []
+        for i in range(FSDP_DECODE):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = model.decode_step(ref["steps"][rows, i].cuda(), cache)[0]
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            spans[f"decode {i}"] = tp_span(torch, got[..., :V],
+                                           ref["decode"][i][rows][..., :V])
+            resident(f"after decode step {i}")
+        check(not any(c.launches - launches[n] for n, c in counters.items()),
+              f"{tag}: a decode step launched a kernel")
+        out["decode"] = dict(ms=float(np.median(walls)) * 1e3,
+                             **held(spans, "a decode step's"))
+        out["shard_bytes"] = want_bytes
+        out["gathered_peak_bytes"] = holder.peak
+        out["batch_shard"] = [index, shards]
+        del model, holder, cache, logits, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tdist_rank() -> int:
+    import torch.distributed as tdist
+    return tdist.get_rank()
+
+
+def fsdp_rank(rank: int, d: str) -> None:
+    """One rank of phase 27: a gloo process group of four ranks on cuda:0,
+    the (2, 2) mesh, each part of FSDP_PARTS; writes ``fsdp<r>.json``. A
+    failed check or an exception prints its traceback and exits
+    non-zero."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(ROOT / "src"))
+    PHASE["label"] = f"27 rank {rank}"
+    d = Path(d)
+    torch.cuda.set_device(0)
+    world = FSDP_MESH[0] * FSDP_MESH[1]
+    tdist.init_process_group(
+        "gloo", store=tdist.FileStore(str(d / "fsdp_store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=FSDP_WAIT_S))
+    try:
+        from repro_torch.launch.mesh import _make_mesh
+        counters = tp_counters()
+        mesh = _make_mesh(FSDP_MESH, ("data", "model"), "cuda")
+        out = {"model_rank": mesh.get_local_rank("model")}
+        for name in FSDP_PARTS:
+            t0 = time.perf_counter()
+            out[name] = fsdp_part(torch, np, d, mesh, counters, name)
+            out[name]["seconds"] = time.perf_counter() - t0
+            tdist.barrier()
+        (d / f"fsdp{rank}.json").write_text(json.dumps(out))
+    except Exception as e:           # noqa: BLE001 - named, then failed
+        traceback.print_exc(file=sys.stdout)
+        fail(f"{type(e).__name__}: {e}")
+    finally:
+        tdist.destroy_process_group()
+
+
+def phase_fsdp(torch, np, card: str):
+    """Phase 27: serving under the mesh with the working weights sharded
+    over "fsdp", four gloo ranks on one card at ("data", "model") = (2,
+    2). The unsharded references first (``fsdp_references``), then the
+    ranks (``fsdp_rank``), each serving its row of every part of
+    FSDP_PARTS with its shards (``fsdp_part``): qwen3-4b at 8 of 36
+    layers (K3 8 a prefill at 16 query and 4 KV heads a rank) and
+    rwkv6-7b at 4 of 32 (K4 4 at 32 heads a rank). The phase, its
+    references included, must end within FSDP_LIMIT_S. Returns (rank 0's
+    launches by part, numbers)."""
+    import multiprocessing
+    import tempfile
+    t_start = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="fsdp_")
+    d = Path(tmp.name)
+    world = FSDP_MESH[0] * FSDP_MESH[1]
+    try:
+        ref = {name: fsdp_references(torch, np, d, name)
+               for name in FSDP_PARTS}
+        procs = [multiprocessing.get_context("spawn").Process(
+            target=fsdp_rank, args=(r, str(d))) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = t_start + FSDP_LIMIT_S
+        while any(p.is_alive() for p in procs) and \
+                time.perf_counter() < deadline and \
+                not any(p.exitcode for p in procs):   # a rank failed
+            time.sleep(0.5)
+        hung = [r for r, p in enumerate(procs) if p.is_alive()
+                and not any(q.exitcode for q in procs)]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        check(not hung, f"ranks {hung} did not finish within the phase's "
+                        f"{FSDP_LIMIT_S} s")
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * world, f"rank exit codes {codes}")
+        facts = [json.loads((d / f"fsdp{r}.json").read_text())
+                 for r in range(world)]
+    finally:
+        tmp.cleanup()
+    seconds = time.perf_counter() - t_start
+    check(seconds <= FSDP_LIMIT_S, f"the phase took {seconds:.1f} s, over "
+                                   f"its {FSDP_LIMIT_S} s")
+    nums = {"card": card, "seconds": seconds, "mesh": list(FSDP_MESH)}
+    for name, spec in FSDP_PARTS.items():
+        parts = [f[name] for f in facts]
+        nums[name] = dict(
+            arch=spec["arch"], layers=spec["layers"],
+            unsharded_prefill_ms=ref[name]["prefill_ms"],
+            prefill_ms=[p["prefill"]["ms"] for p in parts],
+            decode_ms=[p["decode"]["ms"] for p in parts],
+            prefill_err=max(p["prefill"]["err"] for p in parts),
+            decode_err=max(p["decode"]["err"] for p in parts),
+            shard_bytes=[p["shard_bytes"] for p in parts],
+            gathered_peak_bytes=[p["gathered_peak_bytes"] for p in parts],
+            launches=parts[0]["prefill"]["launches"],
+            shapes=parts[0]["prefill"]["shapes"],
+            seconds=[round(p["seconds"], 1) for p in parts])
+        q = nums[name]
+        print(f"(27 {name}) ({card}) {spec['arch']} at {spec['layers']} "
+              f"layers, {FSDP_MESH} = (data, model), a row of {FSDP_SEQ} "
+              f"tokens a data rank: each rank holds "
+              f"{q['shard_bytes'][0] / 1e9:.4f} GB of shards between units "
+              f"(resident weights equal to them at every check), at most "
+              f"{max(q['gathered_peak_bytes']) / 1e9:.4f} GB gathered at "
+              f"once; prefill ms a rank "
+              f"{[round(x, 1) for x in q['prefill_ms']]} (unsharded, both "
+              f"rows: {q['unsharded_prefill_ms']:.1f}); decode ms a step a "
+              f"rank {[round(x, 1) for x in q['decode_ms']]}; logits and "
+              f"gathered caches within {q['prefill_err']:.3e}, decode "
+              f"logits within {q['decode_err']:.3e} of the unsharded "
+              f"kernel path's largest magnitude; launches a prefill "
+              f"{q['launches']}; kernels saw {q['shapes']}; ranks' seconds "
+              f"{q['seconds']}", flush=True)
+    print(f"phase 27 ({card}): {seconds:.1f} s of its {FSDP_LIMIT_S} s",
+          flush=True)
+    launches = {name: nums[name]["launches"] for name in FSDP_PARTS}
+    return launches, nums
+
+
 def run_phase(torch, label: str, fn, *args):
     """Run one phase: print its start with the card's free memory, then,
     on success, its seconds and peak memory, and drop what it held. Any
@@ -5264,6 +5596,8 @@ def main() -> None:
     measured.update(step_ms=tnums["step_ms"], peak_gb=tnums["peak_gb"])
     dry_nums = run_phase(torch, "26 dry-run counts against the card",
                          phase_dryrun, torch, np, measured)
+    fsdp, fsdp_nums = run_phase(torch, "27 serving under fsdp, four ranks",
+                                phase_fsdp, torch, np, card)
 
     kernels = [
         {"name": "fleet_score", "route": "cuda",
@@ -5315,8 +5649,9 @@ def main() -> None:
          "launches_tp_audio_prefill_a_rank":
              tp["audio_prefill"]["flash_attention"],
          "launches_tp_audio_step_a_rank": tp["audio_step"]["flash_attention"],
+         "launches_fsdp_prefill_a_rank": fsdp["dense"]["flash_attention"],
          "vlm": k3["vlm"], "tp": k3["tp"], "tp_audio": k3["tp_audio"],
-         "window": k3w},
+         "fsdp": k3["fsdp"], "window": k3w},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention/ops.py:42",
@@ -5354,7 +5689,8 @@ def main() -> None:
          "shape": k4["shape"], "launches_train": train_ssm["wkv6"],
          "launches_tp_ssm_prefill_a_rank": tp["ssm_prefill"]["wkv6"],
          "launches_tp_ssm_step_a_rank": tp["ssm_step"]["wkv6"],
-         "tp": k4["tp"]},
+         "launches_fsdp_prefill_a_rank": fsdp["ssm"]["wkv6"],
+         "tp": k4["tp"], "fsdp": k4["fsdp"]},
         {"name": "wkv6_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv6_bwd.cu",
          "replaces": "src/repro/models/rwkv6.py:82",
@@ -5415,6 +5751,8 @@ def main() -> None:
     print(f"tensor parallelism (phase 25): {json.dumps(tp_nums)}",
           flush=True)
     print(f"dry-run counts (phase 26): {json.dumps(dry_nums)}", flush=True)
+    print(f"serving under fsdp (phase 27): {json.dumps(fsdp_nums)}",
+          flush=True)
     print(f"every phase passed in {time.perf_counter() - t0:.1f} s, the "
           f"builds included; {SESSIONS['lost']} of {SESSIONS['taken']} "
           f"profiler sessions traced no whole call and were taken again",

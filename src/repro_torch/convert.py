@@ -20,6 +20,11 @@ moves both across without importing ``repro``:
       and ``dec_layers``), the hybrid ``tail`` list taken layer by layer,
       every (in, out) matrix kept as it is, each leaf cast to the compute
       dtype once.
+  serve_shards(jax_params, cfg, policy=..., device=..., batch_shard=...)
+      serving under the current mesh with the working weights sharded
+      over "fsdp": a ``models.fsdp.ServeShards`` whose every rank holds
+      its shards of the JAX package's parameter tree, attached to a
+      ``Model`` of ``cfg`` built under the mesh;
   named_params(jax_tree, depth)
       any tree shaped like the parameters (float32 master weights, AdamW
       moments, gradients) as ``{port parameter name: array}``;
@@ -51,7 +56,7 @@ moves both across without importing ``repro``:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Set, Union
+from typing import Dict, Mapping, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,7 +66,7 @@ from repro_torch.core.detector import DetectorConfig, StragglerDetector
 from repro_torch.core.policy import PolicyConfig
 from repro_torch.core.sweep import SweepConfig
 from repro_torch.core.triage import Stage, TriageConfig
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve
 from repro_torch.diagnose import (RootCauseConfig, TimingTrace, Topology,
                                   WindowTiming)
 from repro_torch.guard import RecoveryModel, Tier
@@ -243,6 +248,35 @@ def model_params(jax_params: Mapping, cfg, *,
         raise KeyError(f"reference tree leaves port parameters unset: "
                        f"{missing[:8]}")
     return model
+
+
+def serve_shards(jax_params: Mapping, cfg, *,
+                 policy: Optional[Policy] = None,
+                 device: DeviceLike = "cuda",
+                 batch_shard: Optional[Tuple[int, int]] = None):
+    """A ``models.fsdp.ServeShards`` of a ``Model`` of ``cfg`` built under
+    the current mesh (its "model" slices), holding this rank's shard under
+    ``param_sharding`` of each parameter of ``jax_params`` (the reference's
+    tree of numpy arrays, as ``model_params`` takes it), in the compute
+    dtype, on ``device``; ``batch_shard`` as ``ServeShards`` takes it
+    (``(0, 1)``: a batch every rank holds whole). The model is built on the
+    meta device: a rank allocates its shards and, while it serves, the
+    units it gathers, never its whole "model" slice. The holder is
+    attached (``holder.model`` serves). Raises unless every parameter's
+    whole shape is the reference's."""
+    from repro_torch.models.fsdp import ServeShards
+    model = Model(cfg, policy, device="meta", seed=None)
+    named = named_params(jax_params, {s: len(getattr(model, s))
+                                      for s in model.stacks()})
+    shapes = model.global_shapes()
+    for name, val in named.items():
+        if name in shapes and tuple(np.shape(val)) != tuple(shapes[name]):
+            raise ValueError(f"{name}: reference shape {np.shape(val)}, "
+                             f"port shape {tuple(shapes[name])}")
+    values = {name: np.asarray(val, np.float32)
+              for name, val in named.items()}
+    return ServeShards(model, batch_shard=batch_shard, values=values,
+                       device=resolve(device))
 
 
 def named_params(jax_tree: Mapping, depth: Union[int, Mapping[str, int]]
@@ -460,6 +494,7 @@ __all__ = ["detector_config", "detector_state_to_numpy", "fault_rates",
            "fleet_job_spec", "fleet_run_config", "load_detector_state",
            "model_params", "named_params", "opt_state", "policy_config",
            "recovery_model", "reference_tree", "rootcause_config",
-           "run_config", "scenario_spec", "sweep_config", "timing_trace",
+           "run_config", "scenario_spec", "serve_shards", "sweep_config",
+           "timing_trace",
            "topology", "triage_config", "watchdog_config",
            "workload_profile"]

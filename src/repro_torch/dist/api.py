@@ -332,6 +332,23 @@ def all_reduce(t: torch.Tensor, group=None, op=tdist.ReduceOp.SUM
     return t
 
 
+def gather_batch(t: torch.Tensor, ctx: DistContext) -> torch.Tensor:
+    """The ``t`` of every rank that shares this rank's "model" coordinate,
+    stacked in the batch's row-major order over "pod" and "data" (the
+    ``act_batch`` axes): (batch ranks, *t.shape). One all-gather a batch
+    axis wider than 1, on that axis's group; no gradient."""
+    out = t.detach()[None]
+    for axis in reversed(ctx.mesh_axes("act_batch")):
+        n = ctx.sizes[axis]
+        if n == 1:
+            continue
+        buf = out.new_empty((n * out.numel(),))
+        all_gather_single(buf, out.contiguous().view(-1),
+                          group=ctx.mesh.get_group(axis))
+        out = buf.view((n * out.shape[0],) + tuple(out.shape[1:]))
+    return out
+
+
 def _send(t: torch.Tensor, tp: TPGroup) -> torch.Tensor:
     """A private contiguous copy of ``t`` to communicate: on the host for a
     CUDA tensor on a gloo group."""
@@ -461,7 +478,8 @@ def max_all_reduce(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
 
 __all__ = ["DEFAULT_RULES", "DistContext", "TPGroup", "TP_AXIS",
            "all_gather_single", "all_reduce", "all_to_all", "constraint", "copy_in",
-           "current", "distribute", "gather_dim", "gather_fsdp",
+           "current", "distribute", "gather_batch", "gather_dim",
+           "gather_fsdp",
            "local_block", "max_all_reduce", "param_sharding", "rank0_value",
            "reduce_out", "reduce_scatter_single", "set_context", "split_dim",
            "tp_group", "use_mesh"]

@@ -12,8 +12,11 @@ For every cell, on the (16, 16) and the (2, 16, 16) mesh, one process:
   - runs the cell's step through the port's own code on meta inputs of the
     rank's rows: train the ZeRO-3 step (``shard_params``,
     ``init_opt_state``, ``make_train_step``), prefill ``Model.prefill``,
-    decode ``Model.decode_step`` on an ``init_cache`` of the rank's rows;
-    the hand-written kernels run as their stand-ins
+    decode ``Model.decode_step`` on an ``init_cache`` of the rank's rows,
+    both served with the working weights sharded over "fsdp" and gathered
+    a unit at a time (``models.fsdp.ServeShards``, as the reference passes
+    ``param_sharding``'s ``p_sh`` to both); the hand-written kernels run
+    as their stand-ins
     (``repro_torch.kernels.meta``), so a shape or placement that does not
     fit raises here,
   - counts the step's FLOPs, memory traffic and collective bytes
@@ -22,15 +25,22 @@ For every cell, on the (16, 16) and the (2, 16, 16) mesh, one process:
   - sums the rank's exact bytes of working weights, masters, moments,
     caches and batch from the meta tensors' shapes (activations and
     temporaries not counted), and says whether they fit the card's 85.02e9
-    bytes; a cell that does not fit is reported, not raised.
+    bytes; a cell that does not fit is reported, not raised. A served
+    cell's "weights" are the rank's shards (in the compute dtype,
+    ``weights_dtype``; the reference's dry run holds float32 params) and
+    its "gathered" the most weights it held gathered at once (its "in"
+    unit, kept through the call, and one other); a training cell's
+    "weights" are its working weights, gathered whole over "data".
 
 The reference jits, lowers and compiles each cell (``lower_s``,
 ``compile_s``, XLA's ``memory_analysis``); the port builds and runs it
 (``build_s``, ``step_s``, ``memory``), and ``step_static`` takes the place
-of ``hlo_static``. The reference's ``fsdp_gather`` option has no
-counterpart: the port's ZeRO-3 step always gathers each unit's working
-weights just in time. Every bound is of a mesh of H100s that no one here
-has: none of them is a measurement.
+of ``hlo_static``. The reference's ``fsdp_gather=False`` baseline (a
+GSPMD choice: its params stay sharded and XLA gathers them where it
+will) has no counterpart: the port's ZeRO-3 step and its served cells
+always gather each unit's working weights just in time, one all-gather
+over "data" a unit, which the collective term counts. Every bound is of
+a mesh of H100s that no one here has: none of them is a measurement.
 
 Usage (the CPU only; results of ``--all`` in ``build/dryrun/``):
   python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k \
@@ -59,6 +69,7 @@ from repro_torch.dist import api as dist
 from repro_torch.launch import step_analysis
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.roofline import Roofline, model_flops_for
+from repro_torch.models.fsdp import ServeShards, batch_shard
 from repro_torch.models.model import Model, input_specs
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.trainer import make_train_step, shard_params
@@ -91,9 +102,7 @@ def batch_rows(ctx: dist.DistContext, global_batch: int) -> int:
     """The rank's rows of a global batch: split over "act_batch" ("pod" and
     "data"), or all of them where they do not divide it (the reference's
     divisibility fallback replicates the batch)."""
-    if ctx.spec(("act_batch",), (global_batch,))[0] is None:
-        return global_batch
-    return global_batch // ctx.axis_size("act_batch")
+    return global_batch // batch_shard(ctx, global_batch)[1]
 
 
 def _bytes(tree: Any) -> int:
@@ -116,6 +125,7 @@ class Cell:
     shape: Any
     step: Callable[[], Any]
     memory: Dict[str, int]
+    holder: Optional[ServeShards] = None     # a served cell's weights
 
 
 def build_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -134,11 +144,17 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     rules = dict(dist.DEFAULT_RULES)
     rules.update(rules_override or {})
     memory: Dict[str, int] = {}
+    holder = None
     with dist.use_mesh(mesh, rules) as ctx:
         model = Model(cfg, device="meta", seed=None, remat=remat)
         rows = batch_rows(ctx, shape.global_batch)
-        memory["weights"] = _bytes(list(model.parameters()))
         specs = input_specs(cfg, shape, rows=rows, model=model)
+        if shape.kind == "train":
+            memory["weights"] = _bytes(list(model.parameters()))
+        else:
+            holder = ServeShards(model, ctx,
+                                 batch_shard(ctx, shape.global_batch))
+            memory["weights"] = holder.nbytes()
         if shape.kind == "train":
             params = shard_params(model, ctx)
             opt = init_opt_state(params)
@@ -173,8 +189,10 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
 
     meta = {"arch": arch, "shape": shape_name,
             "mesh": "2x16x16" if multi_pod else "16x16", "chips": chips,
-            "kind": shape.kind, "rank": rank, "rows": rows}
-    return Cell(meta, cfg, shape, step, memory)
+            "kind": shape.kind, "rank": rank, "rows": rows,
+            "weights_dtype": str(model.policy.compute_dtype).split(".")[-1],
+            "reference_weights_dtype": "float32"}
+    return Cell(meta, cfg, shape, step, memory, holder)
 
 
 def cache_shapes(cache, prefix: str = "") -> Dict[str, list]:
@@ -215,6 +233,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     cache = {} if cell.shape.kind == "train" else result["out"][1]
     if cell.shape.kind == "prefill":
         memory["cache"] = _bytes(cache)
+    if cell.holder is not None:
+        memory["gathered"] = cell.holder.peak
     memory["total"] = sum(memory.values())
     memory["fits"] = memory["total"] <= CARD_BYTES
     chips = cell.meta["chips"]

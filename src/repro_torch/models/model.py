@@ -69,6 +69,16 @@ recompute gathers again, the hybrid "tail" once before it, and "out"
 (``ln_f``, the head) after the layers. After such a step the working
 weights hold no storage (``weights_released``) and every entry point
 raises until ``repro_torch.train.load_working`` brings them back.
+Serving under a mesh with the working weights sharded over "fsdp" hangs
+a ``models.fsdp.ServeShards`` on ``zero3`` the same way: ``prefill`` and
+``decode_step`` (the hybrid family's decode included) gather "in" for
+the whole call, and each other unit just before it runs, releasing it
+once its output exists; each "data" rank serves its own rows, and the
+moe family's layers route them with the holder's ``token_shard``. The
+reference's decode leaves this gather to GSPMD on its sharded params;
+the port gathers each unit in decode as in prefill. Without a holder, a
+model served under the mesh keeps its working weights whole over
+"data".
 
 Tensor parallelism: a model of any family built under a mesh whose
 "model" axis is wider than 1 draws (or, with ``seed=None``, allocates)
@@ -359,8 +369,15 @@ class Model(nn.Module):
         if self.zero3 is not None:
             self.zero3.gather(unit)
 
+    def _release(self, unit: str) -> None:
+        """Frees ``unit``'s gathered weights in a serving path, once its
+        output exists (``models.fsdp``)."""
+        if self.zero3 is not None:
+            self.zero3.release(unit)
+
     def _token_shard(self) -> Optional[moe_mod.TokenShard]:
-        """(this rank's batch shard, shards) inside a sharded step."""
+        """(this rank's batch shard, shards) inside a sharded step or under
+        a serving holder (``models.fsdp.ServeShards``)."""
         return None if self.zero3 is None else self.zero3.token_shard
 
     def require_weights(self) -> None:
@@ -442,7 +459,9 @@ class Model(nn.Module):
         shards = self._kv_shards(S)
         cache: Cache = {}
         if hasattr(self, "dense0"):
+            self._gather("dense0")
             x, _, (k, v) = tfm.decoder_layer(self.dense0, cfg, x, rope)
+            self._release("dense0")
             cache["dense0"] = (
                 self._to_cache(self.dense0, k, shards).contiguous(),
                 self._to_cache(self.dense0, v, shards).contiguous())
@@ -450,7 +469,10 @@ class Model(nn.Module):
         kc = torch.empty(shape, dtype=x.dtype, device=self.device)
         vc = torch.empty(shape, dtype=x.dtype, device=self.device)
         for i, lp in enumerate(self.layers):
-            x, _, (k, v) = tfm.decoder_layer(lp, cfg, x, rope)
+            self._gather(f"layers.{i}")
+            x, _, (k, v) = tfm.decoder_layer(
+                lp, cfg, x, rope, token_shard=self._token_shard())
+            self._release(f"layers.{i}")
             kc[i] = self._to_cache(lp, k, shards)
             vc[i] = self._to_cache(lp, v, shards)
         cache["layers"] = (kc, vc)
@@ -538,8 +560,10 @@ class Model(nn.Module):
         ck, cv = (torch.empty((L, B, self._cross_kv_heads(), enc.shape[1],
                                hd), **kv) for _ in range(2))
         for i, lp in enumerate(self.dec_layers):
+            self._gather(f"dec_layers.{i}")
             x, _, (k, v, kx, vx) = tfm.decoder_layer(lp, cfg, x, None,
                                                      enc_out=enc)
+            self._release(f"dec_layers.{i}")
             kc[i] = self._to_cache(lp, k, shards)
             vc[i] = self._to_cache(lp, v, shards)
             ck[i], cv[i] = kx, vx
@@ -574,11 +598,13 @@ class Model(nn.Module):
                        cfg.norm_eps)
         H, hd = self._rwkv_heads(), cfg.rwkv_head_dim
         states, x_tm, x_cm = [], [], []
-        for lp in self.layers:
+        for i, lp in enumerate(self.layers):
             s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
                              device=self.device)
+            self._gather(f"layers.{i}")
             x, st, (ltm, lcm) = rwkv6.block(lp, cfg, x, s0,
                                             collect_last=True)
+            self._release(f"layers.{i}")
             states.append(st)
             x_tm.append(ltm)
             x_cm.append(lcm)
@@ -650,10 +676,12 @@ class Model(nn.Module):
             return self._rec_layer(lp, x)
 
         per_key: Dict[str, list] = {key: [] for key, _ in self._hybrid_keys()}
-        for unit in self.units:
+        for u, unit in enumerate(self.units):
+            self._gather(f"units.{u}")
             for key, kind in self._hybrid_keys():
                 x, c = one_layer(unit[key], kind, x)
                 per_key[key].append(c)
+            self._release(f"units.{u}")
         units: Dict[str, Any] = {}
         for key, kind in self._hybrid_keys():
             cs = per_key[key]
@@ -664,9 +692,13 @@ class Model(nn.Module):
                 units[key] = {name: torch.stack([c[name] for c in cs])
                               for name in ("h", "conv")}
         tail = []
+        if len(self.tail):
+            self._gather("tail")
         for lp, kind in zip(self.tail, self._hybrid_tail_kinds()):
             x, c = one_layer(lp, kind, x)
             tail.append(c)
+        if len(self.tail):
+            self._release("tail")
         return x, {"units": units, "tail": tail}
 
     # ------------------------------------------------------------ train
@@ -748,14 +780,18 @@ class Model(nn.Module):
         when a gradient is wanted, as one checkpointed function (no
         randomness inside a layer, so the RNG state is not saved for the
         recompute), after which a sharded step releases the unit's weights
-        (the recompute gathers again)."""
+        (the recompute gathers again); without a gradient (serving) the
+        unit's weights are released once its output exists."""
         if self.remat == "full" and torch.is_grad_enabled():
             out = checkpoint(fn, *args, use_reentrant=False,
                              preserve_rng_state=False)
             if self.zero3 is not None:
                 self.zero3.release(unit)
             return out
-        return fn(*args)
+        out = fn(*args)
+        if not torch.is_grad_enabled():
+            self._release(unit)
+        return out
 
     def _train_encdec(self, tokens: torch.Tensor, frames: torch.Tensor
                       ) -> torch.Tensor:
@@ -836,10 +872,15 @@ class Model(nn.Module):
 
     def _final_logits(self, x_last: torch.Tensor) -> torch.Tensor:
         """The last position's logits over the whole (padded) vocabulary,
-        gathered over "model" under tensor parallelism."""
+        gathered over "model" under tensor parallelism. A serving holder's
+        "out" is gathered for them and released with "in", which the
+        entry point gathered at its start."""
+        self._gather("out")
         x_last = tfm.norm(self.cfg, x_last, self.ln_f.to(x_last.dtype))
         logits = logits_from_hidden(self.embed, x_last, self.cfg.vocab_size,
                                     self.cfg.tie_embeddings)
+        self._release("out")
+        self._release("in")
         if self.embed.tp is not None:
             logits = dist.gather_dim(logits, -1, self.embed.tp)
         return logits
@@ -856,6 +897,7 @@ class Model(nn.Module):
         vlm family raises ``KeyError`` without ``positions``."""
         self.require_weights()
         tokens = self._tokens(tokens)
+        self._gather("in")
         x, cache = self._forward(tokens, enc_frames, positions,
                                  patch_embeds)
         cache["pos"] = int(tokens.shape[1])
@@ -931,6 +973,7 @@ class Model(nn.Module):
         self.require_weights()
         cfg = self.cfg
         pos = int(cache["pos"])
+        self._gather("in")
         if cfg.family == "hybrid":
             return self._decode_hybrid(self._tokens(tokens), cache, pos)
         x = dist.constraint(embed_tokens(self.embed, self._tokens(tokens)),
@@ -940,26 +983,35 @@ class Model(nn.Module):
             x = x + self.pos_dec.to(x.dtype)[pos]
             kc, vc, ck, cv = cache["layers"]
             for i, lp in enumerate(self.dec_layers):
+                self._gather(f"dec_layers.{i}")
                 x = tfm.decoder_layer_step(lp, cfg, x, kc[i], vc[i], pos,
                                            None, enc_kv=(ck[i], cv[i]),
                                            kv_sharded=sharded)
+                self._release(f"dec_layers.{i}")
         elif cfg.family == "ssm":
             for i, lp in enumerate(self.layers):
                 st = {name: cache[name][i] for name in ("wkv", "x_tm",
                                                          "x_cm")}
+                self._gather(f"layers.{i}")
                 x, new = rwkv6.block_step(lp, cfg, x, st)
+                self._release(f"layers.{i}")
                 for name, val in new.items():
                     cache[name][i] = val
         else:
             kc, vc = cache["layers"]
             rope = self._rope_at(x.shape[0], pos)
             if hasattr(self, "dense0"):
+                self._gather("dense0")
                 x = tfm.decoder_layer_step(self.dense0, cfg, x,
                                            *cache["dense0"], pos, rope,
                                            kv_sharded=sharded)
+                self._release("dense0")
             for i, lp in enumerate(self.layers):
-                x = tfm.decoder_layer_step(lp, cfg, x, kc[i], vc[i], pos,
-                                           rope, kv_sharded=sharded)
+                self._gather(f"layers.{i}")
+                x = tfm.decoder_layer_step(
+                    lp, cfg, x, kc[i], vc[i], pos, rope, kv_sharded=sharded,
+                    token_shard=self._token_shard())
+                self._release(f"layers.{i}")
         cache["pos"] = pos + 1
         return self._final_logits(x), cache
 
@@ -1046,14 +1098,20 @@ class Model(nn.Module):
             return x
 
         for i, unit in enumerate(self.units):
+            self._gather(f"units.{i}")
             for key, kind in self._hybrid_keys():
                 c = cache["units"][key]
                 c = ((c[0][i], c[1][i]) if kind == "attn"
                      else {name: t[i] for name, t in c.items()})
                 x = one_step(unit[key], kind, x, c)
+            self._release(f"units.{i}")
+        if len(self.tail):
+            self._gather("tail")
         for lp, kind, c in zip(self.tail, self._hybrid_tail_kinds(),
                                cache["tail"]):
             x = one_step(lp, kind, x, c)
+        if len(self.tail):
+            self._release("tail")
         cache["pos"] = pos + 1
         return self._final_logits(x), cache
 

@@ -24,18 +24,27 @@ stable=True)`` and keeps the first k, which does the same (``torch.topk``
 gives no such order). The dispatch sort is stable too, so a full expert
 drops the same slots as the reference's ``jnp.argsort(stable=True)``.
 
-Under the sharded training step (``repro_torch.train.trainer``), each
-batch rank holds its own rows of the call, where the reference routes
-the whole batch in one call. ``apply_moe`` then takes ``token_shard`` =
-(this rank's shard, shards) and routes as the reference does over the
-whole batch: one all-gather of each rank's per-expert slot and top-1
-counts gives the capacity of all the call's tokens, each slot's rank
-within its expert counted over the ranks before it (the batch's rows in
-order), and the aux loss's token fractions over the whole batch. Every
-rank's call must hold the same number of tokens, as the sharded step's
-even split gives. Each rank's aux is the whole batch's fractions against
-its own mean probabilities, so the ranks' mean is the reference's aux,
-and so is its gradient once the step averages the ranks' gradients.
+Under the sharded training step (``repro_torch.train.trainer``) and
+when serving with the weights sharded over "fsdp"
+(``repro_torch.models.fsdp.ServeShards``), each batch rank holds its
+own rows of the call, where the reference routes the whole batch in one
+call. ``apply_moe`` then takes ``token_shard`` = (this rank's shard,
+shards) and routes as the reference does over the whole batch: one
+all-gather of each rank's per-expert slot and top-1 counts over the
+batch ranks ("pod" x "data": the ranks that share this rank's "model"
+coordinate, and so hold other rows) gives the capacity of all the call's
+tokens, each slot's rank within its expert counted over the ranks before
+it (the batch's rows in order), and the aux loss's token fractions over
+the whole batch. Every rank's call must hold the same number of tokens,
+as the even split gives, and the world must be (batch shards x "model").
+Each rank's aux is the whole batch's fractions against its own mean
+probabilities, so the batch ranks' mean is the reference's aux, and so is
+its gradient once the step averages the ranks' gradients. Where "model"
+is wider than 1 and does not divide the experts, the experts are whole:
+the "model" ranks of a batch rank hold the same rows, route them alike
+and compute the same routed output, so nothing sums their shares of x's
+gradient (a sliced layer's ``gather_dim`` hands each rank back its own
+slice) and nothing is scaled.
 
 Expert parallelism (the reference's ``shard_map`` over "model", where
 "model" is wider than 1 and divides E) runs where the model keeps each
@@ -215,23 +224,24 @@ def _route_across(p: MoE, x: torch.Tensor, cfg, token_shard: TokenShard
     m = cfg.moe
     E, K = m.num_experts, m.top_k
     index, shards = token_shard
-    world = tdist.get_world_size()
-    if world != shards:
+    ctx = dist.current()
+    batch = 1 if ctx is None else ctx.axis_size("act_batch")
+    width = 1 if ctx is None else ctx.sizes.get(dist.TP_AXIS, 1)
+    world = tdist.get_world_size() if tdist.is_initialized() else 1
+    if batch != shards or world != shards * width:
         raise NotImplementedError(
-            f"{shards} batch shards over {world} ranks: routing across "
-            f"ranks needs one batch shard a rank")
+            f"{shards} batch shards over a world of {world} ranks, where "
+            f"the mesh gives {batch} batch shards x {width} "
+            f"{dist.TP_AXIS!r} ranks = {batch * width}: routing across "
+            f"the batch ranks needs a world of (batch shards x "
+            f"{dist.TP_AXIS!r})")
     probs = _probs(p.router, x)
     w, idx = _top_k(probs, K)
     T = x.shape[0] * x.shape[1]
-    mine = torch.stack([_counts(idx.reshape(-1), E),
-                        _counts(idx[..., 0].reshape(-1), E)])
-    mine = torch.cat([torch.full((1,), index, dtype=mine.dtype,
-                                 device=mine.device), mine.reshape(-1)])
-    rows = [torch.empty_like(mine) for _ in range(world)]
-    tdist.all_gather(rows, mine)
-    rows = torch.stack(rows)
-    rows = rows[rows[:, 0].argsort()]                 # batch order
-    slots, top1 = rows[:, 1:1 + E], rows[:, 1 + E:]
+    mine = torch.cat([_counts(idx.reshape(-1), E),
+                      _counts(idx[..., 0].reshape(-1), E)])
+    rows = dist.gather_batch(mine, ctx)               # batch order
+    slots, top1 = rows[:, :E], rows[:, E:]
     offset = slots[:index].sum(dim=0)
     frac = top1.sum(dim=0).float() / (T * shards)
     aux = E * (frac * probs.mean(dim=(0, 1))).sum()
@@ -287,11 +297,11 @@ def apply_moe(p: MoE, cfg, x: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), aux). ``token_shard`` = (this rank's
     batch shard, shards) where each rank holds its own rows of the call
-    (the sharded training step); None or one shard routes the call
-    alone. Under expert parallelism (``p.tp``) see the module's
-    docstring; a layer whose experts are whole raises under a context
-    that would split them over "model" (a model built outside the
-    mesh)."""
+    (the sharded training step, or serving with ``models.fsdp``'s
+    ``ServeShards``); None or one shard routes the call alone. Under
+    expert parallelism (``p.tp``) see the module's docstring; a layer
+    whose experts are whole raises under a context that would split them
+    over "model" (a model built outside the mesh)."""
     m = cfg.moe
     ctx = dist.current()
     width = 1 if ctx is None else ctx.sizes.get(dist.TP_AXIS, 1)

@@ -146,15 +146,18 @@ def decoder_layer_step(p: DecoderLayer, cfg, x: torch.Tensor,
                        kcache: torch.Tensor, vcache: torch.Tensor, pos: int,
                        rope: Optional[Rope], *, window: int = 0,
                        enc_kv: Optional[KV] = None,
-                       kv_sharded: bool = False) -> torch.Tensor:
+                       kv_sharded: bool = False,
+                       token_shard: Optional[moe_mod.TokenShard] = None
+                       ) -> torch.Tensor:
     """Decode-step layer. x (B, D); caches (B, Hkv, Sc, hd), written in
     place at ``pos`` (with a ``window``, a ring of Sc = window slots
     written at ``pos % window``, ``_ring_decode``); ``rope`` the (B, 1)
     tables of ``pos`` (None in the audio family); ``enc_kv`` the audio
     family's cross caches (B, Hkv, T, hd), read, not written
     (``_plain_decode_attn``). An MoE layer routes the step's B tokens as
-    one call and drops its aux. Under tensor parallelism the self caches
-    hold every KV head, ``kv_sharded`` says whether they are this rank's
+    one call (``token_shard`` see ``moe.apply_moe``) and drops its aux.
+    Under tensor parallelism the self caches hold every KV head,
+    ``kv_sharded`` says whether they are this rank's
     sequence slice (flash-decode) or the whole (a ring is always whole),
     the rank's q/k/v heads are gathered over "model" for the attention,
     and its query heads of the output go into its slice of ``wo``; the
@@ -170,7 +173,8 @@ def decoder_layer_step(p: DecoderLayer, cfg, x: torch.Tensor,
             o = _ring_decode(q, kcache, vcache, k, v, pos)
         else:
             o = attn.decode_attention(q, kcache, vcache, k, v, pos)
-        return _step_rest(p, cfg, x + o.reshape(B, -1) @ p.attn.wo, enc_kv)
+        return _step_rest(p, cfg, x + o.reshape(B, -1) @ p.attn.wo, enc_kv,
+                          token_shard)
     heads = q.shape[1]
     if p.attn.heads_local:
         q = dist.gather_dim(q, 1, tp)
@@ -184,11 +188,13 @@ def decoder_layer_step(p: DecoderLayer, cfg, x: torch.Tensor,
     if p.attn.heads_local:
         o = o.narrow(1, tp.rank * heads, heads)
     return _step_rest(p, cfg, x + attn.out_projection(
-        p.attn, o[:, None])[:, 0], enc_kv)
+        p.attn, o[:, None])[:, 0], enc_kv, token_shard)
 
 
 def _step_rest(p: DecoderLayer, cfg, x: torch.Tensor,
-               enc_kv: Optional[KV]) -> torch.Tensor:
+               enc_kv: Optional[KV],
+               token_shard: Optional[moe_mod.TokenShard] = None
+               ) -> torch.Tensor:
     """A decode step after its self-attention: the cross attention (the
     audio family; the rank's query heads over the KV heads they read),
     then the FFN."""
@@ -202,7 +208,8 @@ def _step_rest(p: DecoderLayer, cfg, x: torch.Tensor,
         x = x + attn.out_projection(cross, oc[:, None])[:, 0]
     h = norm(cfg, x, p.ln_mlp)
     if p.moe_layer:
-        return x + moe_mod.apply_moe(p.moe, cfg, h[:, None])[0][:, 0]
+        return x + moe_mod.apply_moe(p.moe, cfg, h[:, None],
+                                     token_shard)[0][:, 0]
     return x + p.mlp(h)
 
 

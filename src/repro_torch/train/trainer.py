@@ -59,9 +59,10 @@ from typing import Any, Callable, Dict, Mapping, Optional, Protocol, Tuple
 import numpy as np
 import torch
 import torch.distributed as tdist
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor
 
 from repro_torch.dist import api as dist
+from repro_torch.models import fsdp
 from repro_torch.models.model import Model
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import SyntheticLM
@@ -170,67 +171,18 @@ def shard_params(model: Model, ctx: dist.DistContext
     return out
 
 
-_all_gather = dist.all_gather_single
 _reduce_scatter = dist.reduce_scatter_single
 
 
-def _split_dims(ctx: dist.DistContext, placements, name: str
-                ) -> Tuple[Optional[int], Optional[int]]:
-    """The tensor dims a master splits over "data" and over a "model" axis
-    wider than 1, None where it replicates there. The ZeRO-3 step shards
-    over those two: a split on another axis wider than 1 is not its
-    layout."""
-    dims = {"data": None, dist.TP_AXIS: None}
-    for axis, pl in zip(ctx.sizes, placements):
-        if not isinstance(pl, Shard) or (axis == dist.TP_AXIS
-                                         and ctx.sizes[axis] == 1):
-            continue
-        if axis in dims:
-            dims[axis] = pl.dim
-        elif ctx.sizes[axis] > 1:
-            raise NotImplementedError(
-                f"{name} is split over {axis!r}: the sharded step splits "
-                f"parameters over 'data' and {dist.TP_AXIS!r} only")
-    return dims["data"], dims[dist.TP_AXIS]
-
-
-class _Unit:
-    """The flat layout of one unit (``Model.zero3_units``): for each
-    parameter (name -> (dim, local shape, offset)) whose master splits over
-    "data" on ``dim``, its place in a flat local buffer of ``size``
-    elements; for each replicated one (dim None, its full shape), its place
-    in a flat buffer of ``rep_size``. ``shapes`` are the working weights'
-    shapes cut to the masters' "model" slice. Holds the step's gradient
-    buffers."""
-
-    def __init__(self, names, shapes, dims, n: int):
-        self.names = list(names)
-        self.slot: Dict[str, Tuple[Optional[int], Tuple[int, ...], int]] = {}
-        self.size = self.rep_size = 0
-        for name in self.names:
-            shape, d = list(shapes[name]), dims[name]
-            if d is None:
-                self.slot[name] = (None, tuple(shape), self.rep_size)
-                self.rep_size += math.prod(shape)
-            else:
-                shape[d] //= n
-                self.slot[name] = (d, tuple(shape), self.size)
-                self.size += math.prod(shape)
-        self.shard = [(k, *v) for k, v in self.slot.items()
-                      if v[0] is not None]
-        self.rep = [k for k, v in self.slot.items() if v[0] is None]
-        self.grad = self.rep_grad = None    # float32, allocated on first use
-        self.seen: set = set()              # names whose gradient is in
-
-
-class _Zero3:
+class _Zero3(fsdp.Shards):
     """The ZeRO-3 state of a sharded step, one flat buffer a unit of
-    ``Model.zero3_units``. ``gather`` casts the unit's local master shards
-    into its buffer and all-gathers that over "data", one collective a
-    unit (the reference's ``gather_fsdp`` of the cast masters: "fsdp"
-    dropped); each working weight is a view of the result at one data
-    rank and a copy of its rows otherwise; replicated parameters are cast
-    on each rank. ``release`` frees a unit's working weights. A post-accumulate-grad
+    ``Model.zero3_units`` (the layout and the gather of ``models.fsdp``).
+    ``gather`` casts the unit's local master shards into its buffer and
+    all-gathers that over "data", one collective a unit (the reference's
+    ``gather_fsdp`` of the cast masters: "fsdp" dropped); each working
+    weight is a view of the result at one data rank and a copy of its rows
+    otherwise; replicated parameters are cast on each rank. ``release``
+    frees a unit's working weights. A post-accumulate-grad
     hook moves each working gradient, widened to float32, into its unit's
     gradient buffer (the data ranks' shards one after another) and frees
     the weight; when the unit's last gradient is in, ``reduce``
@@ -240,52 +192,24 @@ class _Zero3:
     is the identity and is skipped. Under ``accumulate`` the
     buffers sum the microbatches and are reduced once, at the end. The
     gradients handed on (``take``) are this rank's local shards, plain
-    tensors, in the parameters' order."""
+    tensors, in the parameters' order. A master split over "model" whose
+    working weight is whole (``whole``) has its gradient cut to the
+    rank's slice."""
 
     def __init__(self, model: Model, ctx: dist.DistContext):
-        model.require_weights()
-        self.model = model
-        self.working = dict(model.named_parameters())
-        placements = dist.param_sharding(model.param_axes(),
-                                         model.global_shapes(), ctx)
-        split = {name: _split_dims(ctx, pl, name)
-                 for name, pl in placements.items()}
-        dims = {name: d for name, (d, _) in split.items()}
-        # masters split over "model" whose working weight is whole: the
-        # dim gathered over "model" (the gradient cut to the slice)
-        self.tp = model.tp
-        self.whole: Dict[str, int] = {}
-        for name, (_, m) in split.items():
-            if m is None or model.tp_dims.get(name) == m:
-                continue
-            if name in model.tp_dims:
-                raise ValueError(f"{name}: the model splits dim "
-                                 f"{model.tp_dims[name]} over "
-                                 f"{dist.TP_AXIS!r}, the master dim {m}")
-            self.whole[name] = m
-        shapes = {}
-        for name, p in self.working.items():
-            shape = list(p.shape)
-            if name in self.whole:
-                shape[self.whole[name]] //= self.tp.size
-            shapes[name] = shape
-        self.n = ctx.sizes.get("data", 1)
-        self.data_group = ctx.mesh.get_group("data") \
-            if "data" in ctx.sizes else None
-        self.pod_group = ctx.mesh.get_group("pod") \
-            if "pod" in ctx.sizes else None
+        super().__init__(model, ctx)
         self.replicas = ctx.axis_size("act_batch")
-        self.units = {u: _Unit(names, shapes, dims, self.n)
-                      for u, names in model.zero3_units().items()}
-        self.unit_of = {name: u for u, unit in self.units.items()
-                        for name in unit.names}
         self.local: Dict[str, torch.Tensor] = {}   # the masters' shards
         self.grads: Dict[str, torch.Tensor] = {}
         self.accumulate = False
-        # (this rank's batch shard, shards): the model's MoE layers route
-        # the ranks' rows as one batch (``models.moe.apply_moe``)
-        self.token_shard: Tuple[int, int] = (0, 1)
         self.active = False
+        self.pod_group = ctx.mesh.get_group("pod") \
+            if "pod" in ctx.sizes else None
+        # a unit's float32 gradient buffers (allocated on first use) and
+        # the names whose gradient is in
+        self.grad: Dict[str, torch.Tensor] = {}
+        self.rep_grad: Dict[str, torch.Tensor] = {}
+        self.seen: Dict[str, set] = {u: set() for u in self.units}
         self.handles = [p.register_post_accumulate_grad_hook(
             functools.partial(self._on_grad, name))
             for name, p in self.working.items()]
@@ -299,20 +223,12 @@ class _Zero3:
         released, the buffers dropped."""
         self.active, self.model.zero3 = False, None
         self.local, self.grads = {}, {}
-        for unit in self.units.values():
-            unit.grad = unit.rep_grad = None
-            unit.seen = set()
+        self.grad, self.rep_grad = {}, {}
+        self.seen = {u: set() for u in self.units}
         for p in self.working.values():
             if p.numel():
                 self._release(p)
         self.model.weights_released = True
-
-    def _whole(self, pname: str, t: torch.Tensor) -> torch.Tensor:
-        """``t``, the master's "model" slice of a working weight, gathered
-        whole over "model" where every rank computes with all of it."""
-        if pname not in self.whole:
-            return t
-        return dist.gather_dim(t, self.whole[pname], self.tp)
 
     @torch.no_grad()
     def gather(self, name: str) -> None:
@@ -329,24 +245,7 @@ class _Zero3:
         for pname, _, shape, off in unit.shard:
             send[off:off + math.prod(shape)].view(shape).copy_(
                 self.local[pname])
-        recv = send
-        if self.n > 1:          # over one rank the identity: skipped
-            recv = torch.empty(self.n * unit.size, dtype=dtype,
-                               device=first.device)
-            _all_gather(recv, send, group=self.data_group)
-        rows = recv.view(self.n, unit.size)
-        for pname, d, shape, off in unit.shard:
-            piece = rows[:, off:off + math.prod(shape)].unflatten(1, shape)
-            self.working[pname].data = self._whole(
-                pname, piece.movedim(0, d).flatten(d, d + 1))
-
-    def release(self, name: str) -> None:
-        for pname in self.units[name].names:
-            self._release(self.working[pname])
-
-    @staticmethod
-    def _release(p: torch.Tensor) -> None:
-        p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        self._gather_shards(unit, send)
 
     @torch.no_grad()
     def _on_grad(self, name: str, p: torch.Tensor) -> None:
@@ -358,28 +257,30 @@ class _Zero3:
             m = self.whole[name]
             k = g.shape[m] // self.tp.size
             g = g.narrow(m, self.tp.rank * k, k)
-        unit = self.units[self.unit_of[name]]
-        if unit.grad is None and unit.shard:
-            unit.grad = torch.empty(self.n * unit.size, dtype=torch.float32,
-                                    device=g.device)
-        if unit.rep_grad is None and unit.rep:
-            unit.rep_grad = torch.empty(unit.rep_size, dtype=torch.float32,
-                                        device=g.device)
+        u = self.unit_of[name]
+        unit, seen = self.units[u], self.seen[u]
+        if u not in self.grad and unit.shard:
+            self.grad[u] = torch.empty(self.n * unit.size,
+                                       dtype=torch.float32, device=g.device)
+        if u not in self.rep_grad and unit.rep:
+            self.rep_grad[u] = torch.empty(unit.rep_size,
+                                           dtype=torch.float32,
+                                           device=g.device)
         d, shape, off = unit.slot[name]
         if d is None:
-            dst = unit.rep_grad[off:off + g.numel()].view(shape)
+            dst = self.rep_grad[u][off:off + g.numel()].view(shape)
             src = g
         else:
-            dst = unit.grad.view(self.n, unit.size)[
+            dst = self.grad[u].view(self.n, unit.size)[
                 :, off:off + math.prod(shape)].unflatten(1, shape)
             src = g.unflatten(d, (self.n, shape[d])).movedim(d, 0)
-        if name in unit.seen:           # a later microbatch
+        if name in seen:                # a later microbatch
             dst.add_(src)
         else:
             dst.copy_(src)              # widening: exact
-            unit.seen.add(name)
-        if not self.accumulate and len(unit.seen) == len(unit.names):
-            self.reduce(self.unit_of[name])
+            seen.add(name)
+        if not self.accumulate and len(seen) == len(unit.names):
+            self.reduce(u)
 
     @torch.no_grad()
     def reduce(self, name: str) -> None:
@@ -387,17 +288,17 @@ class _Zero3:
         its masters' placements, over their number."""
         unit = self.units[name]
         if unit.shard:
-            out = unit.grad
+            out = grad = self.grad.pop(name)
             if self.n > 1:
                 out = torch.empty(unit.size, dtype=torch.float32,
-                                  device=unit.grad.device)
-                _reduce_scatter(out, unit.grad, group=self.data_group)
+                                  device=grad.device)
+                _reduce_scatter(out, grad, group=self.data_group)
             self._sum(out, self.pod_group)
             for pname, _, shape, off in unit.shard:
                 self.grads[pname] = out[off:off + math.prod(shape)].view(
                     shape)
         if unit.rep:
-            out = unit.rep_grad
+            out = self.rep_grad.pop(name)
             self._sum(out, self.data_group)
             self._sum(out, self.pod_group)
             for pname in unit.rep:
@@ -407,8 +308,7 @@ class _Zero3:
         if self.replicas > 1:
             for pname in unit.names:
                 self.grads[pname].div_(self.replicas)
-        unit.grad = unit.rep_grad = None
-        unit.seen = set()
+        self.seen[name] = set()
 
     @staticmethod
     def _sum(t: torch.Tensor, group) -> None:
@@ -506,7 +406,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     ctx = dist.current()
     if ctx is not None:
         if batch_shard is None:
-            batch_shard = _row_shard(ctx)
+            batch_shard = fsdp.row_shard(ctx)
         return _sharded_step(model, opt_cfg, microbatch, decay, ctx,
                              batch_shard)
 
@@ -541,26 +441,6 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step
-
-
-def _batch_shard(ctx: dist.DistContext, global_batch: int
-                 ) -> Tuple[int, int]:
-    """(this rank's shard, number of shards) of the batch dim, which
-    ``act_batch`` splits over "pod" and "data" (row-major), or (0, 1) where
-    the batch does not divide them and replicates."""
-    if ctx.spec(("act_batch",), (global_batch,))[0] is None:
-        return 0, 1
-    return _row_shard(ctx)
-
-
-def _row_shard(ctx: dist.DistContext) -> Tuple[int, int]:
-    """(this rank's shard, number of shards) of ``act_batch`` (row-major
-    over "pod" and "data")."""
-    coord = dict(zip(ctx.sizes, ctx.mesh.get_coordinate()))
-    index = 0
-    for axis in ctx.mesh_axes("act_batch"):
-        index = index * ctx.sizes[axis] + coord[axis]
-    return index, ctx.axis_size("act_batch")
 
 
 def make_serve_step(model: Model) -> Callable:
@@ -615,7 +495,7 @@ class Trainer:
         self.params = master_params(model) if self.ctx is None \
             else shard_params(model, self.ctx)
         self.batch_shard = (0, 1) if self.ctx is None \
-            else _batch_shard(self.ctx, data.cfg.global_batch)
+            else fsdp.batch_shard(self.ctx, data.cfg.global_batch)
         self.opt_state = init_opt_state(self.params)
         self._step_fn = make_train_step(model, cfg.opt, cfg.microbatch,
                                         self.batch_shard)

@@ -24,10 +24,14 @@ package's dry run.
   train, prefill and decode cells on (16, 16) as rank 37. Each runs, its
   JSON has every key ``run_cell`` writes, and each per-rank cache shape
   equals the reference's ``cache_dims`` spec of its global shape, but for
-  the layouts the port keeps on purpose (``WHOLE_CACHE``). The moe train
-  cell at ``reduced``'s 4 experts raises (ROADMAP queue 3): the ZeRO-3
-  step's routing across ranks needs one batch shard a rank, and "model"
-  = 16 does not split 4 experts.
+  the layouts the port keeps on purpose (``WHOLE_CACHE``). A served
+  cell (prefill, decode) holds as its weights exactly the sum of its
+  shards under the reference's ``param_sharding`` resolution, in
+  bfloat16, and its collectives count at least the "data" all-gather of
+  every weight's "model" slice. The moe train cell at ``reduced``'s 4
+  experts, which "model" = 16 does not split, runs: the ZeRO-3 step
+  routes the batch across the 16 batch ranks that share its "model"
+  coordinate.
 """
 import functools
 import math
@@ -45,6 +49,7 @@ from repro.dist import api as jax_dist
 from repro.models import common as jax_common
 from repro.models.model import Model as JaxModel
 from repro.models.model import input_specs as jax_input_specs
+import repro_torch.configs
 from repro_torch.configs import get_config, get_shape, list_configs
 from repro_torch.dist import api as dist
 from repro_torch.launch import dryrun
@@ -238,8 +243,8 @@ def walk(tmp_path_factory):
 
 def test_every_family_cell_runs_and_writes_every_key(walk):
     keys = {"arch", "shape", "mesh", "chips", "kind", "rank", "rows",
-            "build_s", "step_s", "memory", "cache_shapes", "step_static",
-            "roofline"}
+            "weights_dtype", "reference_weights_dtype", "build_s", "step_s",
+            "memory", "cache_shapes", "step_static", "roofline"}
     roofline_keys = set(Roofline("a", "s", "m", 1, 1.0, 1.0, 0.0, {},
                                  1.0).to_dict())
     for family in workers.WALK:
@@ -319,9 +324,58 @@ def test_cache_shapes_follow_the_references_cache_dims(walk, family, shape):
 
 
 def test_moe_with_experts_model_does_not_split_raises(walk):
-    assert walk["pinned"] is not None
-    assert "routing across ranks needs one batch shard a rank" in \
-        walk["pinned"]
+    """No longer raises: the moe train cell whose 4 experts "model" = 16
+    does not split runs on rank 37, its step routing the batch across the
+    16 batch ranks (one all-gather of the expert counts a layer)."""
+    got = walk["pinned"]
+    assert got["kind"] == "train" and got["rank"] == workers.RANK
+    assert got["rows"] == get_shape("train_4k").global_batch // MESH["data"]
+    assert got["step_static"]["flops_per_chip"] > 0
+    assert got["memory"]["fits"] is True
+    assert got["step_static"]["kernel_calls"]["flash_attention_bwd"] > 0
+
+
+def _entry(e) -> tuple:
+    return (e,) if isinstance(e, str) else e or ()
+
+
+def _shard_bytes(cfg, itemsize: int) -> tuple:
+    """(bytes of every parameter's block under the reference's
+    ``param_sharding`` resolution on (16, 16), bytes of the "model" slices
+    of the parameters it splits over "data", bytes of a rank's working
+    weights, every one whole over "data")."""
+    model = Model(cfg, device="meta", seed=None)
+    jctx = jax_dist.DistContext(fake_mesh(**MESH))
+    shards = gathered = 0
+    for name, axes in model.param_axes().items():
+        shape = model.global_shapes()[name]
+        spec = [_entry(e) for e in jctx.spec(axes, shape)]
+        shards += math.prod(n // math.prod(MESH[a] for a in e)
+                            for n, e in zip(shape, spec))
+        if any("data" in e for e in spec):
+            gathered += math.prod(n // (MESH["model"] if "model" in e
+                                        else 1) for n, e in zip(shape, spec))
+    model._shard_tp(dist.TPGroup(None, 0, MESH["model"], False))
+    working = sum(p.numel() for p in model.parameters())
+    return shards * itemsize, gathered * itemsize, working * itemsize
+
+
+@pytest.mark.parametrize("family", sorted(workers.WALK))
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_served_cells_hold_their_fsdp_shards(walk, family, shape):
+    """A served cell's weights a rank are its shards under the reference's
+    ``param_sharding`` (bfloat16), less than its working weights are
+    gathered at once, and its all-gathers count at least every "data"
+    split weight's "model" slice, gathered once a call."""
+    got = walk[f"{family}/{shape}"]
+    cfg = workers.config(family, get_config(workers.WALK[family]),
+                         repro_torch.configs.reduced)
+    shards, gathered, working = _shard_bytes(cfg, 2)
+    assert got["weights_dtype"] == "bfloat16"
+    assert got["reference_weights_dtype"] == "float32"
+    assert got["memory"]["weights"] == shards
+    assert 0 < got["memory"]["gathered"] < working
+    assert got["roofline"]["coll_breakdown"]["all-gather"] >= gathered
 
 
 def test_cell_needs_a_process_of_its_own(monkeypatch):

@@ -79,7 +79,7 @@ def test_every_module_is_covered():
                  "repro_torch.launch.dryrun",
                  "repro_torch.launch.step_analysis",
                  "repro_torch.launch.roofline",
-                 "repro_torch.kernels.meta"):
+                 "repro_torch.kernels.meta", "repro_torch.models.fsdp"):
         assert want in names
 
 

@@ -448,6 +448,12 @@ def run_rank(rank: int, world: int, store: str, out: str, suite: str
     try:
         if suite == "train":
             _train_suite(rank, out)
+        elif suite == "serve_fsdp":
+            import torch_serve_fsdp_workers
+            torch_serve_fsdp_workers.serve_suite(rank, out)
+        elif suite == "route":
+            import torch_moe_route_workers
+            torch_moe_route_workers.route_suite(rank, out)
         elif suite in FAMILY_SUITES:
             family_suite(rank, out, suite)
         else:
@@ -567,6 +573,19 @@ def _model_suite(rank: int, out: str, suite: str) -> None:
         np.savez(os.path.join(out, f"{case}_rank{rank}.npz"), **arrays)
         with open(os.path.join(out, f"{case}_rank{rank}.json"), "w") as f:
             json.dump(facts, f)
+
+
+def keep_rule(idx, C):
+    """The reference's drop rule on experts idx (..., k): slot s (flat
+    (token, choice) order) is kept while fewer than C earlier slots chose
+    its expert."""
+    flat = idx.reshape(-1)
+    seen: dict = {}
+    keep = np.zeros(flat.size, bool)
+    for s, e in enumerate(flat):
+        keep[s] = seen.get(int(e), 0) < C
+        seen[int(e)] = seen.get(int(e), 0) + 1
+    return keep.reshape(idx.shape)
 
 
 def rank_cache(model, seeded: dict) -> dict:
